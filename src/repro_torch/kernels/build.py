@@ -1,0 +1,75 @@
+"""Build the package's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
+``build/lib<name>-<hash>.so`` at the root of the checkout, then loaded with
+``ctypes``.  The hash covers the source and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  Nothing is built when the
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    """One compiled library: where it is, how long ``nvcc`` took (0.0 when
+    an earlier build of the same source was found) and what it printed
+    (with ``-Xptxas=-v``: each kernel's registers and shared memory)."""
+    path: Path
+    seconds: float
+    log: str
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and CUDA_HOME:
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if nvcc is None or not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return nvcc
+
+
+@functools.cache
+def build(name: str) -> Build:
+    """Compile ``csrc/<name>.cu`` (once per process and source version)."""
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}-{key}.so"
+    if out.exists():
+        return Build(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    # rename last: a concurrent process never loads a half-written library
+    os.replace(tmp, out)
+    return Build(out, seconds, proc.stderr + proc.stdout)
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
+    return ctypes.CDLL(str(build(name).path))

@@ -1,0 +1,131 @@
+"""Hopper kernel: sparse-sparse CS contraction (paper §3.2 / Fig. 8).
+
+For each of the K non-zero activations of a row, fetch the corresponding
+packed weight row, mask it by Kernel-ID match (route == offset), scale it
+by the activation value, and accumulate:
+
+  out[b, g·N+s] = Σ_k vals[b,k] · packed_p[p_idx[b,k], g, s]
+                              · [route[g // R, p_idx[b,k], s] == s_off[b,k]]
+
+Layouts:
+  vals     (B, K)       f32   activation values
+  p_idx    (B, K)       int32 partition index of each non-zero
+  s_off    (B, K)       int32 offset-within-partition of each non-zero
+  packed_p (P, G, N)    f32 or bf16, partition-major (made once at load)
+  route    (G/R, P, N)  int8, the layers' own layout (never repeated to G)
+  out      (B, G·N)     f32
+
+The CUDA source is ``csrc/topk_gather.cu``; its header says which TPU
+kernel it replaces, what bounds it and how it is laid out.
+:func:`topk_gather` launches it for CUDA tensors and runs
+:func:`topk_gather_plain` for CPU tensors; it never falls back on a CUDA
+tensor.  ``topk_gather.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import load_library
+
+#: pack factors the kernel is instantiated for
+SUPPORTED_N = (1, 2, 4, 8, 16)
+_PACKED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(vals, p_idx, s_off, packed_p, route):
+    """Validate the operands; returns (B, K, P, G, N, R)."""
+    if vals.ndim != 2:
+        raise ValueError(f"vals must be (B, K), got {tuple(vals.shape)}")
+    b, k = vals.shape
+    if k < 1:
+        raise ValueError(f"k_nnz={k} must be >= 1 (at least one non-zero "
+                         "per row)")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"vals must be float32, got {vals.dtype}")
+    for name, t in (("p_idx", p_idx), ("s_off", s_off)):
+        if tuple(t.shape) != (b, k):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(b, k)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if packed_p.ndim != 3 or packed_p.dtype not in _PACKED_DTYPES:
+        raise TypeError("packed_p must be (P, G, N) float32 or bfloat16, got "
+                        f"{tuple(packed_p.shape)} {packed_p.dtype}")
+    p, g, n = packed_p.shape
+    if route.dtype != torch.int8:
+        raise TypeError(f"route must be int8, got {route.dtype}")
+    if (route.ndim != 3 or tuple(route.shape[1:]) != (p, n)
+            or g % route.shape[0]):
+        raise ValueError(f"route {tuple(route.shape)} does not fit packed_p "
+                         f"{tuple(packed_p.shape)}: want (G/R, P, N)")
+    devices = {t.device for t in (vals, p_idx, s_off, packed_p, route)}
+    if len(devices) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
+    return b, k, p, g, n, g // route.shape[0]
+
+
+def topk_gather_plain(vals, p_idx, s_off, packed_p, route) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on the kernel's operands
+    (ported from ``repro.kernels.ref.ref_topk_gather``).  Returns (B, G·N)
+    float32."""
+    b, k, p, g, n, r = _check(vals, p_idx, s_off, packed_p, route)
+    p_idx = p_idx.long()
+    wrow = packed_p[p_idx].float()                       # (B, K, G, N)
+    rrow = route[:, p_idx].permute(1, 2, 0, 3)           # (B, K, G/R, N)
+    hit = rrow == s_off[:, :, None, None].to(rrow.dtype)
+    if r > 1:
+        hit = hit.repeat_interleave(r, dim=2)            # (B, K, G, N)
+    y = torch.einsum("bk,bkgs->bgs", vals, wrow * hit)
+    return y.reshape(b, g * n)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("topk_gather")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.topk_gather_launch.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
+                                       i32, i32, i32, i32, i32, i32, ptr]
+    lib.topk_gather_launch.restype = i32
+    lib.topk_gather_error_string.argtypes = [i32]
+    lib.topk_gather_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def topk_gather(vals, p_idx, s_off, packed_p, route) -> torch.Tensor:
+    """Sparse-sparse contraction of K non-zeros per row against packed
+    weights.  CUDA tensors: the kernel, on the current stream, or an
+    exception.  CPU tensors: :func:`topk_gather_plain`.  Returns (B, G·N)
+    float32."""
+    b, k, p, g, n, r = _check(vals, p_idx, s_off, packed_p, route)
+    dev = vals.device
+    if dev.type == "cpu":
+        return topk_gather_plain(vals, p_idx, s_off, packed_p, route)
+    if dev.type != "cuda":
+        raise ValueError(f"topk_gather takes CPU or CUDA tensors, got {dev}")
+    if n not in SUPPORTED_N:
+        raise ValueError(f"pack factor N={n} not in {SUPPORTED_N}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    for name, t in (("vals", vals), ("p_idx", p_idx), ("s_off", s_off),
+                    ("packed_p", packed_p), ("route", route)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _library()
+    out = torch.empty((b, g * n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.topk_gather_launch(
+            vals.data_ptr(), p_idx.data_ptr(), s_off.data_ptr(),
+            packed_p.data_ptr(), _PACKED_DTYPES[packed_p.dtype],
+            route.data_ptr(), out.data_ptr(), b, k, p, g, n, r, stream)
+    if rc != 0:
+        raise RuntimeError("topk_gather launch failed: "
+                           + lib.topk_gather_error_string(rc).decode())
+    topk_gather.launches += 1
+    return out
+
+
+topk_gather.launches = 0

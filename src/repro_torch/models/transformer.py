@@ -1,0 +1,209 @@
+"""Decoder LM assembled from config-driven blocks: the attention-block
+(dense GQA) models of the reference's ``repro.models.transformer``.
+
+The reference scans over stacked superblocks; here the stack is a Python
+loop over ``params["layers"]``, one dict per layer (layer ``u·L + i`` is
+block ``b{i}`` of unit ``u`` for a block pattern of length L), and the
+decode cache is a list of per-layer dicts to match.
+
+Entry points:
+  :func:`forward` — full-sequence logits.
+  :func:`prefill` + :func:`serve_step` + :func:`init_cache` — fused prompt
+  prefill and one-token decode with the contiguous KV cache.
+
+MLA, MoE and the SSM/hybrid block kinds are later slices of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from . import attention as A
+from .common import (dtype_of, embedding_apply, embedding_init,
+                     lm_head_apply, normal_init, resolve_device,
+                     rmsnorm_apply, rmsnorm_init)
+from .ffn import ffn_apply, ffn_init
+
+#: leaves that every use casts to the compute dtype
+_COMPUTE_LEAVES = ("w", "b", "packed", "packed_p", "table")
+
+
+def check_supported(cfg) -> None:
+    if any(k != "attn" for k in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: block pattern {cfg.block_pattern} is not ported "
+            "yet (only attention blocks)")
+    if cfg.use_mla or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MLA / MoE blocks are not "
+                                  "ported yet")
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
+                                  "is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _block_init(gen: torch.Generator, cfg):
+    p = {"norm1": rmsnorm_init(cfg.d_model, gen.device),
+         "mixer": A.gqa_init(gen, cfg),
+         "norm2": rmsnorm_init(cfg.d_model, gen.device)}
+    if cfg.d_ff > 0:
+        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_sparsity,
+                            cfg.act)
+    return p
+
+
+def _ffn_residual(params, x, cfg):
+    if "ffn" not in params:
+        return x
+    h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
+    return x + ffn_apply(params["ffn"], h, cfg.ffn_sparsity, cfg.act)
+
+
+def _block_apply(params, x, cfg, positions):
+    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    x = x + A.gqa_apply(params["mixer"], h, cfg, positions)
+    return _ffn_residual(params, x, cfg)
+
+
+def _block_prefill(params, x, cfg, positions, max_seq: int):
+    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    h, cache = A.gqa_prefill(params["mixer"], h, cfg, positions, max_seq)
+    return _ffn_residual(params, x + h, cfg), cache
+
+
+def _block_decode(params, x, cfg, cache, pos):
+    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    h, cache = A.gqa_decode(params["mixer"], h, cfg, cache, pos)
+    return _ffn_residual(params, x + h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
+
+def prepare_params(params: Dict, cfg) -> Dict:
+    """Cast every weight to the compute dtype, once.
+
+    Each use in the reference casts its weight to the compute dtype, so
+    the values are the same; storing them cast saves a copy of every
+    weight at every step.  Norm scales stay float32, as they are used.
+    """
+    ct = dtype_of(cfg.compute_dtype)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict) else
+                    [cast(x) for x in v] if isinstance(v, list) else
+                    v.to(ct) if k in _COMPUTE_LEAVES else v)
+                for k, v in tree.items()}
+
+    return cast(params)
+
+
+def init_model(cfg, seed: int = 0, device=None) -> Dict:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
+    drawn from the reference's distributions (uniform ±1/sqrt(fan-in) for
+    dense, ±sqrt(N/D_in) for packed, normal(0.02) for tables), with the
+    reference's numpy routes.  Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model),
+              "layers": [_block_init(gen, cfg) for _ in range(cfg.n_layers)],
+              "final_norm": rmsnorm_init(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        params["head"] = {"table": normal_init(
+            gen, (cfg.padded_vocab, cfg.d_model), 0.02)}
+    return prepare_params(params, cfg)
+
+
+def param_count(params) -> int:
+    """Parameters of the reference's layout (the partition-major copies
+    of the packed weights are not counted)."""
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for k, v in tree.items() if k != "packed_p")
+        if isinstance(tree, list):
+            return sum(count(v) for v in tree)
+        return tree.numel()
+    return count(params)
+
+
+# ---------------------------------------------------------------------------
+# Forward / serving
+# ---------------------------------------------------------------------------
+
+def _embed(params, tokens, ct):
+    return embedding_apply(params["embed"], tokens, ct)
+
+
+def _logits(params, x, cfg, ct):
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return lm_head_apply(head, x, ct)
+
+
+def forward(params, batch, cfg):
+    """Full-sequence forward. Returns (logits, aux_loss)."""
+    check_supported(cfg)
+    ct = dtype_of(cfg.compute_dtype)
+    x = _embed(params, batch["tokens"], ct)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for layer in params["layers"]:
+        x = _block_apply(layer, x, cfg, positions)
+    return (_logits(params, x, cfg, ct),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
+    """One contiguous KV cache per layer, in the compute dtype."""
+    check_supported(cfg)
+    ct = dtype_of(cfg.compute_dtype)
+    return [A.gqa_cache_init(cfg, batch, max_seq, ct, device)
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(params, batch, cfg, max_seq: int):
+    """Fused full-sequence prefill: ONE forward over the prompt (B, S) that
+    writes every layer's KV cache in bulk — rows [0, S) of a cache padded
+    to ``max_seq`` (rows >= S are overwritten by decode before any read).
+
+    Returns (logits (B, S, vocab), cache) with the :func:`init_cache`
+    layout."""
+    check_supported(cfg)
+    ct = dtype_of(cfg.compute_dtype)
+    x = _embed(params, batch["tokens"], ct)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    cache = []
+    for layer in params["layers"]:
+        x, c = _block_prefill(layer, x, cfg, positions, max_seq)
+        cache.append(c)
+    return _logits(params, x, cfg, ct), cache
+
+
+def serve_step(params, cache, batch, pos, cfg):
+    """Decode one token given caches of past state.
+
+    batch: {"tokens": (B, 1)}.  pos: int position (static batch) or (B,)
+    tensor of per-slot positions (continuous batching).  The cache is
+    updated in place.  Returns (logits (B, vocab), cache).
+
+    Sparse-sparse decode runs the fused pipeline per layer: the FFN's
+    k-WTA output (or support) goes straight to the down projection, which
+    contracts the whole decode batch in one ``topk_gather`` launch when
+    the executor (``cfg.ffn_sparsity.use_pallas``) engages the kernel.
+    """
+    check_supported(cfg)
+    ct = dtype_of(cfg.compute_dtype)
+    x = _embed(params, batch["tokens"], ct)
+    for layer, c in zip(params["layers"], cache, strict=True):
+        x, _ = _block_decode(layer, x, cfg, c, pos)
+    return _logits(params, x, cfg, ct)[:, 0], cache

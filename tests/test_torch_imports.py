@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
+imports JAX or the reference package, and its entry points refuse to run
+on the CPU unless asked to."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import Engine
+from repro_torch.models import transformer as T
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_module_loads_neither_jax_nor_the_reference():
+    mods = _modules()
+    assert "repro_torch.kernels.topk_gather" in mods and len(mods) >= 30
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    for f in files:
+        text = f.read_text()
+        assert not IMPORT_RE.search(text), f
+        assert "import jax" not in text, f
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    cfg = get_config("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, max_seq=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"units": {}}, cfg)
+    eng = Engine(cfg, max_seq=16, device="cpu")
+    assert eng.device.type == "cpu"
