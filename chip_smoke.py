@@ -6,14 +6,14 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device — a CUDA device is present; its name and power limit.
-2. build — nvcc builds every kernel of the serving path from the sources
-   in this checkout.
-3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it (and a few more), then its time,
-   its plain version's time and that of one PyTorch library call of the
-   same function, with the weights cold in L2 as the serving path finds
-   them (and warm, beside them), and the least time the card could take
-   for the same bytes and flops.
+2. build — nvcc builds every kernel of the package from the sources in
+   this checkout, one process per source, all started together.
+3. kernels — ``topk_gather`` against its plain PyTorch version on the card
+   at the shapes the serving path gives it (and the reference's sweep),
+   then its time, its plain version's time and that of one PyTorch library
+   call of the same function, with the weights cold in L2 as the serving
+   path finds them (and warm, beside them), and the least time the card
+   could take for the same bytes and flops.
 4. serve — ``Engine.serve`` on the shipped smollm-360m config at full
    width (bf16, 4 slots, 8 requests, prompt 16, gen 16, the engine's
    random weights from seed 0); the kernel launch counts show the decode
@@ -23,6 +23,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. parity — the same weights in float32: one prefill and three decode
    steps through the kernel and through the PyTorch formula
    (``use_pallas="off"``) give the same logits.
+6. ops — the kernel-ops API (``repro_torch.kernels.ops``) at smollm-360m's
+   full FFN widths (N=4, the one shared route of ``route_share=0``, up
+   960->2560 and down 2560->960, T=4 and T=128 tokens): ``packed_matmul``,
+   ``grouped_cs_matmul`` and ``kwta_hist`` against their plain versions
+   in bf16 and f32 and at the reference's sweeps (``kwta_hist`` bin for
+   bin), grouped after the shared permutation against packed; one forward
+   and backward through each of the five ops, whose gradients must equal
+   autograd's through the plain versions, with the launch counts of that
+   run; then each kernel's time, L2-cold and warm, beside its plain
+   version, one library call and its bound.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -35,6 +45,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -46,29 +57,22 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and float32 rate
-# outside the tensor cores, the units the topk_gather kernel uses.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # The FFN down projection of smollm-360m at decode with 4 slots:
 # B=4 rows, K=k_for(2560)=320 winners, P=2560/4, G=960/4, N=4, R=G.
 MAIN_SHAPE = dict(b=4, k=320, p=640, g=240, n=4, r=240)
-# Every other shape the check runs: the decode batches 1 and 7 (the last
-# with B*K < d_ff), the faithful per-group routes (R=1), and the three
-# shapes of the reference kernel's sweep (kernels/registry.py), in f32.
-CHECK_SHAPES = [
-    (dict(MAIN_SHAPE), torch.bfloat16),
-    (dict(MAIN_SHAPE, b=1), torch.bfloat16),
-    (dict(MAIN_SHAPE, b=7), torch.bfloat16),
-    (dict(MAIN_SHAPE, r=1), torch.bfloat16),
-    (dict(b=4, k=16, p=32, g=8, n=4, r=8), torch.float32),
-    (dict(b=8, k=32, p=64, g=16, n=4, r=16), torch.float32),
-    (dict(b=2, k=8, p=16, g=4, n=4, r=4), torch.float32),
-]
-# Copies of the main shape's weights the timing rotates over: 64 x 1.2 MB
-# of bf16 packed weights exceed the card's 50 MB L2.
+# Copies of a layer's weights the timing rotates over: 64 x 1.2 MB of bf16
+# packed weights exceed the card's 50 MB L2.
 COPIES = 64
+# The ops phase's token counts: a decode batch of 4 slots, and a prefill of
+# 8 prompts x 16 tokens (the shape every kernel is timed at).
+OPS_TOKENS = (4, 128)
+TIMED_TOKENS = 128
 # Device activities of the profiled decode step printed, longest first.
 PROFILE_TOP = 12
 
@@ -148,24 +152,50 @@ def bound(vals, p_idx, packed_p, route):
                                        else "operations")
 
 
+def check(label, got, want, exact=False, phase="ops"):
+    """Hold a kernel's result against its plain version's on the card;
+    returns the max abs error.  The products accumulate in f32 in both and
+    differ only in the order of the sums: tolerance 1e-3·(1+max|plain|).
+    ``exact``: equal element for element (k-WTA keeps the same set)."""
+    torch.cuda.synchronize()
+    err = (float((got.float() - want.float()).abs().max())
+           if want.numel() else 0.0)
+    if exact:
+        tol, ok = 0.0, bool(torch.equal(got, want))
+    else:
+        tol = 1e-3 * (1.0 + float(want.float().abs().max()))
+        ok = err <= tol
+    print(f"[{phase}] {label}: max_abs_err={err:.3e} tol={tol:.3e}")
+    if not ok:
+        fail(f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def topk_check_shapes():
+    """The main shape, the decode batches 1 and 7 (the last with B*K <
+    d_ff), the faithful per-group routes (R=1), and the reference's sweep
+    (kernels/registry.py) in f32 with all groups sharing one route."""
+    from repro_torch.kernels.registry import TOPK_GATHER_SWEEP
+    return ([(dict(MAIN_SHAPE), torch.bfloat16),
+             (dict(MAIN_SHAPE, b=1), torch.bfloat16),
+             (dict(MAIN_SHAPE, b=7), torch.bfloat16),
+             (dict(MAIN_SHAPE, r=1), torch.bfloat16)]
+            + [(dict(b=b, k=k, p=p, g=g, n=n, r=g), torch.float32)
+               for b, k, p, g, n, _ in TOPK_GATHER_SWEEP])
+
+
 def phase_kernels():
     from repro_torch.core.functional import decompress
     from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
     worst = 0.0
-    for i, (shape, dtype) in enumerate(CHECK_SHAPES):
+    for i, (shape, dtype) in enumerate(topk_check_shapes()):
         vals, p_idx, s_off, packed_p, route, _ = kernel_operands(
             shape, dtype, SEED + i)
-        got = topk_gather(vals, p_idx, s_off, packed_p, route)
-        want = topk_gather_plain(vals, p_idx, s_off, packed_p, route)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # both accumulate in f32 and differ only in the order of the sums
-        tol = 1e-3 * (1.0 + float(want.abs().max()))
-        print(f"[kernels] topk_gather {shape} {str(dtype)[6:]}: "
-              f"max_abs_err={err:.3e} tol={tol:.3e}")
-        if not err <= tol:
-            fail(f"topk_gather disagrees with its plain version at {shape}")
-        worst = max(worst, err)
+        worst = max(worst, check(
+            f"topk_gather {shape} {str(dtype)[6:]}",
+            topk_gather(vals, p_idx, s_off, packed_p, route),
+            topk_gather_plain(vals, p_idx, s_off, packed_p, route),
+            phase="kernels"))
     vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
         MAIN_SHAPE, torch.bfloat16, SEED)
     # library yardstick, never called by the port: the scattered k-sparse
@@ -205,9 +235,26 @@ def phase_kernels():
             "bound_by": bound_by, "library_ms": cold["library"]}
 
 
+def kernel_wrappers():
+    """Every kernel wrapper of the package, by the name its row carries."""
+    from repro_torch.kernels import (grouped_cs_matmul, kwta_hist_cuda,
+                                     packed_matmul, topk_gather)
+    return {"topk_gather": topk_gather, "packed_matmul": packed_matmul,
+            "grouped_cs_matmul": grouped_cs_matmul,
+            "kwta_hist": kwta_hist_cuda}
+
+
+def reset_counts():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
 def phase_serve():
     from repro_torch.configs import get_config
-    from repro_torch.kernels.topk_gather import topk_gather
     from repro_torch.launch.serve import Engine
     from repro_torch.runtime.scheduler import Request
     cfg = get_config("smollm-360m")
@@ -220,13 +267,14 @@ def phase_serve():
                     max_new_tokens=gen) for i in range(n_req)]
     engine.serve(reqs[:1])                 # warm-up: cuBLAS, allocator
     engine.prefill_calls = 0
-    topk_gather.launches = 0
+    reset_counts()
     out, stats = engine.serve(reqs)
-    launches = topk_gather.launches
+    counts = read_counts()
+    launches = counts["topk_gather"]
     steps = stats["decode_steps"]
     print(f"[serve] smollm-360m full width bf16: {n_req} requests, "
           f"{steps} decode steps, {stats['prefill_calls']} prefill calls, "
-          f"topk_gather launches {launches}")
+          f"kernel launches {counts}")
     if stats["prefill_calls"] != n_req:
         fail(f"prefill_calls {stats['prefill_calls']} != {n_req}")
     if launches == 0 or launches != cfg.n_layers * steps:
@@ -257,7 +305,7 @@ def phase_serve():
         for name, (count, ms) in sorted(acts.items(),
                                         key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
             print(f"[serve]   {ms:8.3f} ms {count:5d}x {name[:100]}")
-    return launches
+    return launches, steps
 
 
 def _decode_step(engine):
@@ -348,11 +396,293 @@ def phase_parity():
         fail("kernel path and formula path disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the kernel-ops API at smollm-360m's full FFN widths
+# ---------------------------------------------------------------------------
+
+# The rows of the kernels line that phase 6 fills: source and the TPU
+# kernel each replaces (file:line of the wrapper that reaches pallas_call).
+OPS_KERNELS = {
+    "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
+                      "src/repro/kernels/packed_matmul.py:64"),
+    "grouped_cs_matmul": ("src/repro_torch/kernels/csrc/grouped_cs_matmul.cu",
+                          "src/repro/kernels/grouped_cs_matmul.py:46"),
+    "kwta_hist": ("src/repro_torch/kernels/csrc/kwta_hist.cu",
+                  "src/repro/kernels/kwta_hist.py:75"),
+}
+KWTA_NO_LIBRARY = ("no single PyTorch call computes the histogram "
+                   "threshold; torch.topk is another function")
+
+
+def ffn_layers(cfg, dtype, seed):
+    """smollm-360m's FFN up (d_model -> d_ff) and down (d_ff -> d_model)
+    projections at full width as ``packed_linear_init`` makes them
+    (route_share=0: one route for all groups, R=G), as {name: (packed,
+    packed_p, route)} in ``dtype``, on the card."""
+    from repro_torch.core.layers import packed_linear_init
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, d_in, d_out in (("up", cfg.d_model, cfg.d_ff),
+                              ("down", cfg.d_ff, cfg.d_model)):
+        layer = packed_linear_init(gen, d_in, d_out, cfg.ffn_sparsity,
+                                   bias=False, seed=seed)
+        out[name] = (layer["packed"].to(dtype), layer["packed_p"].to(dtype),
+                     layer["route"])
+    return out
+
+
+def randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def ops_checks(cfg):
+    """Each kernel against its plain version: the FFN's full widths at T=4
+    and T=128 in bf16 and f32, and the reference's sweeps in f32.  Returns
+    the worst error of each kernel."""
+    from repro_torch.core import CSLayout, make_routes
+    from repro_torch.kernels import (grouped_cs_matmul, grouped_cs_matmul_plain,
+                                     interleave_out, kwta_hist_cuda,
+                                     kwta_hist_cuda_plain, packed_matmul,
+                                     packed_matmul_plain, permute_activations,
+                                     slot_major_packed)
+    from repro_torch.kernels.registry import (GROUPED_CS_SWEEP,
+                                              KWTA_HIST_SWEEP,
+                                              PACKED_MATMUL_SWEEP)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 100)
+    worst = dict.fromkeys(OPS_KERNELS, 0.0)
+
+    def hold(name, label, got, want, exact=False):
+        worst[name] = max(worst[name],
+                          check(f"{name} {label}", got, want, exact))
+
+    k = cfg.ffn_sparsity.k_for(cfg.d_ff)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        for proj, (packed, _, route) in ffn_layers(cfg, dtype, SEED).items():
+            pk = slot_major_packed(packed)
+            for t in OPS_TOKENS:
+                x = randn(gen, t, packed.shape[1] * packed.shape[2],
+                          dtype=dtype)
+                label = f"{proj} T={t} {dn}"
+                y = packed_matmul(x, packed, route)
+                hold("packed_matmul", label, y,
+                     packed_matmul_plain(x, packed, route))
+                xg = permute_activations(x, route)
+                yg = grouped_cs_matmul(xg, pk)
+                hold("grouped_cs_matmul", label, yg,
+                     grouped_cs_matmul_plain(xg, pk))
+                # at the shared route the two kernels compute one function
+                hold("grouped_cs_matmul", label + " == packed_matmul",
+                     interleave_out(yg), y)
+        for t, d, kk in [(t, cfg.d_ff, k) for t in OPS_TOKENS] + [(8, 1500,
+                                                                  225)]:
+            x = randn(gen, t, d, dtype=dtype)
+            hold("kwta_hist", f"({t}, {d}) K={kk} {dn}", kwta_hist_cuda(x, kk),
+                 kwta_hist_cuda_plain(x, kk), exact=True)
+        x = randn(gen, OPS_TOKENS[0], cfg.d_ff, dtype=dtype)
+        for kk in (cfg.d_ff, cfg.d_ff + 1):         # K >= D keeps the row
+            hold("kwta_hist", f"K={kk} >= D={cfg.d_ff} {dn}",
+                 kwta_hist_cuda(x, kk), x, exact=True)
+    for b, p, g, n, *_ in PACKED_MATMUL_SWEEP:
+        packed = randn(gen, g, p, n)
+        route = torch.from_numpy(make_routes(CSLayout(p * n, g * n, n),
+                                             SEED)).cuda()
+        x = randn(gen, b, p * n)
+        hold("packed_matmul", f"sweep b={b} p={p} g={g} n={n} R=1 f32",
+             packed_matmul(x, packed, route),
+             packed_matmul_plain(x, packed, route))
+    for n, b, p, g, *_ in GROUPED_CS_SWEEP:
+        xg, pk = randn(gen, n, b, p), randn(gen, n, p, g)
+        hold("grouped_cs_matmul", f"sweep n={n} b={b} p={p} g={g} f32",
+             grouped_cs_matmul(xg, pk), grouped_cs_matmul_plain(xg, pk))
+    for b, d, kk, _ in KWTA_HIST_SWEEP:
+        x = randn(gen, b, d)
+        hold("kwta_hist", f"sweep ({b}, {d}) K={kk} f32",
+             kwta_hist_cuda(x, kk), kwta_hist_cuda_plain(x, kk), exact=True)
+    return worst
+
+
+def ops_gradients(cfg):
+    """One forward and backward through each of the five ops at full width
+    in f32 (the products over T=128 tokens, the sparse-sparse ops over a
+    decode batch), with every kernel count set to 0 just before and read
+    just after; then the gradients through the kernels against autograd's
+    through the plain versions.  Returns the counts."""
+    from repro_torch.core import kwta
+    from repro_torch.kernels import (grouped_cs_matmul_op,
+                                     grouped_cs_matmul_plain,
+                                     kwta_hist_cuda_plain, kwta_hist_op,
+                                     packed_matmul_op, packed_matmul_plain,
+                                     permute_activations, slot_major_packed,
+                                     topk_gather_op, topk_gather_plain,
+                                     topk_gather_support_op, topk_support)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 200)
+    layers = ffn_layers(cfg, torch.float32, SEED + 1)
+    packed, _, route = layers["up"]
+    _, packed_p, route_down = layers["down"]
+    n, k = packed.shape[2], cfg.ffn_sparsity.k_for(cfg.d_ff)
+    x = randn(gen, TIMED_TOKENS, cfg.d_model)
+    xg, pk = permute_activations(x, route), slot_major_packed(packed)
+    h, c = randn(gen, TIMED_TOKENS, cfg.d_ff), randn(gen, TIMED_TOKENS,
+                                                     cfg.d_ff)
+    xs = kwta(randn(gen, OPS_TOKENS[0], cfg.d_ff), k)    # k-sparse, decode
+    vals, p_idx, s_off = topk_support(xs, k, n)
+
+    def sq(y):
+        return (y.float() ** 2).sum()
+
+    # name: (loss through the op, the same loss through the plain version,
+    # the differentiated operands)
+    cases = {
+        "packed_matmul_op": (
+            lambda a, w: sq(packed_matmul_op(a, w, route)),
+            lambda a, w: sq(packed_matmul_plain(a, w, route)), (x, packed)),
+        "grouped_cs_matmul_op": (
+            lambda a, w: sq(grouped_cs_matmul_op(a, w)),
+            lambda a, w: sq(grouped_cs_matmul_plain(a, w)), (xg, pk)),
+        "kwta_hist_op": (
+            lambda a: (kwta_hist_op(a, k) * c).sum(),
+            lambda a: (kwta_hist_cuda_plain(a, k) * c).sum(), (h,)),
+        "topk_gather_support_op": (
+            lambda v, w: sq(topk_gather_support_op(v, p_idx, s_off, w,
+                                                   route_down)),
+            lambda v, w: sq(topk_gather_plain(v, p_idx, s_off, w,
+                                              route_down)),
+            (vals, packed_p)),
+        "topk_gather_op": (
+            lambda a, w: sq(topk_gather_op(a, w, route_down, k)),
+            lambda a, w: sq(topk_gather_plain(*topk_support(a, k, n), w,
+                                              route_down)),
+            (xs, packed_p)),
+    }
+
+    def grads(loss, operands):
+        leaves = [t.detach().clone().requires_grad_() for t in operands]
+        return torch.autograd.grad(loss(*leaves), leaves)
+
+    reset_counts()
+    through_kernels = {name: grads(op, operands)
+                       for name, (op, _, operands) in cases.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[ops] one forward + backward through each of the five ops: "
+          f"kernel launches {counts}")
+    for name, (_, plain, operands) in cases.items():
+        for i, (got, want) in enumerate(zip(through_kernels[name],
+                                            grads(plain, operands))):
+            check(f"{name} gradient of operand {i}", got, want)
+    for name in OPS_KERNELS:
+        if counts[name] == 0:
+            fail(f"{name} was not launched by the ops' run")
+    return counts
+
+
+def product_bound(nbytes, t, d_in, d_out, n, dtype):
+    """Least time (ms) of a CS product: ``nbytes`` over the HBM rate
+    against the function's 2·T·D_in·D_out/N flops over the peak for its
+    operands' type (bf16 tensor cores, or f32 outside them)."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * t * d_in * d_out / n / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def ops_times(cfg):
+    """Each kernel, its plain version and one library call at the T=128 up
+    projection in bf16 (``kwta_hist`` at (128, d_ff)), L2-cold (rotating
+    over copies of the weights, or of the k-WTA input, larger than L2
+    together) and warm (one copy); and each kernel's bound."""
+    from repro_torch.core.functional import decompress
+    from repro_torch.kernels import (grouped_cs_matmul, grouped_cs_matmul_plain,
+                                     kwta_hist_cuda, kwta_hist_cuda_plain,
+                                     packed_matmul, packed_matmul_plain,
+                                     permute_activations, slot_major_packed)
+    bf16, t = torch.bfloat16, TIMED_TOKENS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 300)
+    packed, _, route = ffn_layers(cfg, bf16, SEED + 2)["up"]
+    g, p, n = packed.shape
+    k = cfg.ffn_sparsity.k_for(cfg.d_ff)
+    x = randn(gen, t, p * n, dtype=bf16)
+    xg = permute_activations(x, route)
+    h = randn(gen, t, cfg.d_ff, dtype=bf16)
+    weights = [(packed.clone(), route.clone(), slot_major_packed(packed),
+                decompress(packed, route)) for _ in range(COPIES)]
+    inputs = [h.clone() for _ in range(2 * COPIES)]  # 128 x 0.66 MB
+    timed = {
+        "packed_matmul": (weights, {
+            "kernel": lambda w: packed_matmul(x, w[0], w[1]),
+            "plain": lambda w: packed_matmul_plain(x, w[0], w[1]),
+            "library": lambda w: torch.matmul(x, w[3])}),
+        "grouped_cs_matmul": (weights, {
+            "kernel": lambda w: grouped_cs_matmul(xg, w[2]),
+            "plain": lambda w: grouped_cs_matmul_plain(xg, w[2]),
+            "library": lambda w: torch.bmm(xg, w[2])}),
+        "kwta_hist": (inputs, {
+            "kernel": lambda a: kwta_hist_cuda(a, k),
+            "plain": lambda a: kwta_hist_cuda_plain(a, k)}),
+    }
+    out_bytes = t * g * n * 4
+    bounds = {
+        "packed_matmul": product_bound(
+            x.numel() * 2 + packed.numel() * 2 + route.numel() + out_bytes,
+            t, p * n, g * n, n, bf16),
+        "grouped_cs_matmul": product_bound(
+            xg.numel() * 2 + packed.numel() * 2 + out_bytes,
+            t, p * n, g * n, n, bf16),
+    }
+    # k-WTA: the row read and written once, against ~7 f32 operations an
+    # element (min, max, subtract, multiply, two clamps, compare)
+    t_bytes = 2 * h.numel() * 2 / HBM_BYTES_PER_S
+    t_ops = 7 * h.numel() / F32_FLOPS
+    bounds["kwta_hist"] = (1e3 * max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations")
+    times = {}
+    for name, (copies, fns) in timed.items():
+        cold = {v: device_ms([functools.partial(fn, c) for c in copies])
+                for v, fn in fns.items()}
+        warm = {v: device_ms(functools.partial(fn, copies[0]))
+                for v, fn in fns.items()}
+        shape = ("(128, d_ff) K=%d" % k if name == "kwta_hist"
+                 else f"up T={t}")
+        for label, tm in (("L2-cold", cold), ("L2-warm", warm)):
+            print(f"[ops] {name} at {shape} bf16, {label}: " + ", ".join(
+                f"{v} {ms:.5f} ms" for v, ms in tm.items()))
+        print(f"[ops] {name} bound {bounds[name][0]:.6f} ms "
+              f"({bounds[name][1]})")
+        times[name] = (cold, warm)
+    return times, bounds
+
+
+def phase_ops(cfg):
+    worst = ops_checks(cfg)
+    counts = ops_gradients(cfg)
+    times, bounds = ops_times(cfg)
+    rows = []
+    for name, (source, replaces) in OPS_KERNELS.items():
+        cold, warm = times[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": worst[name], "ms": cold["kernel"],
+            "plain_ms": cold["plain"], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": cold.get("library"),
+            "ms_warm": warm["kernel"], "plain_ms_warm": warm["plain"],
+            "library_ms_warm": warm.get("library")})
+    rows[-1]["library_note"] = KWTA_NO_LIBRARY
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.build import build
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import build_all
     smi = device_line()
     print(f"[device] {smi}; {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__} CUDA {torch.version.cuda}")
@@ -360,24 +690,37 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    result = build("topk_gather")
-    print(f"[build] topk_gather: nvcc {result.seconds:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s with the cache check)")
-    for line in result.log.splitlines():
-        if "registers" in line or "smem" in line:
-            print(f"[build]   {line.strip()}")
+    builds = build_all(["topk_gather", "packed_matmul", "grouped_cs_matmul",
+                        "kwta_hist"])
+    print(f"[build] {len(builds)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s, in parallel")
+    for name, result in builds.items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                           result.log)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", result.log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                result.log))
+        print(f"[build] {name}: nvcc {result.seconds:.2f} s; ptxas: "
+              f"{len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers, up to "
+              f"{max(smem, default=0)} B shared memory, {spills} B spilled")
 
+    cfg = get_config("smollm-360m")
     t = time.perf_counter()
     row = phase_kernels()
     print(f"[kernels] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    row["launches"] = phase_serve()
+    row["launches"], steps = phase_serve()
+    row["launches_per_decode_step"] = row["launches"] / steps
     print(f"[serve] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_parity()
     print(f"[parity] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rows = phase_ops(cfg)
+    print(f"[ops] done in {time.perf_counter() - t:.1f} s")
 
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row] + rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

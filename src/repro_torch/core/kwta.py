@@ -67,8 +67,11 @@ def kwta_hist(x: torch.Tensor, k: int, bins: int = 256) -> torch.Tensor:
         return x
     lo = x.amin(dim=-1, keepdim=True)
     hi = x.amax(dim=-1, keepdim=True)
-    scale = torch.where(hi > lo, (bins - 1) / (hi - lo), torch.zeros_like(hi))
-    # f32 (x-lo)*scale truncated to int, as the reference quantizes
+    # a tensor numerator: `(bins - 1) / t` would be t.reciprocal() * (bins
+    # - 1), one rounding more than the reference's division
+    scale = torch.where(hi > lo, torch.full_like(hi, bins - 1) / (hi - lo),
+                        torch.zeros_like(hi))
+    # (x-lo)*scale in x's type, truncated to int, as the reference quantizes
     b = torch.clamp((x - lo) * scale, 0, bins - 1).to(torch.int64)
     hist = tF.one_hot(b, bins).sum(dim=-2)                  # (..., bins)
     # count of elements with bin >= t (reverse cumulative sum)

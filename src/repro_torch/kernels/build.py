@@ -10,6 +10,7 @@ module is imported.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -70,6 +73,26 @@ def build(name: str) -> Build:
     return Build(out, seconds, proc.stderr + proc.stdout)
 
 
+def build_all(names) -> dict:
+    """Build several sources at once, one ``nvcc`` process each, all
+    started together; returns {name: Build}."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def run_launch(lib: ctypes.CDLL, name: str, device: torch.device, *args):
+    """Call ``lib.<name>_launch(*args, stream)`` on ``device``'s current
+    stream and raise with CUDA's message if it returns an error (the
+    launch's ``cudaGetLastError()``)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: " + getattr(
+            lib, f"{name}_error_string")(rc).decode())

@@ -1,0 +1,98 @@
+"""Hopper kernel: histogram-threshold global k-WTA (paper §3.3.3, Fig. 10).
+
+Over the last axis of x (B, D): quantize each row to 256 bins over its
+[min, max], find the largest bin t whose tail count #(bin >= t) is at
+least K, and keep every element in a bin >= t (so >= K survive); the rest
+become 0.  The output has x's shape and type.
+
+The quantization is float32 whatever the input type, as the reference's
+Pallas kernel does (``repro/kernels/kwta_hist.py:46``).  The reference's
+oracle ``ref_kwta_hist`` and the port's ``repro_torch.core.kwta_hist``
+quantize in the input's own type instead, so for bf16 input they keep
+other elements than this kernel; for float32 input all agree bin for bin.
+
+The CUDA source is ``csrc/kwta_hist.cu``; its header says which TPU kernel
+it replaces, what bounds it and how it is laid out.  :func:`kwta_hist_cuda`
+launches it for CUDA tensors and runs :func:`kwta_hist_cuda_plain` for CPU
+tensors; it never falls back on a CUDA tensor.  ``kwta_hist_cuda.launches``
+counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .build import load_library, run_launch
+
+_BINS = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x: torch.Tensor, k: int):
+    """Validate the operands; returns (B, D)."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be (B, D), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if isinstance(k, bool) or not isinstance(k, int):
+        raise TypeError(f"k must be an int, got {k!r}")
+    return x.shape
+
+
+def kwta_hist_cuda_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``ref_kwta_hist``'s
+    histogram threshold, quantized in float32 as the kernel does."""
+    _check(x, k)
+    x32 = x.float()
+    lo = x32.amin(dim=-1, keepdim=True)
+    hi = x32.amax(dim=-1, keepdim=True)
+    # a tensor numerator: `255 / t` would be t.reciprocal() * 255, which is
+    # not the division the kernel rounds
+    scale = torch.where(hi > lo, torch.full_like(hi, _BINS - 1) / (hi - lo),
+                        torch.zeros_like(hi))
+    q = torch.clamp((x32 - lo) * scale, 0, _BINS - 1).to(torch.int64)
+    hist = torch.zeros((*q.shape[:-1], _BINS), dtype=torch.int64,
+                       device=x.device).scatter_add_(-1, q, torch.ones_like(q))
+    tail = hist.flip(-1).cumsum(-1).flip(-1)        # #(bin >= t)
+    t = ((tail >= k).sum(-1, keepdim=True) - 1).clamp(min=0)
+    return torch.where(q >= t, x, torch.zeros_like(x))
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("kwta_hist")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.kwta_hist_launch.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr]
+    lib.kwta_hist_launch.restype = i32
+    lib.kwta_hist_error_string.argtypes = [i32]
+    lib.kwta_hist_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def kwta_hist_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Histogram k-WTA over the last axis of x (B, D), quantized in float32.
+    CUDA tensors: the kernel, on the current stream, or an exception.  CPU
+    tensors: :func:`kwta_hist_cuda_plain`.  Returns x's shape and type."""
+    b, d = _check(x, k)
+    dev = x.device
+    if dev.type == "cpu":
+        return kwta_hist_cuda_plain(x, k)
+    if dev.type != "cuda":
+        raise ValueError(f"kwta_hist_cuda takes CPU or CUDA tensors, got {dev}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    y = torch.empty_like(x)
+    if b == 0 or d == 0:
+        return y
+    # every k <= 0 keeps bin 255 and every k > d the whole row: the clamp
+    # keeps the bins and fits k into the kernel's int
+    run_launch(_library(), "kwta_hist", dev, x.data_ptr(), _DTYPES[x.dtype],
+               y.data_ptr(), b, d, min(max(k, 0), d + 1))
+    kwta_hist_cuda.launches += 1
+    return y
+
+
+kwta_hist_cuda.launches = 0

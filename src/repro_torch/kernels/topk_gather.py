@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from .build import load_library
+from .build import load_library, run_launch
 
 #: pack factors the kernel is instantiated for
 SUPPORTED_N = (1, 2, 4, 8, 16)
@@ -113,17 +113,11 @@ def topk_gather(vals, p_idx, s_off, packed_p, route) -> torch.Tensor:
                     ("packed_p", packed_p), ("route", route)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = _library()
     out = torch.empty((b, g * n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.topk_gather_launch(
-            vals.data_ptr(), p_idx.data_ptr(), s_off.data_ptr(),
-            packed_p.data_ptr(), _PACKED_DTYPES[packed_p.dtype],
-            route.data_ptr(), out.data_ptr(), b, k, p, g, n, r, stream)
-    if rc != 0:
-        raise RuntimeError("topk_gather launch failed: "
-                           + lib.topk_gather_error_string(rc).decode())
+    run_launch(_library(), "topk_gather", dev, vals.data_ptr(),
+               p_idx.data_ptr(), s_off.data_ptr(), packed_p.data_ptr(),
+               _PACKED_DTYPES[packed_p.dtype], route.data_ptr(),
+               out.data_ptr(), b, k, p, g, n, r)
     topk_gather.launches += 1
     return out
 
