@@ -27,12 +27,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    full FFN widths (N=4, the one shared route of ``route_share=0``, up
    960->2560 and down 2560->960, T=4 and T=128 tokens): ``packed_matmul``,
    ``grouped_cs_matmul`` and ``kwta_hist`` against their plain versions
-   in bf16 and f32 and at the reference's sweeps (``kwta_hist`` bin for
-   bin), grouped after the shared permutation against packed; one forward
-   and backward through each of the five ops, whose gradients must equal
-   autograd's through the plain versions, with the launch counts of that
-   run; then each kernel's time, L2-cold and warm, beside its plain
-   version, one library call and its bound.
+   in bf16 and f32 and at the reference's sweeps (the products' sweeps in
+   both types; ``kwta_hist`` bin for bin), grouped after the shared
+   permutation against packed, and the products' bf16 tensor-core bodies
+   on operands that their 16-byte copies cannot take (rows that are not a
+   multiple of 16 bytes, a view whose base is not 16-byte aligned); one
+   forward and backward through each of the five ops, whose gradients must
+   equal autograd's through the plain versions, with the launch counts of
+   that run; then each kernel's time, L2-cold and warm, beside its plain
+   version, one library call and its bound (the products at T=128 and T=4
+   on the up and the down projection).
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -70,9 +74,12 @@ MAIN_SHAPE = dict(b=4, k=320, p=640, g=240, n=4, r=240)
 # packed weights exceed the card's 50 MB L2.
 COPIES = 64
 # The ops phase's token counts: a decode batch of 4 slots, and a prefill of
-# 8 prompts x 16 tokens (the shape every kernel is timed at).
+# 8 prompts x 16 tokens (the shape every kernel's row is timed at).
 OPS_TOKENS = (4, 128)
 TIMED_TOKENS = 128
+# The FFN projections and token counts the two products are timed at; the
+# first is the shape of their rows' times.
+PRODUCT_SHAPES = (("up", 128), ("up", 4), ("down", 128), ("down", 4))
 # Device activities of the profiled decode step printed, longest first.
 PROFILE_TOP = 12
 
@@ -232,7 +239,8 @@ def phase_kernels():
             "replaces": "src/repro/kernels/topk_gather.py:61",
             "max_abs_err": worst, "ms": cold["kernel"],
             "plain_ms": cold["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": cold["library"]}
+            "bound_by": bound_by, "library_ms": cold["library"],
+            "body": TOPK_BODY}
 
 
 def kernel_wrappers():
@@ -400,16 +408,25 @@ def phase_parity():
 # phase 6: the kernel-ops API at smollm-360m's full FFN widths
 # ---------------------------------------------------------------------------
 
-# The rows of the kernels line that phase 6 fills: source and the TPU
-# kernel each replaces (file:line of the wrapper that reaches pallas_call).
+# The rows of the kernels line that phase 6 fills: source, the TPU kernel
+# each replaces (file:line of the wrapper that reaches pallas_call) and the
+# body that serves the timed shape (bf16 operands, 16-byte aligned, 128
+# tokens; the launchers pick it by operand type, alignment and batch).
 OPS_KERNELS = {
     "packed_matmul": ("src/repro_torch/kernels/csrc/packed_matmul.cu",
-                      "src/repro/kernels/packed_matmul.py:64"),
+                      "src/repro/kernels/packed_matmul.py:64",
+                      "mma.sync bf16 on a dense tile expanded in shared "
+                      "memory, 4-stage cp.async ring of 128-input chunks, "
+                      "32x32 tile, 4 warps"),
     "grouped_cs_matmul": ("src/repro_torch/kernels/csrc/grouped_cs_matmul.cu",
-                          "src/repro/kernels/grouped_cs_matmul.py:46"),
+                          "src/repro/kernels/grouped_cs_matmul.py:46",
+                          "mma.sync bf16, 6-stage cp.async ring, 32x32 tile, "
+                          "4 warps"),
     "kwta_hist": ("src/repro_torch/kernels/csrc/kwta_hist.cu",
-                  "src/repro/kernels/kwta_hist.py:75"),
+                  "src/repro/kernels/kwta_hist.py:75",
+                  "CUDA cores: one block a row, shared-memory histogram"),
 }
+TOPK_BODY = "CUDA cores: 8 warps split K, f32 accumulate"
 KWTA_NO_LIBRARY = ("no single PyTorch call computes the histogram "
                    "threshold; torch.topk is another function")
 
@@ -436,6 +453,13 @@ def randn(gen, *shape, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def unaligned(gen, *shape, dtype):
+    """A contiguous view of random values whose base lies one element past
+    a 16-byte boundary (its row strides are the shape's)."""
+    flat = randn(gen, int(np.prod(shape)) + 1, dtype=dtype)
+    return flat[1:].view(shape)
+
+
 def ops_checks(cfg):
     """Each kernel against its plain version: the FFN's full widths at T=4
     and T=128 in bf16 and f32, and the reference's sweeps in f32.  Returns
@@ -446,6 +470,10 @@ def ops_checks(cfg):
                                      kwta_hist_cuda_plain, packed_matmul,
                                      packed_matmul_plain, permute_activations,
                                      slot_major_packed)
+    from repro_torch.kernels.grouped_cs_matmul import (
+        async_staging as grouped_async)
+    from repro_torch.kernels.packed_matmul import (
+        async_staging as packed_async)
     from repro_torch.kernels.registry import (GROUPED_CS_SWEEP,
                                               KWTA_HIST_SWEEP,
                                               PACKED_MATMUL_SWEEP)
@@ -465,6 +493,10 @@ def ops_checks(cfg):
             for t in OPS_TOKENS:
                 x = randn(gen, t, packed.shape[1] * packed.shape[2],
                           dtype=dtype)
+                if not (packed_async(x, packed, route)
+                        and grouped_async(permute_activations(x, route), pk)):
+                    fail(f"{proj} T={t}: full-width operands not 16-byte "
+                         "aligned; the cp.async staging would not run")
                 label = f"{proj} T={t} {dn}"
                 y = packed_matmul(x, packed, route)
                 hold("packed_matmul", label, y,
@@ -485,17 +517,53 @@ def ops_checks(cfg):
         for kk in (cfg.d_ff, cfg.d_ff + 1):         # K >= D keeps the row
             hold("kwta_hist", f"K={kk} >= D={cfg.d_ff} {dn}",
                  kwta_hist_cuda(x, kk), x, exact=True)
-    for b, p, g, n, *_ in PACKED_MATMUL_SWEEP:
-        packed = randn(gen, g, p, n)
-        route = torch.from_numpy(make_routes(CSLayout(p * n, g * n, n),
-                                             SEED)).cuda()
-        x = randn(gen, b, p * n)
-        hold("packed_matmul", f"sweep b={b} p={p} g={g} n={n} R=1 f32",
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for b, p, g, n, *_ in PACKED_MATMUL_SWEEP:
+            packed = randn(gen, g, p, n, dtype=dtype)
+            route = torch.from_numpy(make_routes(CSLayout(p * n, g * n, n),
+                                                 SEED)).cuda()
+            x = randn(gen, b, p * n, dtype=dtype)
+            hold("packed_matmul", f"sweep b={b} p={p} g={g} n={n} R=1 {dn}",
+                 packed_matmul(x, packed, route),
+                 packed_matmul_plain(x, packed, route))
+        for n, b, p, g, *_ in GROUPED_CS_SWEEP:
+            xg = randn(gen, n, b, p, dtype=dtype)
+            pk = randn(gen, n, p, g, dtype=dtype)
+            hold("grouped_cs_matmul", f"sweep n={n} b={b} p={p} g={g} {dn}",
+                 grouped_cs_matmul(xg, pk), grouped_cs_matmul_plain(xg, pk))
+    # bf16 operands that the tensor-core bodies' 16-byte copies cannot take,
+    # so that they stage with plain loads: rows that are not a multiple of
+    # 16 bytes (packed: 12 inputs, 24 B; grouped: P=20, G=12), and, at full
+    # width, an activation whose base is 2 bytes past a 16-byte boundary
+    bf16 = torch.bfloat16
+    up, up_route = ffn_layers(cfg, bf16, SEED)["up"][::2]
+    pk_up = slot_major_packed(up)
+    route = torch.from_numpy(make_routes(CSLayout(12, 24, 4), SEED)).cuda()
+    packed_cases = {
+        "rows of 24 B b=5 p=3 g=6 n=4 R=1": (
+            randn(gen, 5, 12, dtype=bf16), randn(gen, 6, 3, 4, dtype=bf16),
+            route),
+        "unaligned view x up T=128": (
+            unaligned(gen, TIMED_TOKENS, cfg.d_model, dtype=bf16), up,
+            up_route)}
+    for label, (x, packed, route) in packed_cases.items():
+        if packed_async(x, packed, route):
+            fail(f"packed_matmul {label}: operands are 16-byte aligned")
+        hold("packed_matmul", f"{label} bf16 plain-load staging",
              packed_matmul(x, packed, route),
              packed_matmul_plain(x, packed, route))
-    for n, b, p, g, *_ in GROUPED_CS_SWEEP:
-        xg, pk = randn(gen, n, b, p), randn(gen, n, p, g)
-        hold("grouped_cs_matmul", f"sweep n={n} b={b} p={p} g={g} f32",
+    grouped_cases = {
+        "rows of 40 B and 24 B n=4 b=7 p=20 g=12": (
+            randn(gen, 4, 7, 20, dtype=bf16), randn(gen, 4, 20, 12,
+                                                    dtype=bf16)),
+        "unaligned view xg up T=128": (
+            unaligned(gen, *pk_up.shape[:1], TIMED_TOKENS, pk_up.shape[1],
+                      dtype=bf16), pk_up)}
+    for label, (xg, pk) in grouped_cases.items():
+        if grouped_async(xg, pk):
+            fail(f"grouped_cs_matmul {label}: operands are 16-byte aligned")
+        hold("grouped_cs_matmul", f"{label} bf16 plain-load staging",
              grouped_cs_matmul(xg, pk), grouped_cs_matmul_plain(xg, pk))
     for b, d, kk, _ in KWTA_HIST_SWEEP:
         x = randn(gen, b, d)
@@ -592,87 +660,95 @@ def product_bound(nbytes, t, d_in, d_out, n, dtype):
 
 
 def ops_times(cfg):
-    """Each kernel, its plain version and one library call at the T=128 up
-    projection in bf16 (``kwta_hist`` at (128, d_ff)), L2-cold (rotating
-    over copies of the weights, or of the k-WTA input, larger than L2
-    together) and warm (one copy); and each kernel's bound."""
+    """Each kernel, its plain version and one library call in bf16, L2-cold
+    (rotating over copies of the weights, or of the k-WTA input, larger
+    than L2 together) and warm (one copy), with each kernel's bound: the
+    products at ``PRODUCT_SHAPES``, ``kwta_hist`` at (128, d_ff).  Returns
+    {name: {shape: (cold, warm, bound)}}, each time a {variant: ms}."""
     from repro_torch.core.functional import decompress
     from repro_torch.kernels import (grouped_cs_matmul, grouped_cs_matmul_plain,
                                      kwta_hist_cuda, kwta_hist_cuda_plain,
                                      packed_matmul, packed_matmul_plain,
                                      permute_activations, slot_major_packed)
-    bf16, t = torch.bfloat16, TIMED_TOKENS
+    bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 300)
-    packed, _, route = ffn_layers(cfg, bf16, SEED + 2)["up"]
-    g, p, n = packed.shape
+    layers = ffn_layers(cfg, bf16, SEED + 2)
     k = cfg.ffn_sparsity.k_for(cfg.d_ff)
-    x = randn(gen, t, p * n, dtype=bf16)
-    xg = permute_activations(x, route)
-    h = randn(gen, t, cfg.d_ff, dtype=bf16)
-    weights = [(packed.clone(), route.clone(), slot_major_packed(packed),
-                decompress(packed, route)) for _ in range(COPIES)]
-    inputs = [h.clone() for _ in range(2 * COPIES)]  # 128 x 0.66 MB
-    timed = {
-        "packed_matmul": (weights, {
-            "kernel": lambda w: packed_matmul(x, w[0], w[1]),
-            "plain": lambda w: packed_matmul_plain(x, w[0], w[1]),
-            "library": lambda w: torch.matmul(x, w[3])}),
-        "grouped_cs_matmul": (weights, {
-            "kernel": lambda w: grouped_cs_matmul(xg, w[2]),
-            "plain": lambda w: grouped_cs_matmul_plain(xg, w[2]),
-            "library": lambda w: torch.bmm(xg, w[2])}),
-        "kwta_hist": (inputs, {
-            "kernel": lambda a: kwta_hist_cuda(a, k),
-            "plain": lambda a: kwta_hist_cuda_plain(a, k)}),
-    }
-    out_bytes = t * g * n * 4
-    bounds = {
-        "packed_matmul": product_bound(
-            x.numel() * 2 + packed.numel() * 2 + route.numel() + out_bytes,
-            t, p * n, g * n, n, bf16),
-        "grouped_cs_matmul": product_bound(
-            xg.numel() * 2 + packed.numel() * 2 + out_bytes,
-            t, p * n, g * n, n, bf16),
-    }
-    # k-WTA: the row read and written once, against ~7 f32 operations an
-    # element (min, max, subtract, multiply, two clamps, compare)
-    t_bytes = 2 * h.numel() * 2 / HBM_BYTES_PER_S
-    t_ops = 7 * h.numel() / F32_FLOPS
-    bounds["kwta_hist"] = (1e3 * max(t_bytes, t_ops),
-                           "bytes" if t_bytes >= t_ops else "operations")
-    times = {}
-    for name, (copies, fns) in timed.items():
+    times = collections.defaultdict(dict)
+
+    def run(name, shape, copies, fns, bound_):
         cold = {v: device_ms([functools.partial(fn, c) for c in copies])
                 for v, fn in fns.items()}
         warm = {v: device_ms(functools.partial(fn, copies[0]))
                 for v, fn in fns.items()}
-        shape = ("(128, d_ff) K=%d" % k if name == "kwta_hist"
-                 else f"up T={t}")
         for label, tm in (("L2-cold", cold), ("L2-warm", warm)):
             print(f"[ops] {name} at {shape} bf16, {label}: " + ", ".join(
                 f"{v} {ms:.5f} ms" for v, ms in tm.items()))
-        print(f"[ops] {name} bound {bounds[name][0]:.6f} ms "
-              f"({bounds[name][1]})")
-        times[name] = (cold, warm)
-    return times, bounds
+        print(f"[ops] {name} at {shape} bound {bound_[0]:.6f} ms "
+              f"({bound_[1]})")
+        times[name][shape] = (cold, warm, bound_)
+
+    for proj in dict.fromkeys(p for p, _ in PRODUCT_SHAPES):
+        packed, _, route = layers[proj]
+        g, p, n = packed.shape
+        weights = [(packed.clone(), route.clone(), slot_major_packed(packed),
+                    decompress(packed, route)) for _ in range(COPIES)]
+        for t in [t for q, t in PRODUCT_SHAPES if q == proj]:
+            x = randn(gen, t, p * n, dtype=bf16)
+            xg = permute_activations(x, route)
+            out_bytes = t * g * n * 4
+            run("packed_matmul", f"{proj} T={t}", weights, {
+                "kernel": lambda w: packed_matmul(x, w[0], w[1]),
+                "plain": lambda w: packed_matmul_plain(x, w[0], w[1]),
+                "library": lambda w: torch.matmul(x, w[3])},
+                product_bound(x.numel() * 2 + packed.numel() * 2
+                              + route.numel() + out_bytes,
+                              t, p * n, g * n, n, bf16))
+            run("grouped_cs_matmul", f"{proj} T={t}", weights, {
+                "kernel": lambda w: grouped_cs_matmul(xg, w[2]),
+                "plain": lambda w: grouped_cs_matmul_plain(xg, w[2]),
+                "library": lambda w: torch.bmm(xg, w[2])},
+                product_bound(xg.numel() * 2 + packed.numel() * 2
+                              + out_bytes, t, p * n, g * n, n, bf16))
+        del weights
+    h = randn(gen, TIMED_TOKENS, cfg.d_ff, dtype=bf16)
+    # k-WTA: the row read and written once, against ~7 f32 operations an
+    # element (min, max, subtract, multiply, two clamps, compare)
+    t_bytes = 2 * h.numel() * 2 / HBM_BYTES_PER_S
+    t_ops = 7 * h.numel() / F32_FLOPS
+    run("kwta_hist", f"(128, d_ff) K={k}",
+        [h.clone() for _ in range(2 * COPIES)], {   # 128 x 0.66 MB
+            "kernel": lambda a: kwta_hist_cuda(a, k),
+            "plain": lambda a: kwta_hist_cuda_plain(a, k)},
+        (1e3 * max(t_bytes, t_ops),
+         "bytes" if t_bytes >= t_ops else "operations"))
+    return times
 
 
 def phase_ops(cfg):
     worst = ops_checks(cfg)
     counts = ops_gradients(cfg)
-    times, bounds = ops_times(cfg)
+    times = ops_times(cfg)
     rows = []
-    for name, (source, replaces) in OPS_KERNELS.items():
-        cold, warm = times[name]
-        rows.append({
+    for name, (source, replaces, body) in OPS_KERNELS.items():
+        by_shape = times[name]
+        cold, warm, (bound_ms, bound_by) = next(iter(by_shape.values()))
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": worst[name], "ms": cold["kernel"],
-            "plain_ms": cold["plain"], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": cold.get("library"),
+            "plain_ms": cold["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": cold.get("library"),
             "ms_warm": warm["kernel"], "plain_ms_warm": warm["plain"],
-            "library_ms_warm": warm.get("library")})
+            "library_ms_warm": warm.get("library"), "body": body}
+        if len(by_shape) > 1:
+            row["shapes"] = {
+                shape: {"ms": c["kernel"], "ms_warm": w["kernel"],
+                        "plain_ms": c["plain"], "library_ms": c["library"],
+                        "library_ms_warm": w["library"], "bound_ms": b[0]}
+                for shape, (c, w, b) in by_shape.items()}
+        rows.append(row)
     rows[-1]["library_note"] = KWTA_NO_LIBRARY
     return rows
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/lib<name>-<hash>.so`` at the root of the checkout, then loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built when the
-module is imported.
+``ctypes``.  The hash covers the source, every ``csrc`` header it includes
+(directly or through another header) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is built
+when the module is imported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,13 +52,32 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def build_key(name: str) -> str:
+    """The hash that names ``csrc/<name>.cu``'s library: the source, each
+    header it includes with quotes that lies beside it (followed through
+    headers too), and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(path.name.encode() + b"\0" + text)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(text)
+                 if (path.parent / inc.decode()).is_file()]
+    return digest.hexdigest()[:12]
+
+
 @functools.cache
 def build(name: str) -> Build:
     """Compile ``csrc/<name>.cu`` (once per process and source version)."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{key}.so"
+    out = BUILD_DIR / f"lib{name}-{build_key(name)}.so"
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

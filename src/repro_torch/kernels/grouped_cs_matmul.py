@@ -13,7 +13,8 @@ Layouts:
   out     (N, B, G)  f32 (:func:`interleave_out` gives (B, G·N))
 
 The CUDA source is ``csrc/grouped_cs_matmul.cu``; its header says which TPU
-kernel it replaces, what bounds it and how it is laid out.
+kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
+runs a tensor-core body; f32 and mixed operand types a CUDA-core body.
 :func:`grouped_cs_matmul` launches it for CUDA tensors and runs
 :func:`grouped_cs_matmul_plain` for CPU tensors; it never falls back on a
 CUDA tensor.  ``grouped_cs_matmul.launches`` counts the kernel's launches.
@@ -57,11 +58,22 @@ def grouped_cs_matmul_plain(xg, packed) -> torch.Tensor:
     return torch.einsum("nbp,npg->nbg", xg.float(), packed.float())
 
 
+def async_staging(xg, packed) -> bool:
+    """Whether the bf16 tensor-core body may stage its tiles with 16-byte
+    ``cp.async`` copies: both operands' base addresses and row and slot
+    strides in bytes are multiples of 16 (rows of P and of G values; a
+    slot is a whole number of rows).  Where not, the same body stages with
+    plain loads."""
+    return all(v % 16 == 0 for v in (
+        xg.data_ptr(), packed.data_ptr(), xg.shape[2] * xg.element_size(),
+        packed.shape[2] * packed.element_size()))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("grouped_cs_matmul")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.grouped_cs_matmul_launch.argtypes = [ptr, i32, ptr, i32, ptr,
+    lib.grouped_cs_matmul_launch.argtypes = [ptr, i32, ptr, i32, i32, ptr,
                                              i32, i32, i32, i32, ptr]
     lib.grouped_cs_matmul_launch.restype = i32
     lib.grouped_cs_matmul_error_string.argtypes = [i32]
@@ -90,7 +102,7 @@ def grouped_cs_matmul(xg, packed) -> torch.Tensor:
         return out
     run_launch(_library(), "grouped_cs_matmul", dev, xg.data_ptr(),
                _DTYPES[xg.dtype], packed.data_ptr(), _DTYPES[packed.dtype],
-               out.data_ptr(), n, b, p, g)
+               int(async_staging(xg, packed)), out.data_ptr(), n, b, p, g)
     grouped_cs_matmul.launches += 1
     return out
 

@@ -16,7 +16,10 @@ The reference's kernel takes the partition-major (P, G, N) copies that
 layers' layouts directly, so the op makes no per-call layout copy.
 
 The CUDA source is ``csrc/packed_matmul.cu``; its header says which TPU
-kernel it replaces, what bounds it and how it is laid out.
+kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
+runs a tensor-core body that expands each chunk of packed weights into a
+dense tile in shared memory (:func:`expand_tile` is that rule in plain
+PyTorch); f32 and mixed operand types run a CUDA-core body.
 :func:`packed_matmul` launches it for CUDA tensors and runs
 :func:`packed_matmul_plain` for CPU tensors; it never falls back on a CUDA
 tensor.  ``packed_matmul.launches`` counts the kernel's launches.
@@ -68,11 +71,47 @@ def packed_matmul_plain(x, packed, route) -> torch.Tensor:
     return cs_matmul(x.float(), packed.float(), route)
 
 
+def async_staging(x, packed, route) -> bool:
+    """Whether the bf16 tensor-core body may stage its tiles with 16-byte
+    ``cp.async`` copies: every operand's base address and row stride in
+    bytes are multiples of 16 (the rows it copies are x's and packed[g]'s
+    P·N bf16 and route[g/R]'s P·N int8).  Where not, the same body stages
+    with plain loads."""
+    row = packed.shape[1] * packed.shape[2]
+    return all(v % 16 == 0 for t in (x, packed, route)
+               for v in (t.data_ptr(), row * t.element_size()))
+
+
+def expand_tile(packed, route, g0: int, k0: int, groups: int,
+                width: int = 128) -> torch.Tensor:
+    """The tensor-core body's expansion of one chunk, in plain PyTorch: the
+    dense weight ``W[k][g·N+s] = packed[g, p, s] · [route[g // R, p, s] ==
+    k - p·N]`` at inputs ``k0 .. k0+width`` and groups ``g0 .. g0+groups``,
+    laid out as the kernel stores it, ``[(g - g0)·N + s][k - k0]`` (K
+    contiguous).  Groups past G and inputs past P·N (a ragged tile) are
+    zeros; a route entry outside [0, N) matches no input.  ``k0`` is a
+    multiple of N.  The kernel does this in shared memory; nothing calls
+    this function but the tests."""
+    g, p, n = packed.shape
+    r = g // route.shape[0]
+    gs = torch.arange(g0, min(g0 + groups, g))
+    ks = torch.arange(k0, min(k0 + width, p * n))     # k = p·N + s
+    w = packed.reshape(g, p * n)[gs][:, ks]
+    rt = route.reshape(-1, p * n)[gs // r][:, ks].long()
+    out = torch.zeros((groups, n, width), dtype=packed.dtype)
+    gl = torch.arange(len(gs))[:, None]
+    kk = torch.arange(len(ks))
+    s = kk % n
+    for i in range(n):
+        out[gl, s, kk - s + i] = torch.where(rt == i, w, torch.zeros_like(w))
+    return out.reshape(groups * n, width)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("packed_matmul")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.packed_matmul_launch.argtypes = [ptr, i32, ptr, i32, ptr, ptr,
+    lib.packed_matmul_launch.argtypes = [ptr, i32, ptr, i32, ptr, i32, ptr,
                                          i32, i32, i32, i32, i32, ptr]
     lib.packed_matmul_launch.restype = i32
     lib.packed_matmul_error_string.argtypes = [i32]
@@ -103,7 +142,8 @@ def packed_matmul(x, packed, route) -> torch.Tensor:
         return out
     run_launch(_library(), "packed_matmul", dev, x.data_ptr(),
                _DTYPES[x.dtype], packed.data_ptr(), _DTYPES[packed.dtype],
-               route.data_ptr(), out.data_ptr(), b, p, g, n, r)
+               route.data_ptr(), int(async_staging(x, packed, route)),
+               out.data_ptr(), b, p, g, n, r)
     packed_matmul.launches += 1
     return out
 

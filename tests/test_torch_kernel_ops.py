@@ -4,13 +4,18 @@ wrappers run for CPU tensors) against the JAX kernels run in interpret mode
 and against the JAX oracles, over ``tests/test_kernels.py``'s sweep and the
 registry's; the shapes the reference pads, run directly; the five ops'
 gradients against ``jax.grad`` of the JAX ops; the layout helpers; the
-wrappers' argument checks.
+wrappers' argument checks; what surrounds the bf16 tensor-core bodies (the
+packed expansion rule against ``decompress`` and the JAX kernel's, the
+16-byte alignment check that picks their staging) and the build key.
 
 Tolerances: float32 atol=rtol=1e-4 and bf16 2e-2, as the JAX kernel tests
 use (every version accumulates in float32; the sums differ in order only);
 ``kwta_hist`` bin for bin.  The CUDA kernels themselves run only on the
 card: ``python3 chip_smoke.py`` holds them against these plain versions
 there."""
+
+import importlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -40,8 +45,15 @@ from repro_torch.kernels import (grouped_cs_matmul, grouped_cs_matmul_op,
                                  permute_activations, slot_major_packed,
                                  to_partition_major, topk_gather_op,
                                  topk_gather_support_op)
+from repro_torch.core.functional import decompress
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import registry as t_registry
+
+# the modules, which the package's functions of the same names shadow
+packed_module = importlib.import_module("repro_torch.kernels.packed_matmul")
+grouped_module = importlib.import_module(
+    "repro_torch.kernels.grouped_cs_matmul")
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -189,6 +201,119 @@ def test_layout_helpers_match_jax():
         want = j_to_partition_major(jnp.asarray(packed), jnp.asarray(route))
         for a, w in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# around the bf16 tensor-core bodies: the packed expansion, the alignment
+# check, the build key
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r", ["1", "2", "G"])
+@pytest.mark.parametrize("p,g,groups", [(5, 6, 4), (40, 10, 16)])
+def test_expand_tile_is_decompress_and_the_jax_kernels_expansion(p, g,
+                                                                 groups, r):
+    """The rule the packed tensor-core body expands each chunk by, tile by
+    tile (ragged in K and in G), equals the dense weight of the port's
+    ``decompress`` and of the JAX kernel run in interpret mode on the
+    identity, route entries outside [0, N) included (they add nothing)."""
+    n = 4
+    gr = {"1": g, "2": g // 2, "G": 1}[r]
+    packed, route = _layer(p * n, g * n, n, gr, seed=p + gr)
+    route[0, 1, 2], route[-1, -1, 0] = n + 3, -1        # match no input
+    eye = jnp.eye(p * n, dtype=jnp.float32)
+    pr, rr = j_to_partition_major(jnp.asarray(packed), jnp.asarray(route))
+    w_jax = np.asarray(j_packed_matmul(eye, pr, rr, block_b=p * n,
+                                       block_p=p, block_g=g, interpret=True))
+    tp, tr = torch.from_numpy(packed), torch.from_numpy(route)
+    hit = (tr >= 0) & (tr < n)                          # per route row
+    hit = hit.repeat_interleave(g // gr, dim=0)
+    w_port = decompress(torch.where(hit, tp, torch.zeros_like(tp)),
+                        tr.clamp(0, n - 1)).numpy()
+    np.testing.assert_array_equal(w_port, w_jax)
+    width = 128  # the kernel's chunk
+    dense = np.zeros((p * n + width, (g + groups) * n), np.float32)
+    dense[:p * n, :g * n] = w_jax
+    for g0 in range(0, g, groups):
+        for k0 in range(0, p * n, width):
+            tile = packed_module.expand_tile(tp, tr, g0, k0, groups, width)
+            assert tile.shape == (groups * n, width)
+            np.testing.assert_array_equal(
+                tile.numpy(),
+                dense[k0:k0 + width, g0 * n:(g0 + groups) * n].T)
+
+
+def _offset(t, elems=1):
+    """A contiguous copy of ``t`` whose base lies ``elems`` elements past
+    the start of its storage."""
+    flat = torch.zeros(t.numel() + elems, dtype=t.dtype)
+    out = flat[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("p,n,move,aligned", [
+    (16, 4, None, True),            # rows of 64 bf16 / 64 int8
+    (4, 4, None, True),             # rows of 16 int8: the least
+    (2, 4, None, False),            # route rows of 8 B
+    (3, 4, None, False),            # rows of 12 inputs: 24 B / 12 B
+    (16, 4, "x", False),            # bases 2 B past a 16-byte boundary
+    (16, 4, "packed", False),
+    (16, 4, "route", False),
+])
+def test_packed_async_staging_needs_16_byte_bases_and_rows(p, n, move,
+                                                           aligned):
+    ops = {"x": torch.zeros((3, p * n), dtype=torch.bfloat16),
+           "packed": torch.zeros((6, p, n), dtype=torch.bfloat16),
+           "route": torch.zeros((6, p, n), dtype=torch.int8)}
+    if move:
+        ops[move] = _offset(ops[move])
+        assert ops[move].is_contiguous()
+    assert packed_module.async_staging(**ops) is aligned
+
+
+@pytest.mark.parametrize("p,g,move,aligned", [
+    (16, 8, None, True),
+    (20, 16, None, False),          # xg rows of 40 B
+    (16, 12, None, False),          # packed rows of 24 B
+    (16, 8, "xg", False),
+    (16, 8, "packed", False),
+])
+def test_grouped_async_staging_needs_16_byte_bases_and_rows(p, g, move,
+                                                            aligned):
+    ops = {"xg": torch.zeros((4, 7, p), dtype=torch.bfloat16),
+           "packed": torch.zeros((4, p, g), dtype=torch.bfloat16)}
+    if move:
+        ops[move] = _offset(ops[move])
+    assert grouped_module.async_staging(**ops) is aligned
+
+
+KERNEL_SOURCES = ("packed_matmul", "grouped_cs_matmul", "topk_gather",
+                  "kwta_hist")
+
+
+@pytest.mark.parametrize("name", KERNEL_SOURCES)
+def test_build_key_follows_the_headers_a_source_includes(name, tmp_path,
+                                                         monkeypatch):
+    """An edited header, or a header it includes, names a new library for
+    the sources that include it and for no other; a header no source
+    includes changes no key.  Needs no nvcc."""
+    original = kbuild.build_key(name)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kbuild.CSRC, csrc)
+    monkeypatch.setattr(kbuild, "CSRC", csrc)
+    includes = b'#include "tc_bf16.cuh"' in (csrc / f"{name}.cu").read_bytes()
+    assert kbuild.build_key(name) == original
+    (csrc / "unused.cuh").write_text("// included by no source\n")
+    assert kbuild.build_key(name) == original
+    header = csrc / "tc_bf16.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = kbuild.build_key(name)
+    assert (edited != original) is includes
+    header.write_text(header.read_text() + '#include "nested.cuh"\n')
+    (csrc / "nested.cuh").write_text("// one\n")
+    nested = kbuild.build_key(name)
+    (csrc / "nested.cuh").write_text("// two\n")
+    assert (kbuild.build_key(name) != nested) is includes
 
 
 # ---------------------------------------------------------------------------
