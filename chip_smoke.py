@@ -9,17 +9,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — nvcc builds every kernel of the package from the sources in
    this checkout, one process per source, all started together.
 3. kernels — ``topk_gather`` against its plain PyTorch version on the card
-   at the shapes the serving path gives it (and the reference's sweep),
-   then its time, its plain version's time and that of one PyTorch library
-   call of the same function, with the weights cold in L2 as the serving
-   path finds them (and warm, beside them), and the least time the card
-   could take for the same bytes and flops.
+   at the shapes the serving path gives it (every decode batch B <= 7,
+   R=1 and 2, f32 weights, N=1 to 16, a row that is not a whole number of
+   strips, the reference's sweep), with the support as the layer hands it over (bf16 values, int64
+   indices; a bf16 output must be the f32 one rounded once), on weights
+   that its 16-byte copies cannot take (plain-load staging), and twice on
+   the same operands (bit-identical); then its time, its plain version's
+   time and that of one PyTorch library call of the same function, with
+   the weights cold in L2 as the serving path finds them (and warm, beside
+   them), and the least time the card could take for the same bytes and
+   flops.
 4. serve — ``Engine.serve`` on the shipped smollm-360m config at full
    width (bf16, 4 slots, 8 requests, prompt 16, gen 16, the engine's
    random weights from seed 0); the kernel launch counts show the decode
    steps went through the kernels.  Then one decode step's device time
    alone, from a CUDA-graph replay of it, against the eager step's wall
-   time, and the eager step's device activities under torch.profiler.
+   time, and the eager step's device activities under torch.profiler (the
+   longest, and ``topk_gather``'s line by name).
 5. parity — the same weights in float32: one prefill and three decode
    steps through the kernel and through the PyTorch formula
    (``use_pallas="off"``) give the same logits.
@@ -31,7 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    both types; ``kwta_hist`` bin for bin), grouped after the shared
    permutation against packed, and the products' bf16 tensor-core bodies
    on operands that their 16-byte copies cannot take (rows that are not a
-   multiple of 16 bytes, a view whose base is not 16-byte aligned); one
+   multiple of 16 bytes, a view whose base is not 16-byte aligned), and
+   ``kwta_hist``'s plain-load loop on rows that its register path cannot
+   hold (an unaligned view, a row longer than 20 KB); one
    forward and backward through each of the five ops, whose gradients must
    equal autograd's through the plain versions, with the launch counts of
    that run; then each kernel's time, L2-cold and warm, beside its plain
@@ -77,6 +85,9 @@ COPIES = 64
 # 8 prompts x 16 tokens (the shape every kernel's row is timed at).
 OPS_TOKENS = (4, 128)
 TIMED_TOKENS = 128
+# A k-WTA row longer than the kernel's register path holds (20 KB): 32 KB
+# in bf16, 64 KB in f32.
+LONG_ROW = 16384
 # The FFN projections and token counts the two products are timed at; the
 # first is the shape of their rows' times.
 PRODUCT_SHAPES = (("up", 128), ("up", 4), ("down", 128), ("down", 4))
@@ -179,32 +190,84 @@ def check(label, got, want, exact=False, phase="ops"):
 
 
 def topk_check_shapes():
-    """The main shape, the decode batches 1 and 7 (the last with B*K <
-    d_ff), the faithful per-group routes (R=1), and the reference's sweep
-    (kernels/registry.py) in f32 with all groups sharing one route."""
+    """The main shape and every decode batch the topk path takes (B <= 7,
+    the last with B*K < d_ff), the faithful per-group routes (R=1) and two
+    groups a route (R=2), f32 weights, the same FFN at every other pack
+    factor, a G whose row is not a whole number of the kernel's strips
+    (G=200 at N=4: 100 vectors of 16 B, the last strip 4 of 32), and the
+    reference's sweep (kernels/registry.py) in f32 with all groups sharing
+    one route."""
     from repro_torch.kernels.registry import TOPK_GATHER_SWEEP
-    return ([(dict(MAIN_SHAPE), torch.bfloat16),
-             (dict(MAIN_SHAPE, b=1), torch.bfloat16),
-             (dict(MAIN_SHAPE, b=7), torch.bfloat16),
-             (dict(MAIN_SHAPE, r=1), torch.bfloat16)]
+    bf16 = torch.bfloat16
+    return ([(dict(MAIN_SHAPE, b=b), bf16) for b in (4, 1, 2, 3, 7)]
+            + [(dict(MAIN_SHAPE, r=r), bf16) for r in (1, 2)]
+            + [(dict(MAIN_SHAPE), torch.float32)]
+            + [(dict(MAIN_SHAPE, p=2560 // n, g=960 // n, n=n, r=960 // n),
+                bf16) for n in (1, 2, 8, 16)]
+            + [(dict(MAIN_SHAPE, g=200, r=200), bf16)]
             + [(dict(b=b, k=k, p=p, g=g, n=n, r=g), torch.float32)
                for b, k, p, g, n, _ in TOPK_GATHER_SWEEP])
 
 
+def shifted(t):
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernels():
     from repro_torch.core.functional import decompress
-    from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
+    from repro_torch.kernels.topk_gather import (async_staging, topk_gather,
+                                                 topk_gather_plain)
+    bf16 = torch.bfloat16
     worst = 0.0
+
+    def hold(label, operands):
+        nonlocal worst
+        worst = max(worst, check(f"topk_gather {label}",
+                                 topk_gather(*operands),
+                                 topk_gather_plain(*operands),
+                                 phase="kernels"))
+
     for i, (shape, dtype) in enumerate(topk_check_shapes()):
-        vals, p_idx, s_off, packed_p, route, _ = kernel_operands(
-            shape, dtype, SEED + i)
-        worst = max(worst, check(
-            f"topk_gather {shape} {str(dtype)[6:]}",
-            topk_gather(vals, p_idx, s_off, packed_p, route),
-            topk_gather_plain(vals, p_idx, s_off, packed_p, route),
-            phase="kernels"))
+        operands = kernel_operands(shape, dtype, SEED + i)[:5]
+        if not async_staging(operands[3]):
+            fail(f"topk_gather {shape}: weights not 16-byte aligned; the "
+                 "cp.async staging would not run")
+        hold(f"{shape} {str(dtype)[6:]}", operands)
     vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
-        MAIN_SHAPE, torch.bfloat16, SEED)
+        MAIN_SHAPE, bf16, SEED)
+    main = (vals, p_idx, s_off, packed_p, route)
+    # the support as the layer hands it over: bf16 values, int64 indices
+    serving = (vals.to(bf16), p_idx.long(), s_off.long(), packed_p, route)
+    hold(f"{MAIN_SHAPE} bf16 values, int64 indices", serving)
+    if not torch.equal(topk_gather(*serving, out_dtype=bf16),
+                       topk_gather(*serving).to(bf16)):
+        fail("topk_gather: the bf16 output is not the f32 one rounded once")
+    print("[kernels] topk_gather bf16 output == f32 output rounded once")
+    # weights that the 16-byte copies cannot take: rows of 243*4*2 = 1944 B,
+    # a view whose base is 2 B past a 16-byte boundary, and the same in f32
+    # (4 B past) at the reference's first sweep shape
+    sweep = kernel_operands(dict(b=4, k=16, p=32, g=8, n=4, r=8),
+                            torch.float32, SEED + 51)[:5]
+    plain_staging = {
+        "rows of 1944 B": kernel_operands(dict(MAIN_SHAPE, g=243, r=243),
+                                          bf16, SEED + 50)[:5],
+        "weights 2 B past 16": main[:3] + (shifted(packed_p), route),
+        "f32 weights 4 B past 16, b=4 k=16 p=32 g=8 n=4": sweep[:3] + (
+            shifted(sweep[3]), sweep[4])}
+    for label, operands in plain_staging.items():
+        if async_staging(operands[3]):
+            fail(f"topk_gather {label}: weights are 16-byte aligned")
+        hold(f"{label} plain-load staging", operands)
+    # the sums meet in a fixed order: two launches, one answer
+    if not torch.equal(topk_gather(*main), topk_gather(*main)):
+        fail("topk_gather: two launches on the same operands differ")
+    print("[kernels] topk_gather: two launches on the same operands are "
+          "bit-identical")
     # library yardstick, never called by the port: the scattered k-sparse
     # activation times the decompressed dense weight, one torch.matmul
     p, g, n = packed_p.shape
@@ -223,7 +286,9 @@ def phase_kernels():
         "kernel": lambda pp, rt, _: topk_gather(vals, p_idx, s_off, pp, rt),
         "plain": lambda pp, rt, _: topk_gather_plain(vals, p_idx, s_off, pp,
                                                      rt),
-        "library": lambda pp, rt, wd: torch.matmul(x_dense, wd)}
+        "library": lambda pp, rt, wd: torch.matmul(x_dense, wd),
+        # the floor of this timing: a launch that does no work
+        "empty": lambda *_: torch.cuda._sleep(0)}
     cold = {name: device_ms([functools.partial(fn, *c) for c in copies])
             for name, fn in timed.items()}
     warm = {name: device_ms(functools.partial(fn, *copies[0]))
@@ -232,7 +297,7 @@ def phase_kernels():
     for label, t in (("L2-cold", cold), ("L2-warm", warm)):
         print(f"[kernels] topk_gather at {MAIN_SHAPE} bf16, {label}: kernel "
               f"{t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, library "
-              f"{t['library']:.5f} ms")
+              f"{t['library']:.5f} ms, empty launch {t['empty']:.5f} ms")
     print(f"[kernels] bound {bound_ms:.6f} ms ({bound_by})")
     return {"name": "topk_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_gather.cu",
@@ -240,7 +305,9 @@ def phase_kernels():
             "max_abs_err": worst, "ms": cold["kernel"],
             "plain_ms": cold["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": cold["library"],
-            "body": TOPK_BODY}
+            "ms_warm": warm["kernel"], "plain_ms_warm": warm["plain"],
+            "library_ms_warm": warm["library"],
+            "empty_launch_ms": cold["empty"], "body": TOPK_BODY}
 
 
 def kernel_wrappers():
@@ -313,6 +380,13 @@ def phase_serve():
         for name, (count, ms) in sorted(acts.items(),
                                         key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
             print(f"[serve]   {ms:8.3f} ms {count:5d}x {name[:100]}")
+        topk = {n: a for n, a in acts.items() if "topk_gather" in n}
+        for name, (count, ms) in topk.items():
+            print(f"[serve] topk_gather in the step: {ms:8.3f} ms "
+                  f"{count:5d}x {name[:100]}")
+        if not topk:
+            print("[serve] topk_gather in the step: no device activity "
+                  "of that name")
     return launches, steps
 
 
@@ -424,9 +498,12 @@ OPS_KERNELS = {
                           "4 warps"),
     "kwta_hist": ("src/repro_torch/kernels/csrc/kwta_hist.cu",
                   "src/repro/kernels/kwta_hist.py:75",
-                  "CUDA cores: one block a row, shared-memory histogram"),
+                  "CUDA cores: one 10-warp block a row, the row read once "
+                  "into registers by 16-byte loads, 10 per-warp histograms"),
 }
-TOPK_BODY = "CUDA cores: 8 warps split K, f32 accumulate"
+TOPK_BODY = ("CUDA cores: clusters of up to 8 blocks split K, every weight "
+             "strip in flight by 16-byte cp.async, f32 partials added in "
+             "rank order through distributed shared memory")
 KWTA_NO_LIBRARY = ("no single PyTorch call computes the histogram "
                    "threshold; torch.topk is another function")
 
@@ -472,6 +549,7 @@ def ops_checks(cfg):
                                      slot_major_packed)
     from repro_torch.kernels.grouped_cs_matmul import (
         async_staging as grouped_async)
+    from repro_torch.kernels.kwta_hist import register_path
     from repro_torch.kernels.packed_matmul import (
         async_staging as packed_async)
     from repro_torch.kernels.registry import (GROUPED_CS_SWEEP,
@@ -511,8 +589,26 @@ def ops_checks(cfg):
         for t, d, kk in [(t, cfg.d_ff, k) for t in OPS_TOKENS] + [(8, 1500,
                                                                   225)]:
             x = randn(gen, t, d, dtype=dtype)
-            hold("kwta_hist", f"({t}, {d}) K={kk} {dn}", kwta_hist_cuda(x, kk),
-                 kwta_hist_cuda_plain(x, kk), exact=True)
+            path = ("registers" if register_path(x, torch.empty_like(x))
+                    else "plain-load loop")
+            if d == cfg.d_ff and path != "registers":
+                fail(f"kwta_hist ({t}, {d}) {dn}: the register path would "
+                     "not run")
+            hold("kwta_hist", f"({t}, {d}) K={kk} {dn} {path}",
+                 kwta_hist_cuda(x, kk), kwta_hist_cuda_plain(x, kk),
+                 exact=True)
+        # rows the register path cannot hold: a view 2 B (bf16) or 4 B past
+        # a 16-byte boundary, and a row longer than 20 KB
+        for label, x in (
+                (f"unaligned view (8, {cfg.d_ff})",
+                 unaligned(gen, 8, cfg.d_ff, dtype=dtype)),
+                (f"long row (4, {LONG_ROW})",
+                 randn(gen, 4, LONG_ROW, dtype=dtype))):
+            if register_path(x, torch.empty_like(x)):
+                fail(f"kwta_hist {label} {dn} would take the register path")
+            hold("kwta_hist", f"{label} K={k} {dn} plain-load loop",
+                 kwta_hist_cuda(x, k), kwta_hist_cuda_plain(x, k),
+                 exact=True)
         x = randn(gen, OPS_TOKENS[0], cfg.d_ff, dtype=dtype)
         for kk in (cfg.d_ff, cfg.d_ff + 1):         # K >= D keeps the row
             hold("kwta_hist", f"K={kk} >= D={cfg.d_ff} {dn}",
@@ -720,7 +816,9 @@ def ops_times(cfg):
     run("kwta_hist", f"(128, d_ff) K={k}",
         [h.clone() for _ in range(2 * COPIES)], {   # 128 x 0.66 MB
             "kernel": lambda a: kwta_hist_cuda(a, k),
-            "plain": lambda a: kwta_hist_cuda_plain(a, k)},
+            "plain": lambda a: kwta_hist_cuda_plain(a, k),
+            # a floor: the same bytes read and written by one copy
+            "copy": lambda a: torch.empty_like(a).copy_(a)},
         (1e3 * max(t_bytes, t_ops),
          "bytes" if t_bytes >= t_ops else "operations"))
     return times
@@ -750,6 +848,8 @@ def phase_ops(cfg):
                 for shape, (c, w, b) in by_shape.items()}
         rows.append(row)
     rows[-1]["library_note"] = KWTA_NO_LIBRARY
+    cold, warm, _ = next(iter(times["kwta_hist"].values()))
+    rows[-1]["copy_ms"], rows[-1]["copy_ms_warm"] = cold["copy"], warm["copy"]
     return rows
 
 
@@ -780,6 +880,12 @@ def main():
               f"{len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers, up to "
               f"{max(smem, default=0)} B shared memory, {spills} B spilled")
+        # ptxas -v: "Function properties for <mangled name>" and its spills
+        for fn, spilled in re.findall(r"Function properties for (\S+)\s+\d+ "
+                                      r"bytes stack frame, (\d+) bytes spill "
+                                      r"stores", result.log):
+            if int(spilled):
+                print(f"[build]   {spilled} B spilled by ...{fn[-48:]}")
 
     cfg = get_config("smollm-360m")
     t = time.perf_counter()

@@ -1,6 +1,6 @@
 // bf16 tensor-core building blocks for sm_90a, shared by packed_matmul.cu and
 // grouped_cs_matmul.cu: 16-byte cp.async staging with zero-fill (and its
-// plain-load twin), swizzled shared-memory tiles that ldmatrix reads without
+// plain-load twin, which topk_gather.cu stages with too), swizzled shared-memory tiles that ldmatrix reads without
 // bank conflicts, the m16n8k16 mma.sync body over one K chunk, and the
 // epilogue that writes a block's f32 tile.
 //
@@ -67,7 +67,9 @@ __device__ __forceinline__ void stage16(void* dst, const void* src, int count) {
 #pragma unroll
     for (int e = 0; e < kElems; ++e)
       if (e < count) {
-        if constexpr (kSize == 2)
+        if constexpr (kSize == 4)
+          *reinterpret_cast<uint32_t*>(out + 4 * e) = *reinterpret_cast<const uint32_t*>(in + 4 * e);
+        else if constexpr (kSize == 2)
           *reinterpret_cast<uint16_t*>(out + 2 * e) = *reinterpret_cast<const uint16_t*>(in + 2 * e);
         else
           out[e] = in[e];

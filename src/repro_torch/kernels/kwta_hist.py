@@ -12,7 +12,8 @@ quantize in the input's own type instead, so for bf16 input they keep
 other elements than this kernel; for float32 input all agree bin for bin.
 
 The CUDA source is ``csrc/kwta_hist.cu``; its header says which TPU kernel
-it replaces, what bounds it and how it is laid out.  :func:`kwta_hist_cuda`
+it replaces, what bounds it and how it is laid out.  The pure function
+:func:`register_path` picks between its two loops.  :func:`kwta_hist_cuda`
 launches it for CUDA tensors and runs :func:`kwta_hist_cuda_plain` for CPU
 tensors; it never falls back on a CUDA tensor.  ``kwta_hist_cuda.launches``
 counts the kernel's launches.
@@ -29,6 +30,9 @@ from .build import load_library, run_launch
 
 _BINS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the longest row, in bytes, that the kernel holds in registers: 320
+#: threads of four 16-byte vectors
+REGISTER_ROW_BYTES = 320 * 4 * 16
 
 
 def _check(x: torch.Tensor, k: int):
@@ -61,11 +65,21 @@ def kwta_hist_cuda_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(q >= t, x, torch.zeros_like(x))
 
 
+def register_path(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the kernel reads each row of x once into registers and
+    writes y with 16-byte stores: a row is at most ``REGISTER_ROW_BYTES``
+    long, its length in bytes and both bases are multiples of 16.  Where
+    not, the same kernel takes its plain-load loop."""
+    row = x.shape[-1] * x.element_size()
+    return (row % 16 == 0 and row <= REGISTER_ROW_BYTES
+            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("kwta_hist")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kwta_hist_launch.argtypes = [ptr, i32, ptr, i32, i32, i32, ptr]
+    lib.kwta_hist_launch.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, ptr]
     lib.kwta_hist_launch.restype = i32
     lib.kwta_hist_error_string.argtypes = [i32]
     lib.kwta_hist_error_string.restype = ctypes.c_char_p
@@ -90,7 +104,8 @@ def kwta_hist_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
     # every k <= 0 keeps bin 255 and every k > d the whole row: the clamp
     # keeps the bins and fits k into the kernel's int
     run_launch(_library(), "kwta_hist", dev, x.data_ptr(), _DTYPES[x.dtype],
-               y.data_ptr(), b, d, min(max(k, 0), d + 1))
+               y.data_ptr(), b, d, min(max(k, 0), d + 1),
+               int(register_path(x, y)))
     kwta_hist_cuda.launches += 1
     return y
 

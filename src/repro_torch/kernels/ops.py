@@ -111,11 +111,13 @@ class _TopkGatherSupport(torch.autograd.Function):
         ctx.save_for_backward(vals, p_idx, s_off, packed_p, route)
         g, n = packed_p.shape[1], packed_p.shape[2]
         lead, k = vals.shape[:-1], vals.shape[-1]
-        y = topk_gather(vals.float().reshape(-1, k).contiguous(),
-                        p_idx.to(torch.int32).reshape(-1, k).contiguous(),
-                        s_off.to(torch.int32).reshape(-1, k).contiguous(),
-                        packed_p, route)
-        return y.reshape(*lead, g * n).to(vals.dtype)
+        # the kernel takes the support as the layer holds it (f32 or bf16
+        # values, int32 or int64 indices) and writes vals' type itself
+        y = topk_gather(vals.reshape(-1, k).contiguous(),
+                        p_idx.reshape(-1, k).contiguous(),
+                        s_off.reshape(-1, k).contiguous(), packed_p, route,
+                        out_dtype=vals.dtype)
+        return y.reshape(*lead, g * n)
 
     @staticmethod
     def backward(ctx, dy):

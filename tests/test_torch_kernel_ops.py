@@ -54,6 +54,7 @@ from repro_torch.kernels import registry as t_registry
 packed_module = importlib.import_module("repro_torch.kernels.packed_matmul")
 grouped_module = importlib.import_module(
     "repro_torch.kernels.grouped_cs_matmul")
+kwta_module = importlib.import_module("repro_torch.kernels.kwta_hist")
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -367,6 +368,27 @@ def test_kwta_hist_bf16_follows_the_kernel_not_the_oracle():
     np.testing.assert_array_equal(y, upcast)
 
 
+@pytest.mark.parametrize("b,d,dtype,offset,in_registers", [
+    (128, 2560, torch.bfloat16, 0, True),     # 5120 B: 320 vectors
+    (128, 2560, torch.float32, 0, True),      # 10240 B
+    (4, 10240, torch.bfloat16, 0, True),      # 20 KB: the longest
+    (4, 10248, torch.bfloat16, 0, False),     # longer
+    (4, 5124, torch.float32, 0, False),
+    (8, 1500, torch.bfloat16, 0, False),      # rows of 3000 B
+    (8, 1500, torch.float32, 0, True),        # rows of 6000 B
+    (4, 2560, torch.bfloat16, 1, False),      # base 2 B past 16
+    (4, 2560, torch.float32, 4, True),        # base 16 B past
+])
+def test_kwta_register_path_needs_short_16_byte_rows(b, d, dtype, offset,
+                                                     in_registers):
+    x = _offset(torch.zeros((b, d), dtype=dtype), offset) if offset else \
+        torch.zeros((b, d), dtype=dtype)
+    assert x.is_contiguous()
+    y = torch.empty_like(x)
+    assert kwta_module.register_path(x, y) is in_registers
+    assert kwta_module.register_path(y, x) is in_registers
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kwta_hist_k_at_least_d_keeps_everything(dtype):
     _, tx = _pair(np.random.default_rng(5).normal(size=(3, 64)), dtype)
@@ -487,6 +509,38 @@ def test_topk_gather_support_op_grads(gr):
     np.testing.assert_allclose(tpp.grad.numpy(),
                                np.asarray(want[1]).transpose(1, 0, 2),
                                **F32_TOL)
+
+
+@pytest.mark.parametrize("gr", [8, 1])
+def test_topk_gather_support_op_grads_bf16_values(gr):
+    """bf16 values with int64 indices, as the serving path holds them: the
+    output and d_vals come back in bf16 and match the JAX op's on the same
+    bf16 values."""
+    packed, route = _layer(64, 32, 4, gr, seed=21)
+    vals, p_idx, s_off = _support(3, 8, 64, 4, seed=22)
+    jv, tv = _pair(vals, "bfloat16")
+    jr = jnp.asarray(route)
+
+    def loss(v, w):
+        y = j_support_op(v, jnp.asarray(p_idx), jnp.asarray(s_off), w, jr,
+                         True)
+        return jnp.sum(y.astype(jnp.float32) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1))(jv, jnp.asarray(packed))
+    tv = tv.requires_grad_()
+    tpp, = _leaves(packed.transpose(1, 0, 2))
+    y = topk_gather_support_op(tv, torch.from_numpy(p_idx).long(),
+                               torch.from_numpy(s_off).long(), tpp,
+                               torch.from_numpy(route))
+    assert y.dtype == torch.bfloat16
+    (y.float() ** 2).sum().backward()
+    assert tv.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(tv.grad),
+                               np.asarray(want[0].astype(jnp.float32)),
+                               **BF16_TOL)
+    np.testing.assert_allclose(tpp.grad.numpy(),
+                               np.asarray(want[1]).transpose(1, 0, 2),
+                               **BF16_TOL)
 
 
 def test_topk_gather_op_grads():
