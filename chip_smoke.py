@@ -45,6 +45,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    that run; then each kernel's time, L2-cold and warm, beside its plain
    version, one library call and its bound (the products at T=128 and T=4
    on the up and the down projection).
+7. paged — the paged KV cache (``Engine(kv_layout="paged")``) on the
+   shipped smollm-360m config at full width: in float32, a 40-token prompt
+   chunk-prefilled over scattered page chains and three decode steps
+   through the page tables give the logits of the contiguous prefill and
+   decode with every k-WTA selection held to the contiguous run's (and,
+   selecting freely, print how far a flipped selection moves them); the
+   paged grow engine's greedy tokens equal the contiguous engine's on the
+   reference's mixed-length parity workload (a token may differ only
+   between the contiguous model's top two, closer than that move);
+   in bf16, a workload of duplicated, extended and long prompts on a pool
+   chosen by the scheduler and allocator alone (no model, on the CPU) so
+   that it preempts, adopts prefix pages, breaks sharing and grows
+   chains, with ``topk_gather`` launched once a layer a decode step; then
+   tok/s, time to first token and the decode step of the paged engine
+   beside the contiguous one, and the largest inter-token gap of three
+   short requests while a 512-token prompt is admitted.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -53,8 +69,10 @@ The line before the last holds the card's name and power limit as
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import importlib
 import itertools
 import json
 import re
@@ -93,6 +111,20 @@ LONG_ROW = 16384
 PRODUCT_SHAPES = (("up", 128), ("up", 4), ("down", 128), ("down", 4))
 # Device activities of the profiled decode step printed, longest first.
 PROFILE_TOP = 12
+# The paged phase: pages of 16 rows, prompts prefilled in chunks of 64.
+PAGE_SIZE, PAGED_CHUNK = 16, 64
+# The reference's paged parity workload (tests/test_kvcache.py): 8
+# requests on 4 slots, max_seq 40, pages of 8, a 13-page pool (full
+# backing would be 21), chunks of 8.
+PARITY_PLENS = (5, 19, 3, 26, 9, 14, 7, 22)
+PARITY_GENS = tuple(6 + i % 5 for i in range(8))
+# Two engines' tokens may part only where the contiguous model's top two
+# tokens lie closer than this (or than what a k-WTA selection flip moves
+# the logits by, measured in the same run).
+TIE_MARGIN = 1e-3
+# The long-prompt workload: three short requests decode while one prompt
+# of this many tokens is prefilled.
+LONG_PROMPT = 512
 
 
 def fail(msg: str):
@@ -387,17 +419,26 @@ def phase_serve():
         if not topk:
             print("[serve] topk_gather in the step: no device activity "
                   "of that name")
-    return launches, steps
+    return launches, steps, engine
 
 
 def _decode_step(engine):
-    """One decode step of every slot at position 16, as a callable."""
+    """One decode step of every slot at position 16, as a callable; on a
+    paged engine through page tables that give each slot its own pages."""
     from repro_torch.models import transformer as T
-    cache = engine.new_cache(engine.n_slots)
-    batch = {"tokens": torch.zeros((engine.n_slots, 1), dtype=torch.int64,
+    n = engine.n_slots
+    pages = None
+    if engine.kv_layout == "paged":
+        cache = engine.new_paged_cache()
+        blocks = engine.kv_geo.blocks_per_slot
+        pages = torch.arange(1, n * blocks + 1, device="cuda").view(n, blocks)
+    else:
+        cache = engine.new_cache(n)
+    batch = {"tokens": torch.zeros((n, 1), dtype=torch.int64,
                                    device="cuda")}
-    pos = torch.full((engine.n_slots,), 16, device="cuda")
-    return lambda: T.serve_step(engine.params, cache, batch, pos, engine.cfg)
+    pos = torch.full((n,), 16, device="cuda")
+    return lambda: T.serve_step(engine.params, cache, batch, pos, engine.cfg,
+                                pages=pages)
 
 
 def step_device_ms(engine):
@@ -440,12 +481,19 @@ def step_profile(engine):
     return by_name
 
 
-def phase_parity():
+def f32_model():
+    """smollm-360m in float32 with random weights from SEED (the parity
+    phases' model)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(get_config("smollm-360m"),
                               compute_dtype="float32")
-    params = T.init_model(cfg, seed=SEED, device="cuda")
+    return cfg, T.init_model(cfg, seed=SEED, device="cuda")
+
+
+def phase_parity():
+    from repro_torch.models import transformer as T
+    cfg, params = f32_model()
     rng = np.random.default_rng(SEED + 1)
     b, s, max_seq = 2, 16, 20
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
@@ -853,6 +901,372 @@ def phase_ops(cfg):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paged KV cache at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kwta_selections(held=None):
+    """Record the kept set of every bisect k-WTA call made inside, in call
+    order, as boolean masks; with ``held`` (an iterator of masks, one a
+    call) keep those sets instead of selecting.  The serving FFN selects
+    with ``repro_torch.core.layers.kwta_bisect``."""
+    layers = importlib.import_module("repro_torch.core.layers")
+    select, masks = layers.kwta_bisect, []
+
+    def spy(x, k):
+        if held is not None:
+            keep = next(held)
+        else:
+            keep = select(x, k) != 0
+        masks.append(keep)
+        return x * keep.to(x.dtype)
+
+    layers.kwta_bisect = spy
+    try:
+        yield masks
+    finally:
+        layers.kwta_bisect = select
+
+
+def paged_logits(cfg, params):
+    """Two 40-token prompts chunk-prefilled (three chunks of 16, the last
+    padded) into page chains scattered over the pool, then three decode
+    steps through the page tables, against one fused prefill and three
+    contiguous decode steps, float32, both through the kernel.
+
+    The two paths sum in other orders (a fused prefill of 80 rows against
+    chunks of 16; attention over the 48-row view against 40 rows), and the
+    k-WTA keeps a value or drops it on a threshold, so a difference of
+    ~1e-6 next to the threshold keeps another set, which moves the logits
+    by ~1e-2.  So the paged path runs twice: with every k-WTA selection
+    held to the contiguous run's (the gate, tolerance 1e-3), and free
+    (its difference and the number of selections that differ printed).
+    Returns the free run's largest logit difference."""
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(SEED + 3)
+    b, s, n_steps = 2, 40, 3
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).cuda()
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))).cuda()
+             for _ in range(n_steps)]
+    blocks = -(-(s + n_steps) // PAGE_SIZE)
+    tables = (torch.from_numpy(rng.permutation(b * blocks) + 1)
+              .view(b, blocks).cuda())
+    spans = [(r, start, min(PAGE_SIZE, s - start))
+             for r in range(b) for start in range(0, s, PAGE_SIZE)]
+
+    def paged():
+        pool = T.init_paged_cache(cfg, b * blocks + 1, PAGE_SIZE, "cuda")
+        got = torch.empty((b, s, cfg.padded_vocab), device="cuda")
+        for r, start, ln in spans:
+            buf = torch.zeros((1, PAGE_SIZE), dtype=torch.int64,
+                              device="cuda")
+            buf[0, :ln] = prompt[r, start:start + ln]
+            logits, _ = T.prefill_chunk(params, pool, {"tokens": buf},
+                                        start, ln, cfg, tables[r:r + 1])
+            got[r, start:start + ln] = logits[0, :ln]
+        rows = [got]
+        for i, tok in enumerate(steps):
+            pos = torch.full((b,), s + i, device="cuda")
+            rows.append(T.serve_step(params, pool, {"tokens": tok}, pos, cfg,
+                                     pages=tables)[0][:, None])
+        return torch.cat(rows, dim=1)
+
+    reset_counts()
+    with torch.no_grad():
+        with kwta_selections() as contiguous:
+            want, cache = T.prefill(params, {"tokens": prompt}, cfg,
+                                    s + n_steps)
+            rows = [want]
+            for i, tok in enumerate(steps):
+                pos = torch.full((b,), s + i, device="cuda")
+                rows.append(T.serve_step(params, cache, {"tokens": tok}, pos,
+                                         cfg)[0][:, None])
+        want = torch.cat(rows, dim=1)
+        # the contiguous selections in the paged run's call order: per
+        # chunk every layer's rows of that chunk (padding rows keep none),
+        # then the decode steps' as they were
+        n_layers = cfg.n_layers
+        held, real = [], []
+        for r, start, ln in spans:
+            for layer in range(n_layers):
+                keep = torch.zeros((1, PAGE_SIZE, contiguous[0].shape[-1]),
+                                   dtype=torch.bool, device="cuda")
+                keep[0, :ln] = contiguous[layer][r, start:start + ln]
+                held.append(keep)
+                real.append(ln)
+        held += contiguous[n_layers:]
+        real += [1] * (len(contiguous) - n_layers)
+        with kwta_selections(iter(held)):
+            got_held = paged()
+        with kwta_selections() as free_masks:
+            got_free = paged()
+    torch.cuda.synchronize()
+    launches = read_counts()["topk_gather"]
+    if launches != 3 * n_layers * n_steps:
+        fail(f"paged logits: topk_gather launched {launches} times, want "
+             f"3 runs x {n_layers} layers x {n_steps} steps")
+    # selections of real rows (not chunk padding) that differ
+    flips = sum(int((h[:, :n] != f[:, :n]).any(-1).sum())
+                for h, f, n in zip(held, free_masks, real))
+    n_sel = sum(h.shape[0] * n for h, n in zip(held, real))
+    if not bool(torch.isfinite(got_held).all()):
+        fail("paged logits: non-finite logits")
+    err = float((got_held - want).abs().max())
+    free_err = float((got_free - want).abs().max())
+    tol = 1e-3
+    print(f"[paged] f32 chunked prefill of {b} x {s} tokens in chunks of "
+          f"{PAGE_SIZE} + {n_steps} paged decode steps vs fused prefill + "
+          f"contiguous decode, k-WTA selections held to the contiguous "
+          f"run's: max_abs_err={err:.3e} (max |logit| "
+          f"{float(want.abs().max()):.3f}) tol={tol:.0e}; topk_gather "
+          f"launches {launches}")
+    print(f"[paged] the same, selecting freely: max_abs_err={free_err:.3e}, "
+          f"{flips} of {n_sel} (layer, position) selections keep another "
+          "set")
+    if not err <= tol:
+        fail("paged logits disagree with the contiguous path")
+    return free_err
+
+
+def parity_requests(vocab):
+    from repro_torch.runtime.scheduler import Request
+    rng = np.random.default_rng(SEED)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, n).tolist(),
+                    max_new_tokens=g)
+            for i, (n, g) in enumerate(zip(PARITY_PLENS, PARITY_GENS))]
+
+
+def top2(cfg, params, tokens):
+    """The contiguous model's two most likely next tokens after ``tokens``
+    and the gap between their logits (one fused prefill, float32)."""
+    from repro_torch.models import transformer as T
+    toks = torch.tensor([tokens], device="cuda")
+    with torch.no_grad():
+        logits, _ = T.prefill(params, {"tokens": toks}, cfg, len(tokens))
+    top = torch.topk(logits[0, -1].float(), 2)
+    return set(top.indices.tolist()), float(top.values[0] - top.values[1])
+
+
+def paged_tokens(cfg, params, tie_margin):
+    """The paged grow engine against the contiguous engine, greedy, f32, on
+    the reference's parity workload.  Where a request's tokens part, the
+    two tokens must be the contiguous model's top two there, and their
+    logits closer than ``tie_margin``: the logit difference a k-WTA
+    selection flip makes between the two layouts (``paged_logits``), at
+    least TIE_MARGIN."""
+    from repro_torch.launch.serve import Engine
+    eng_c = Engine(cfg, max_seq=40, n_slots=4, params=params, device="cuda")
+    eng_p = Engine(cfg, max_seq=40, n_slots=4, params=params, device="cuda",
+                   kv_layout="paged", page_size=8, n_pages=13,
+                   prefill_chunk=8)
+    reqs = parity_requests(cfg.vocab_size)
+    out_c, _ = eng_c.serve(reqs)
+    out_p, stats = eng_p.serve(reqs)
+    ties = 0
+    for req in reqs:
+        want, got = out_c[req.uid], out_p[req.uid]
+        if len(got) != len(want):
+            fail(f"paged parity: request {req.uid} returned {len(got)} "
+                 f"tokens, want {len(want)}")
+        part = next((j for j, (a, b) in enumerate(zip(want, got))
+                     if a != b), None)
+        if part is None:
+            continue
+        best, margin = top2(cfg, params, list(req.prompt) + want[:part])
+        print(f"[paged] request {req.uid}: tokens part at step {part} "
+              f"(contiguous {want[part]}, paged {got[part]}); the "
+              f"contiguous model's top two there {sorted(best)}, margin "
+              f"{margin:.3e}")
+        if best != {want[part], got[part]} or not margin < tie_margin:
+            fail(f"paged parity: request {req.uid} differs at step {part} "
+                 f"beyond a tie (margin {margin:.3e}, bound "
+                 f"{tie_margin:.3e})")
+        ties += 1
+    print(f"[paged] f32 engine tokens, paged grow vs contiguous, "
+          f"{len(reqs)} requests ({stats['prefill_chunks']} chunks, "
+          f"{stats['pages_capacity']} pages of 8): "
+          f"{len(reqs) - ties} identical, {ties} parted at a tie of the "
+          f"top two (margin < {tie_margin:.3e})")
+
+
+def allocator_requests(vocab):
+    """Mixed prompt lengths with a duplicated and an extended prompt: a
+    40-token parent that keeps decoding while three budget-1 fillers pass
+    through the other slots, so that its duplicate is admitted after the
+    parent's pages are published (prefix hits, copy-on-write of the shared
+    last page), an extension that adopts its two full pages, and longer
+    prompts (two chunks) and budgets that outgrow the pool."""
+    from repro_torch.runtime.scheduler import Request
+    rng = np.random.default_rng(SEED + 4)
+    base = rng.integers(0, vocab, 40).tolist()
+    spec = ([(base, 40)]
+            + [(rng.integers(0, vocab, 5).tolist(), 1) for _ in range(3)]
+            + [(base, 30), (base + rng.integers(0, vocab, 50).tolist(), 20),
+               (rng.integers(0, vocab, 70).tolist(), 24),
+               (rng.integers(0, vocab, 20).tolist(), 30)])
+    return [Request(uid=i, prompt=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(spec)]
+
+
+def allocator_goals(stats):
+    return (stats["preemptions"] >= 1 and stats["prefix_hit_pages"] >= 1
+            and stats["cow_copies"] + stats["cow_in_place"] >= 1
+            and stats["grown_pages"] >= 1)
+
+
+ALLOC_KEYS = ("preemptions", "prefix_hit_pages", "cow_copies",
+              "cow_in_place", "grown_pages", "max_concurrent",
+              "prefill_chunks", "decode_steps")
+
+
+def plan_pool(cfg, reqs, max_seq):
+    """The largest pool on which the paged grow engine's scheduler and
+    allocator alone — no model: every forward gives zero logits, on the
+    CPU — preempt, adopt prefix pages, break sharing and grow chains.
+    Page accounting does not depend on the tokens drawn.  Returns
+    (n_pages, the planned stats)."""
+    from repro_torch.launch.serve import Engine
+
+    class NoModel(Engine):
+        def new_paged_cache(self):
+            return []                  # copy_cache_page has nothing to copy
+
+        def _prefill_chunk(self, cache, tokens, table, start):
+            return torch.zeros(self.cfg.vocab_size)
+
+        def _decode_step(self, cache, tokens, pos, tables=None):
+            return np.zeros((self.n_slots, self.cfg.vocab_size), np.float32)
+
+    blocks = -(-max_seq // PAGE_SIZE)
+    for n_pages in range(4 * blocks + 1, blocks, -1):
+        eng = NoModel(cfg, max_seq=max_seq, n_slots=4, params={},
+                      device="cpu", kv_layout="paged", page_size=PAGE_SIZE,
+                      n_pages=n_pages, prefill_chunk=PAGED_CHUNK)
+        _, stats = eng.serve(reqs)
+        if allocator_goals(stats):
+            return n_pages, stats
+    fail("no pool size makes the allocator workload preempt, share and grow")
+
+
+def paged_allocator(cfg, engine_c):
+    """bf16 at full width: the allocator workload on the planned pool.
+    Returns (topk_gather launches, decode steps) of its run."""
+    from repro_torch.launch.serve import Engine
+    reqs = allocator_requests(cfg.vocab_size)
+    max_seq = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    n_pages, plan = plan_pool(cfg, reqs, max_seq)
+    print(f"[paged] pool planned by the scheduler and allocator alone (no "
+          f"model, CPU): {n_pages} pages of {PAGE_SIZE} (full backing "
+          f"{4 * -(-max_seq // PAGE_SIZE) + 1}); planned "
+          + ", ".join(f"{k} {plan[k]}" for k in ALLOC_KEYS))
+    eng = Engine(cfg, max_seq=max_seq, n_slots=4, params=engine_c.params,
+                 device="cuda", kv_layout="paged", page_size=PAGE_SIZE,
+                 n_pages=n_pages, prefill_chunk=PAGED_CHUNK)
+    reset_counts()
+    out, stats = eng.serve(reqs)
+    counts = read_counts()
+    launches, steps = counts["topk_gather"], stats["decode_steps"]
+    print(f"[paged] bf16 allocator workload ({len(reqs)} requests): "
+          + ", ".join(f"{k} {stats[k]}" for k in ALLOC_KEYS)
+          + f"; kernel launches {counts}")
+    if not allocator_goals(stats):
+        fail("the allocator workload did not preempt, share and grow on "
+             "the card")
+    for req in reqs:
+        toks = out.get(req.uid, [])
+        if len(toks) != req.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"paged request {req.uid} returned {toks}")
+    if launches == 0 or launches != cfg.n_layers * steps:
+        fail(f"paged: topk_gather launched {launches} times, want "
+             f"{cfg.n_layers} x {steps} decode steps")
+    print("[paged] pool drained, allocator invariants hold (checked at the "
+          "end of serve)")
+    return launches, steps
+
+
+def serve_numbers(stats):
+    ttft = float(np.mean(list(stats["ttft_s"].values())))
+    return (stats["tok_s"], ttft * 1e3,
+            stats["decode_s"] / max(stats["decode_steps"], 1) * 1e3)
+
+
+def paged_numbers(cfg, engine_c):
+    """The paged engine beside the contiguous one on phase 4's workload,
+    in turns (contiguous, paged, paged, contiguous); then the largest
+    inter-token gap of three short requests while a LONG_PROMPT-token
+    prompt is prefilled, in the same turns."""
+    from repro_torch.launch.serve import Engine
+    from repro_torch.runtime.scheduler import Request
+    rng = np.random.default_rng(SEED)
+    prompt_len, gen = 16, 16
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               prompt_len).tolist(),
+                    max_new_tokens=gen) for i in range(8)]
+    long_reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                    prompt_len).tolist(),
+                         max_new_tokens=24) for i in range(3)]
+    long_reqs.append(Request(uid=3, prompt=rng.integers(
+        0, cfg.vocab_size, LONG_PROMPT).tolist(), max_new_tokens=4))
+    engines = {}
+    for layout in ("contiguous", "paged"):
+        kw = ({} if layout == "contiguous" else
+              dict(kv_layout="paged", page_size=PAGE_SIZE,
+                   prefill_chunk=PAGED_CHUNK))
+        engines[layout] = (
+            Engine(cfg, max_seq=prompt_len + gen + 1, n_slots=4,
+                   params=engine_c.params, device="cuda", **kw),
+            Engine(cfg, max_seq=LONG_PROMPT + 5, n_slots=4,
+                   params=engine_c.params, device="cuda", **kw))
+        for eng, work in zip(engines[layout], (reqs, long_reqs)):
+            eng.serve(work)                               # warm-up
+    runs = collections.defaultdict(list)
+    gaps = collections.defaultdict(list)
+    for layout in ("contiguous", "paged", "paged", "contiguous"):
+        eng, eng_long = engines[layout]
+        _, stats = eng.serve(reqs)
+        runs[layout].append(serve_numbers(stats))
+        _, stats_long = eng_long.serve(long_reqs)
+        gaps[layout].append([eng_long.records[u].itl_max * 1e3
+                             for u in range(3)])
+        tok_s, ttft, step = runs[layout][-1]
+        print(f"[paged] {layout}: {tok_s:.2f} tok/s, mean TTFT {ttft:.2f} "
+              f"ms, decode step {step:.3f} ms (host clock); with a "
+              f"{LONG_PROMPT}-token prompt: largest inter-token gap of the "
+              f"3 short requests {max(gaps[layout][-1]):.3f} ms (each: "
+              + ", ".join(f"{g:.3f}" for g in gaps[layout][-1])
+              + f"), decode step {serve_numbers(stats_long)[2]:.3f} ms")
+    paged = engines["paged"][0]
+    acts = step_profile(paged)
+    print(f"[paged] one eager paged decode step under torch.profiler: "
+          f"{sum(c for c, _ in acts.values())} device activities, "
+          f"{sum(t for _, t in acts.values()):.3f} ms busy; on the device "
+          f"alone (CUDA graph replay) {step_device_ms(paged):.3f} ms (the "
+          "contiguous step: phase 4)")
+    return {layout: {"tok_s": [r[0] for r in runs[layout]],
+                     "ttft_ms": [r[1] for r in runs[layout]],
+                     "decode_step_ms": [r[2] for r in runs[layout]],
+                     "long_prompt_itl_max_ms": [max(g) for g in
+                                                gaps[layout]]}
+            for layout in runs}
+
+
+def phase_paged(engine_c):
+    """Returns (topk_gather launches, decode steps) of the bf16 allocator
+    workload: the paged path's run."""
+    cfg32, params32 = f32_model()
+    free_err = paged_logits(cfg32, params32)
+    paged_tokens(cfg32, params32, max(TIE_MARGIN, free_err))
+    del params32
+    torch.cuda.empty_cache()
+    cfg = engine_c.cfg
+    launches, steps = paged_allocator(cfg, engine_c)
+    numbers = paged_numbers(cfg, engine_c)
+    print(f"[paged] numbers {json.dumps(numbers)}")
+    return launches, steps
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -892,7 +1306,7 @@ def main():
     row = phase_kernels()
     print(f"[kernels] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    row["launches"], steps = phase_serve()
+    row["launches"], steps, engine = phase_serve()
     row["launches_per_decode_step"] = row["launches"] / steps
     print(f"[serve] done in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -901,6 +1315,10 @@ def main():
     t = time.perf_counter()
     rows = phase_ops(cfg)
     print(f"[ops] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    row["launches_paged"], steps = phase_paged(engine)
+    row["launches_per_decode_step_paged"] = row["launches_paged"] / steps
+    print(f"[paged] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

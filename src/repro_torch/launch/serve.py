@@ -1,5 +1,6 @@
-"""Continuous-batching inference engine: fused prefill + slot decode, on the
-contiguous KV cache.
+"""Continuous-batching inference engine: fused prefill + slot decode on the
+contiguous KV cache, or chunked prefill + decode through page tables on
+the paged one.
 
 The serving subsystem the paper's throughput claim lands on: weight
 sparsity (CS-packed projections) and activation sparsity (k-WTA) both cut
@@ -23,21 +24,40 @@ multiply — so the engine's job is to keep the decode batch full.
 ``Engine.generate_static`` keeps the static-batch greedy path (stepwise
 prefill through the decode step) as the correctness oracle.
 
+Paged KV cache: ``Engine(kv_layout="paged")`` swaps the
+``(n_slots, max_seq)`` contiguous cache for a pool of fixed-size pages
+(:mod:`repro_torch.runtime.kvcache`) — prompts prefill in page-aligned
+chunks interleaved with decode steps (one chunk per loop iteration,
+bounding the inter-token gap in-flight requests see when a long prompt
+lands), decode reads and writes through per-slot page tables, and
+retirement returns pages copy-free.  Under ``kv_policy="grow"`` (the
+paged default) admission takes only the prompt's pages, each chain grows
+one page at a time as decode crosses page boundaries, and when the pool
+runs dry the youngest-admitted slot is preempted (recompute-on-resume);
+requests sharing a prompt prefix share physical pages (hash-matched at
+admit) with copy-on-write on the first divergent write.
+``kv_policy="reserve"`` pins every request's worst case at admit, the
+scheduling oracle.  Greedy tokens equal the contiguous layout's, which
+stays the default.
+
 The engine runs on ``cuda`` unless ``device`` names another; with the
 sparse-sparse config its decode steps send every FFN down projection to
-the ``topk_gather`` CUDA kernel.
+the ``topk_gather`` CUDA kernel, on either layout.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --slots 4 --requests 8 --prompt-len 16 --gen 32 [--full] [--device cpu]
+      [--kv-layout paged --page-size 8 --n-pages 13]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
-from typing import Optional, Sequence
+from collections import deque
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +65,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
-from repro_torch.runtime.scheduler import (Request, SamplingParams, Scheduler,
+from repro_torch.runtime.kvcache import (NULL_PAGE, BlockAllocator, PagedKV,
+                                         prefix_keys)
+from repro_torch.runtime.scheduler import (Request, RequestRecord,
+                                           SamplingParams, Scheduler,
                                            sample_token)
 
 
@@ -71,10 +94,25 @@ class Engine:
     (the topk_gather kernel wrapper) or 'off' (the PyTorch formula).
     ``params`` (e.g. from :mod:`repro_torch.bridge`) must lie on
     ``device``; without them the engine draws random weights from seed 0,
-    as the reference does."""
+    as the reference does.
+
+    ``kv_layout="paged"`` serves from a pool of ``n_pages`` pages of
+    ``page_size`` rows (default: full backing) with prompts prefilled in
+    chunks of ``prefill_chunk`` rows (a multiple of ``page_size``;
+    default four pages), under ``kv_policy`` "grow" or "reserve"."""
 
     def __init__(self, cfg, max_seq: int, n_slots: int = 4, params=None,
-                 use_pallas: Optional[str] = None, device=None):
+                 use_pallas: Optional[str] = None, device=None,
+                 kv_layout: str = "contiguous", page_size: int = 16,
+                 n_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 kv_policy: str = "grow"):
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
+                             f"got {kv_layout!r}")
+        if kv_policy not in ("reserve", "grow"):
+            raise ValueError(f"kv_policy must be 'reserve' or 'grow', "
+                             f"got {kv_policy!r}")
         self.device = resolve_device(device)
         if use_pallas is not None:
             cfg = dataclasses.replace(
@@ -89,9 +127,36 @@ class Engine:
         self.params = (params if params is not None
                        else T.init_model(cfg, seed=0, device=self.device))
         self.prefill_calls = 0  # one per admitted prompt (tests assert)
+        #: per-request lifecycle records of the last ``serve`` call
+        self.records: Dict[int, RequestRecord] = {}
+        self.kv_layout = kv_layout
+        self.kv_policy = kv_policy
+        self.kv_geo: Optional[PagedKV] = None
+        if kv_layout == "paged":
+            self.kv_geo = PagedKV.build(max_seq, n_slots,
+                                        page_size=page_size,
+                                        n_pages=n_pages)
+            # page-aligned chunk bucket: long prompts prefill in slabs of
+            # this many rows, one slab per serve-loop iteration
+            self.prefill_chunk = (prefill_chunk if prefill_chunk is not None
+                                  else min(4 * self.kv_geo.page_size,
+                                           self.kv_geo.view_len))
+            self.kv_geo.chunk_spans(1, self.prefill_chunk)  # validates
 
     def new_cache(self, batch: int):
         return T.init_cache(self.cfg, batch, self.max_seq, self.device)
+
+    def new_paged_cache(self):
+        """The page pools (``kv_layout='paged'``): one dict per layer of
+        leaves shaped (n_pages, page_size, ...), addressed through per-slot
+        page tables instead of batch rows."""
+        geo = self.kv_geo
+        return T.init_paged_cache(self.cfg, geo.n_pages, geo.page_size,
+                                  self.device)
+
+    def _to_device(self, a) -> torch.Tensor:
+        """Token ids, positions or page tables as int64 on the device."""
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
     @staticmethod
     def _insert(cache, frag, slot: int):
@@ -114,11 +179,36 @@ class Engine:
         bucket = _bucket(p_len, self.max_seq)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :p_len] = np.asarray(prompt, np.int64)
-        logits, frag = T.prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            self.cfg, self.max_seq)
+        logits, frag = T.prefill(self.params,
+                                 {"tokens": self._to_device(toks)},
+                                 self.cfg, self.max_seq)
         self.prefill_calls += 1
         return _host_row(logits[0, p_len - 1]), frag
+
+    def _prefill_chunk(self, cache, tokens: Sequence[int], table: np.ndarray,
+                       start: int) -> torch.Tensor:
+        """One page-aligned chunk of one slot's prompt, padded to
+        ``prefill_chunk`` rows, through the paged cache (written in
+        place).  ``table``: the slot's (1, n_blocks) page table.  Returns
+        the logits of the chunk's last true row, on the device."""
+        ln = len(tokens)
+        buf = np.zeros((1, self.prefill_chunk), np.int64)
+        buf[0, :ln] = np.asarray(tokens, np.int64)
+        logits, _ = T.prefill_chunk(
+            self.params, cache, {"tokens": self._to_device(buf)}, start, ln,
+            self.cfg, self._to_device(table))
+        return logits[0, ln - 1]
+
+    def _decode_step(self, cache, tokens: np.ndarray, pos: np.ndarray,
+                     tables: Optional[np.ndarray] = None) -> np.ndarray:
+        """One decode step of every slot (the cache written in place);
+        with ``tables`` through the paged cache.  Returns the
+        (n_slots, vocab) logits on the host."""
+        logits, _ = T.serve_step(
+            self.params, cache, {"tokens": self._to_device(tokens)},
+            self._to_device(pos), self.cfg,
+            pages=None if tables is None else self._to_device(tables))
+        return _host_row(logits)
 
     # -- continuous-batching loop -------------------------------------------
     @torch.no_grad()
@@ -128,7 +218,8 @@ class Engine:
         Returns (outputs, stats): outputs maps request uid -> generated
         token list; stats has tok/s, time-to-first-token per request, the
         decode-step and prefill-call counts and the time spent in decode
-        steps.
+        steps.  With ``kv_layout='paged'`` the loop of
+        :meth:`_serve_paged` runs instead.
         """
         for r in requests:
             if r.max_new_tokens < 1:
@@ -143,7 +234,10 @@ class Engine:
                     f"request {r.uid}: prompt {len(r.prompt)} + "
                     f"max_new {r.max_new_tokens} exceeds max_seq "
                     f"{self.max_seq}")
+        if self.kv_layout == "paged":
+            return self._serve_paged(requests)
         sched = Scheduler(self.n_slots)
+        self.records = sched.records
         sched.submit_many(requests, now=0.0)
         cache = self.new_cache(self.n_slots)
         tokens = np.zeros((self.n_slots, 1), np.int64)
@@ -166,11 +260,7 @@ class Engine:
             if not active:
                 continue
             t_step = time.perf_counter()
-            logits, cache = T.serve_step(
-                self.params, cache,
-                {"tokens": torch.from_numpy(tokens).to(self.device)},
-                torch.from_numpy(pos).to(self.device), self.cfg)
-            logits = _host_row(logits)
+            logits = self._decode_step(cache, tokens, pos)
             decode_s += time.perf_counter() - t_step
             n_steps += 1
             now = time.perf_counter() - t0
@@ -194,6 +284,250 @@ class Engine:
         }
         return sched.finished, stats
 
+    # -- paged serve loop -----------------------------------------------------
+    def _serve_paged(self, requests: Sequence[Request]):
+        """Paged serve loop: admit-by-pages -> chunked prefill (one chunk
+        per iteration, interleaved with decode) -> decode through the
+        page tables -> retire (copy-free page reclamation).
+
+        Differences from the contiguous loop:
+
+        * Admission is gated on FREE PAGES, not just free slots.  Under
+          ``kv_policy="reserve"`` the queue head reserves
+          ``ceil((prompt + max_new) / page_size)`` pages at admit, so
+          decode can never run out mid-request.  Under ``"grow"`` it
+          takes only its PROMPT pages — minus any prefix pages adopted
+          from the allocator's hash index — and decode pages arrive
+          lazily: each iteration extends every decoding slot's chain
+          (oldest-admitted first) to cover its next write, preempting the
+          youngest-admitted slot when the pool is dry
+          (recompute-on-resume; pre-validation of every request's worst
+          case against the whole pool makes a sole survivor always able
+          to finish, so eviction cannot livelock).
+        * Writes into a page held by more than one chain break the
+          sharing first: the allocator swaps in a private page and
+          :func:`~repro_torch.models.transformer.copy_cache_page` copies
+          the rows on the device before the write, so prefix sharing
+          never changes any request's tokens.
+        * A long prompt no longer stalls in-flight decode for its whole
+          prefill: each iteration forwards at most ONE page-aligned chunk
+          of the oldest prefilling slot, then decodes the slots whose
+          prompts are fully cached.
+        * The decode step receives the per-slot page tables; rows of
+          slots that are free or still prefilling are nulled for the
+          step, so their (ignored) writes sink into the null page
+          instead of a live chain.
+
+        ``REPRO_KV_CHECK=1`` runs ``alloc.check()`` every loop iteration
+        (instead of only on drain).
+        """
+        geo = self.kv_geo
+        alloc = BlockAllocator(geo.n_pages, geo.page_size)
+        for r in requests:
+            need = alloc.pages_needed(len(r.prompt) + r.max_new_tokens)
+            if need > alloc.capacity:
+                raise ValueError(
+                    f"request {r.uid}: needs {need} KV pages, pool holds "
+                    f"{alloc.capacity} — raise n_pages")
+        grow = self.kv_policy == "grow"
+        paranoid = os.environ.get("REPRO_KV_CHECK") == "1"
+        sched = Scheduler(self.n_slots, allocator=alloc,
+                          kv_policy=self.kv_policy)
+        self.records = sched.records
+        sched.submit_many(requests, now=0.0)
+        tables = geo.empty_tables(self.n_slots)
+        chunk = self.prefill_chunk
+        ps = geo.page_size
+        n_chunks = 0
+        n_cow = 0
+        n_cow_inplace = 0
+        n_grown = 0
+        max_concurrent = 0
+        prefillq: deque = deque()  # slots mid-prompt, FIFO
+
+        def _evict(victim):
+            """Preempt ``victim``: null its page table, drop it from the
+            prefill queue, hand the request back to the scheduler
+            (pages released, request re-queued at the head)."""
+            geo.clear_chain(tables, victim.index)
+            if victim in prefillq:
+                prefillq.remove(victim)
+            sched.preempt(victim, now=time.perf_counter() - t0)
+
+        def _ensure_free(n, requester):
+            """Free >= ``n`` pages by preempting youngest-admitted slots
+            (least service lost, FIFO order preserved on requeue).
+            Returns False when ``requester`` itself was the victim —
+            the caller's slot is gone and its work this iteration is
+            abandoned."""
+            while alloc.free_pages < n:
+                victim = sched.preemption_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        "KV pool exhausted with no slot to preempt")
+                _evict(victim)
+                if victim is requester:
+                    return False
+            return True
+
+        def _cow(slot, blk):
+            """Break sharing of chain page ``blk`` before ``slot``
+            writes there.  Returns False when the slot lost its chain
+            while freeing a page for the copy."""
+            nonlocal n_cow, n_cow_inplace
+            uid = slot.request.uid
+            if not alloc.page_shared(uid, blk):
+                return True
+            if alloc.free_pages < 1 and not _ensure_free(1, slot):
+                return False
+            cow = alloc.cow_page(uid, blk)
+            if cow is None:
+                # _ensure_free just preempted the page's only co-holder
+                # (the youngest slot is typically the prefix-adopter):
+                # the page is uniquely held now — write in place, no copy
+                n_cow_inplace += 1
+                return True
+            old, new = cow
+            T.copy_cache_page(cache, old, new)
+            geo.set_chain(tables, slot.index, alloc.chain(uid))
+            n_cow += 1
+            return True
+
+        cache = self.new_paged_cache()
+        tokens = np.zeros((self.n_slots, 1), np.int64)
+        pos = np.zeros((self.n_slots,), np.int64)
+        n_steps = 0
+        decode_s = 0.0
+        t0 = time.perf_counter()
+        while sched.has_work:
+            if paranoid:
+                alloc.check()
+            for slot in sched.admit(now=time.perf_counter() - t0,
+                                    chunked=True):
+                geo.set_chain(tables, slot.index,
+                              alloc.chain(slot.request.uid))
+                prefillq.append(slot)
+            max_concurrent = max(max_concurrent, len(sched.active_slots()))
+            # ONE chunk per iteration: prefill progress is interleaved
+            # with decode so in-flight slots keep emitting tokens.
+            if prefillq:
+                slot = prefillq[0]
+                req = slot.request
+                start = slot.prefill_pos
+                ln = min(chunk, len(req.prompt) - start)
+                # chunk rows may land in adopted prefix pages (an
+                # exact-duplicate prompt re-prefills its final token into
+                # the sharer's last page): break the sharing first.  _cow
+                # can preempt, including this very slot — then skip the
+                # chunk, the request is back in the queue.
+                ok = True
+                if grow:
+                    for blk in range(start // ps,
+                                     (start + ln - 1) // ps + 1):
+                        if not _cow(slot, blk):
+                            ok = False
+                            break
+                if ok:
+                    row = self._prefill_chunk(
+                        cache, req.prompt[start:start + ln],
+                        tables[slot.index:slot.index + 1], start)
+                    n_chunks += 1
+                    slot.prefill_pos += ln
+                if ok and not slot.prefilling:  # last chunk
+                    prefillq.popleft()
+                    self.prefill_calls += 1
+                    if grow:
+                        # rows are on the device now — publish the
+                        # prompt's pages for later prefix matches
+                        alloc.register_chain_prefix(
+                            req.uid, prefix_keys(req.prompt, ps))
+                    first = sample_token(_host_row(row), req.sampling,
+                                         slot.rng)
+                    sched.record_token(slot, first,
+                                       now=time.perf_counter() - t0)
+                    tokens[slot.index, 0] = first
+                    pos[slot.index] = slot.pos  # == len(prompt)
+            # budget-1 requests finish at prefill
+            for slot in sched.retire_done(now=time.perf_counter() - t0):
+                geo.clear_chain(tables, slot.index)
+            if grow:
+                # grow every decoding slot's chain to cover its next
+                # write, oldest-admitted first (the youngest is the
+                # preemption victim, so growing oldest-first means a
+                # victim's freed pages go to the slots that keep
+                # running).  A slot evicted by an earlier _ensure_free
+                # in this very loop shows up as not busy — skip it.
+                for slot in sorted(sched.decoding_slots(),
+                                   key=lambda s: s.admit_seq):
+                    if not slot.busy:
+                        continue
+                    uid = slot.request.uid
+                    evicted = False
+                    while alloc.chain_len(uid) <= slot.pos // ps:
+                        if alloc.free_pages < 1 \
+                                and not _ensure_free(1, slot):
+                            evicted = True
+                            break
+                        alloc.extend(uid, 1)
+                        n_grown += 1
+                    if evicted or not slot.busy:
+                        continue
+                    # the write row may sit in a page adopted from a
+                    # prompt-prefix match: break the sharing first
+                    if not _cow(slot, slot.pos // ps):
+                        continue
+                    geo.set_chain(tables, slot.index, alloc.chain(uid))
+            active = sched.decoding_slots()
+            if not active:
+                continue
+            # Null the page-table rows of slots sitting this step out
+            # (free, or mid-prefill): their stale token/pos rows still
+            # ride the batch, but their writes sink to the null page.
+            step_tables = tables.copy()
+            decoding = {s.index for s in active}
+            for i in range(self.n_slots):
+                if i not in decoding:
+                    step_tables[i, :] = NULL_PAGE
+            t_step = time.perf_counter()
+            logits = self._decode_step(cache, tokens, pos, step_tables)
+            decode_s += time.perf_counter() - t_step
+            n_steps += 1
+            now = time.perf_counter() - t0
+            for slot in active:
+                nxt = sample_token(logits[slot.index], slot.request.sampling,
+                                   slot.rng)
+                sched.record_token(slot, nxt, now=now)
+                tokens[slot.index, 0] = nxt
+                slot.pos += 1
+                pos[slot.index] = slot.pos
+            for slot in sched.retire_done(now=time.perf_counter() - t0):
+                geo.clear_chain(tables, slot.index)
+        dt = time.perf_counter() - t0
+        alloc.check()
+        if alloc.used_pages:
+            raise RuntimeError(f"{alloc.used_pages} KV pages still held "
+                               "after the queue drained")
+        total = sum(len(v) for v in sched.finished.values())
+        stats = {
+            "wall_s": dt,
+            "tok_s": total / dt if dt else float("inf"),
+            "decode_steps": n_steps,
+            "decode_s": decode_s,
+            "prefill_calls": self.prefill_calls,
+            "prefill_chunks": n_chunks,
+            "pages_capacity": alloc.capacity,
+            "page_size": geo.page_size,
+            "kv_policy": self.kv_policy,
+            "max_concurrent": max_concurrent,
+            "preemptions": sched.preemption_count,
+            "prefix_hit_pages": sched.prefix_hit_pages,
+            "cow_copies": n_cow,
+            "cow_in_place": n_cow_inplace,
+            "grown_pages": n_grown,
+            "ttft_s": dict(sched.ttft),
+        }
+        return sched.finished, stats
+
     # -- static-batch oracle -------------------------------------------------
     @torch.no_grad()
     def generate_static(self, prompts: np.ndarray, gen_len: int):
@@ -202,8 +536,7 @@ class Engine:
         but slow — the correctness oracle for the continuous engine."""
         b, p_len = prompts.shape
         cache = self.new_cache(b)
-        prompts = torch.from_numpy(np.asarray(prompts, np.int64)).to(
-            self.device)
+        prompts = self._to_device(prompts)
         logits = None
         for pos in range(p_len):
             logits, cache = T.serve_step(self.params, cache,
@@ -238,6 +571,26 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="run the shipped config at full width (default: "
                     "its reduced() smoke config)")
+    ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="KV cache layout: 'paged' decouples KV memory "
+                    "from max_seq*slots (block allocator + chunked "
+                    "prefill); 'contiguous' is the parity oracle")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="token rows per KV page (paged layout)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="KV pool size in pages (default: full backing, "
+                    "slots*ceil(max_seq/page_size)+1)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill chunk rows, multiple of page-size "
+                    "(default: 4 pages)")
+    ap.add_argument("--kv-policy", choices=("reserve", "grow"),
+                    default="grow",
+                    help="paged admission policy: 'grow' admits on the "
+                    "prompt footprint, extends chains lazily and preempts "
+                    "(recompute-on-resume) when the pool runs dry; "
+                    "'reserve' pins the worst case at admit (the "
+                    "scheduling oracle)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -245,7 +598,10 @@ def main(argv=None):
         cfg = cfg.reduced()
     engine = Engine(cfg, max_seq=args.prompt_len + args.gen + 1,
                     n_slots=args.slots, use_pallas=args.use_pallas,
-                    device=args.device)
+                    device=args.device, kv_layout=args.kv_layout,
+                    page_size=args.page_size, n_pages=args.n_pages,
+                    prefill_chunk=args.prefill_chunk,
+                    kv_policy=args.kv_policy)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
@@ -255,10 +611,17 @@ def main(argv=None):
                                             top_k=args.top_k, seed=i))
             for i in range(args.requests)]
     out, stats = engine.serve(reqs)
-    print(f"served {len(out)} requests on {engine.device}, "
-          f"{stats['decode_steps']} decode steps, {stats['prefill_calls']} "
-          f"prefill calls, {stats['tok_s']:.1f} tok/s; "
-          f"sample: {out[0][:16]}")
+    line = (f"served {len(out)} requests on {engine.device}, "
+            f"{stats['decode_steps']} decode steps, {stats['prefill_calls']} "
+            f"prefill calls, {stats['tok_s']:.1f} tok/s")
+    if engine.kv_layout == "paged":
+        line += (f"; paged ({stats['kv_policy']}): "
+                 f"{stats['prefill_chunks']} prefill chunks, "
+                 f"{stats['pages_capacity']} pages of {stats['page_size']}, "
+                 f"max concurrent {stats['max_concurrent']}, "
+                 f"{stats['preemptions']} preemptions, "
+                 f"{stats['grown_pages']} grown pages")
+    print(f"{line}; sample: {out[0][:16]}")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,16 @@
 """Attention blocks: GQA with RoPE (+ blockwise 'flash' softmax for long
-prefill) and its KV-cache decode step, on the contiguous cache.
+prefill) and its KV-cache decode and chunked-prefill steps, on the
+contiguous cache or the paged pool.
 
 Conventions (the reference's):
   x          (B, S, D)
   kv cache   {"k": (B, Smax, Hkv, Dh), "v": ...}; position carried by the
-             caller.
+             caller.  The paged layout keeps the same leaves as a pool
+             ``(n_pages, page_size, Hkv, Dh)`` addressed through per-slot
+             page tables (:mod:`repro_torch.runtime.kvcache.layout`).
   Projections may be complementary-sparse (cfg.proj_sparsity).
 
-The int8 cache, MLA and the paged layout are later slices of the port.
+The int8 cache and MLA are later slices of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch.nn.functional as tF
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
                                      packed_linear_apply, packed_linear_init)
+from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
+                                                paged_write_rows)
 from .common import apply_rope
 
 
@@ -195,7 +200,13 @@ def gqa_prefill(params, x, cfg, positions, max_seq: int):
 
 
 def gqa_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
-    """KV cache holding the *true* kv heads (head padding happens at use)."""
+    """KV cache holding the *true* kv heads (head padding happens at use).
+
+    The paged pool is the same leaves with ``(n_pages, page_size)`` in
+    place of ``(batch, max_seq)``.  Zeros, never uninitialised memory:
+    masked columns still pass through ``probs @ v`` as ``0 * v``, so a
+    NaN in a row nobody wrote (the null page, rows past a chain) would
+    reach the logits."""
     _check_cache_kind(cfg)
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
     return {"k": torch.zeros((batch, max_seq, hkv, dh), dtype=dtype,
@@ -229,12 +240,25 @@ def _cache_write(cache, new, pos):
     return cache
 
 
-def _kv_update(cache, k, v, pos):
-    """Write the new K/V row into the contiguous cache (in place) and return
-    ``(cache, k_view, v_view)``; the views are the caches themselves."""
-    _cache_write(cache["k"], k, pos)
-    _cache_write(cache["v"], v, pos)
-    return cache, cache["k"], cache["v"]
+def _kv_update(cache, k, v, pos, pos_b=None, pages=None):
+    """Write the new K/V row(s) in place and return
+    ``(cache, k_view, v_view)``, the views being the readable full-length
+    caches.
+
+    ``pages=None`` — contiguous layout: a row write into the
+    (B, max_seq, ...) cache at ``pos``; the view IS the cache.
+    ``pages`` given — paged layout: scatter each slot's row into its page
+    chain at ``pos_b`` and gather the (B, view_len, ...) slot-logical read
+    view.  Inactive slots' page tables are all null, so their stale writes
+    land in the null page.
+    """
+    if pages is None:
+        _cache_write(cache["k"], k, pos)
+        _cache_write(cache["v"], v, pos)
+        return cache, cache["k"], cache["v"]
+    paged_write_rows(cache["k"], k[:, 0], pages, pos_b)
+    paged_write_rows(cache["v"], v[:, 0], pages, pos_b)
+    return cache, paged_view(cache["k"], pages), paged_view(cache["v"], pages)
 
 
 def _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg):
@@ -255,7 +279,7 @@ def _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg):
                    cfg.proj_sparsity)
 
 
-def gqa_decode(params, x, cfg, cache, pos):
+def gqa_decode(params, x, cfg, cache, pos, pages=None):
     """One-token decode step. x: (B, 1, D); pos: int current position, or
     a (B,) tensor of per-row positions (continuous batching — each slot
     sits at its own depth in the cache).
@@ -263,6 +287,11 @@ def gqa_decode(params, x, cfg, cache, pos):
     The new K/V row is written into the cache at ``pos`` (in place);
     attention reads the full cache with a validity mask (positions > pos
     are masked).  Returns (y, cache).
+
+    With ``pages`` (a (B, n_blocks) int64 page table) the cache leaves are
+    the PAGED pool ``(n_pages, page_size, ...)``: the row write scatters
+    into each slot's own page chain and attention runs over the gathered
+    per-slot view — same math, same mask, decoupled memory.
     """
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sp = cfg.proj_sparsity
@@ -278,8 +307,42 @@ def gqa_decode(params, x, cfg, cache, pos):
     v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache, k_view, v_view = _kv_update(cache, k, v, pos)
+    cache, k_view, v_view = _kv_update(cache, k, v, pos, pos_b, pages)
     valid = (torch.arange(k_view.shape[1], device=x.device)[None, None, :]
              <= pos_b[:, None, None])
+    y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
+    return y, cache
+
+
+def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
+                      chunk_len: int):
+    """Chunked prefill over the PAGED cache: forward C prompt tokens of
+    ONE slot at absolute positions [pos_start, pos_start + C), scattering
+    their K/V rows into the slot's page chain (in place) and attending
+    causally to the gathered history (earlier chunks are already in the
+    pool).  Rows past ``chunk_len`` are bucket padding: their K/V is
+    redirected to the null page and their outputs are garbage the caller
+    ignores.
+
+    x: (1, C, D); pages: (1, n_blocks) int64; pos_start/chunk_len: ints.
+    Returns (y (1, C, D), cache)."""
+    _check_cache_kind(cfg)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp = cfg.proj_sparsity
+    b, c, _ = x.shape
+    offs = int(pos_start) + torch.arange(c, device=x.device)
+    positions = offs.expand(b, c)
+    q = _split_heads(_proj_apply(params["q"], x, sp), h, dh)
+    k = _split_heads(_proj_apply(params["k"], x, sp), hkv, dh)
+    v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    paged_write_chunk(cache["k"], k[0], pages[0], pos_start, chunk_len)
+    paged_write_chunk(cache["v"], v[0], pages[0], pos_start, chunk_len)
+    k_view = paged_view(cache["k"], pages)
+    v_view = paged_view(cache["v"], pages)
+    # causal in slot-logical coordinates: chunk row j sees cols <= pos0+j
+    valid = (torch.arange(k_view.shape[1], device=x.device)[None, None, :]
+             <= offs[None, :, None])
     y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
     return y, cache

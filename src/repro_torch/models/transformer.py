@@ -10,6 +10,10 @@ Entry points:
   :func:`forward` — full-sequence logits.
   :func:`prefill` + :func:`serve_step` + :func:`init_cache` — fused prompt
   prefill and one-token decode with the contiguous KV cache.
+  :func:`init_paged_cache` + :func:`prefill_chunk` + :func:`serve_step`
+  with ``pages=`` + :func:`copy_cache_page` — the paged KV layout: page
+  pools, page-aligned chunked prefill, decode through page tables and the
+  device half of copy-on-write.
 
 MLA, MoE and the SSM/hybrid block kinds are later slices of the port.
 """
@@ -20,6 +24,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.runtime.kvcache.layout import copy_page
 from . import attention as A
 from .common import (dtype_of, embedding_apply, embedding_init,
                      lm_head_apply, normal_init, resolve_device,
@@ -76,9 +81,20 @@ def _block_prefill(params, x, cfg, positions, max_seq: int):
     return _ffn_residual(params, x + h, cfg), cache
 
 
-def _block_decode(params, x, cfg, cache, pos):
+def _block_decode(params, x, cfg, cache, pos, pages=None):
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
-    h, cache = A.gqa_decode(params["mixer"], h, cfg, cache, pos)
+    h, cache = A.gqa_decode(params["mixer"], h, cfg, cache, pos,
+                            pages=pages)
+    return _ffn_residual(params, x + h, cfg), cache
+
+
+def _block_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
+                         chunk_len: int):
+    """Chunked-prefill step of one block over the paged cache.
+    Returns (x, cache)."""
+    h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    h, cache = A.gqa_chunk_prefill(params["mixer"], h, cfg, cache, pages,
+                                   pos_start, chunk_len)
     return _ffn_residual(params, x + h, cfg), cache
 
 
@@ -170,6 +186,41 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
             for _ in range(cfg.n_layers)]
 
 
+def init_paged_cache(cfg, n_pages: int, page_size: int,
+                     device=None) -> List[Dict]:
+    """One PAGED cache per layer: every attention leaf is a page pool
+    ``(n_pages, page_size, ...)`` addressed through the per-slot page
+    tables that :func:`serve_step` / :func:`prefill_chunk` take as
+    ``pages`` (see :mod:`repro_torch.runtime.kvcache`).
+
+    Attention-only block patterns: the paged layout pages per-position
+    KV rows, and SSM decode state is O(1) with nothing to page."""
+    if not supports_fused_prefill(cfg):
+        raise NotImplementedError(
+            "paged KV layout requires an attention-only block pattern, "
+            f"got {cfg.block_pattern}")
+    return init_cache(cfg, n_pages, page_size, device)
+
+
+def copy_cache_page(cache: List[Dict], src: int, dst: int) -> List[Dict]:
+    """Copy physical page ``src``'s rows over page ``dst`` in every pool
+    leaf of an :func:`init_paged_cache` cache, in place — the device half
+    of a copy-on-write break (the allocator already swapped ``dst`` into
+    the writer's chain; this puts the shared rows there before the
+    writer's next scatter lands)."""
+    for layer in cache:
+        for leaf in layer.values():
+            copy_page(leaf, src, dst)
+    return cache
+
+
+def supports_fused_prefill(cfg) -> bool:
+    """Fused bulk-cache prefill exists for attention blocks; SSM/hybrid
+    patterns would fall back to stepwise prefill (their decode state is
+    the *final* recurrence state, not per-position rows)."""
+    return all(k in ("attn", "shared_attn") for k in cfg.block_pattern)
+
+
 def prefill(params, batch, cfg, max_seq: int):
     """Fused full-sequence prefill: ONE forward over the prompt (B, S) that
     writes every layer's KV cache in bulk — rows [0, S) of a cache padded
@@ -189,11 +240,14 @@ def prefill(params, batch, cfg, max_seq: int):
     return _logits(params, x, cfg, ct), cache
 
 
-def serve_step(params, cache, batch, pos, cfg):
+def serve_step(params, cache, batch, pos, cfg, pages=None):
     """Decode one token given caches of past state.
 
     batch: {"tokens": (B, 1)}.  pos: int position (static batch) or (B,)
-    tensor of per-slot positions (continuous batching).  The cache is
+    tensor of per-slot positions (continuous batching).  pages: optional
+    (B, n_blocks) int64 per-slot page tables — the cache is then the
+    :func:`init_paged_cache` pools and every attention read/write goes
+    through the page indirection (same math, same mask).  The cache is
     updated in place.  Returns (logits (B, vocab), cache).
 
     Sparse-sparse decode runs the fused pipeline per layer: the FFN's
@@ -205,5 +259,27 @@ def serve_step(params, cache, batch, pos, cfg):
     ct = dtype_of(cfg.compute_dtype)
     x = _embed(params, batch["tokens"], ct)
     for layer, c in zip(params["layers"], cache, strict=True):
-        x, _ = _block_decode(layer, x, cfg, c, pos)
+        x, _ = _block_decode(layer, x, cfg, c, pos, pages)
     return _logits(params, x, cfg, ct)[:, 0], cache
+
+
+def prefill_chunk(params, cache, batch, pos_start: int, chunk_len: int, cfg,
+                  pages):
+    """Forward ONE page-aligned prompt chunk of ONE slot through every
+    layer, scattering its KV rows into the slot's page chains in place
+    (the paged layout's incremental prefill — long prompts run as a
+    sequence of these interleaved with decode steps instead of one
+    :func:`prefill` call).
+
+    batch: {"tokens": (1, C)}; pages: (1, n_blocks) int64 — the
+    prefilling slot's page table; rows past ``chunk_len`` are bucket
+    padding: their KV sinks to the null page and their logits are
+    garbage the engine ignores.
+    Returns (logits (1, C, vocab), cache)."""
+    check_supported(cfg)
+    ct = dtype_of(cfg.compute_dtype)
+    x = _embed(params, batch["tokens"], ct)
+    for layer, c in zip(params["layers"], cache, strict=True):
+        x, _ = _block_chunk_prefill(layer, x, cfg, c, pages, pos_start,
+                                    chunk_len)
+    return _logits(params, x, cfg, ct), cache

@@ -30,6 +30,9 @@ def _modules():
 def test_importing_every_module_loads_neither_jax_nor_the_reference():
     mods = _modules()
     assert "repro_torch.kernels.topk_gather" in mods and len(mods) >= 30
+    assert {"repro_torch.runtime.kvcache",
+            "repro_torch.runtime.kvcache.allocator",
+            "repro_torch.runtime.kvcache.layout"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -65,8 +68,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, max_seq=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, max_seq=16, kv_layout="paged")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         T.init_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"units": {}}, cfg)
     eng = Engine(cfg, max_seq=16, device="cpu")
     assert eng.device.type == "cpu"
+    paged = Engine(cfg, max_seq=16, device="cpu", kv_layout="paged")
+    assert paged.new_paged_cache()[0]["k"].device.type == "cpu"
