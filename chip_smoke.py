@@ -61,6 +61,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    tok/s, time to first token and the decode step of the paged engine
    beside the contiguous one, and the largest inter-token gap of three
    short requests while a 512-token prompt is admitted.
+8. analysis — the sparsity-invariant linter (``repro_torch.analysis``)
+   on the card: the two seeded-fault kernels (``analysis/csrc``) against
+   their plain versions on in-range inputs; with every launch count at 0,
+   the self-test, whose oob-gather and missing-init faults must be caught
+   by guarded launches of the CUDA kernels (``in[2]``, ``out[2]``), and
+   the guarded checks of the four shipped kernels at the registry sweeps
+   and the serving shapes in bf16 and f32, which must find nothing; the
+   six kernels' launch counts of that run; each shipped case's launch
+   geometry as ``torch.profiler`` saw it against the ``launch_geometry``
+   the linter reads; ``lint_config`` of the shipped
+   smollm-360m config at full width on fake CUDA tensors (zero findings,
+   32 ``repro_torch::topk_gather`` nodes in the decode graph); one
+   contiguous and one paged decode step, their inputs already on the
+   card, under ``torch.cuda.set_sync_debug_mode("error")``; the host
+   time of a ``topk_gather`` call through the custom op against the bare
+   launch; then the seeded kernels' times beside their plain versions, a
+   library call and their bounds.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -343,12 +360,15 @@ def phase_kernels():
 
 
 def kernel_wrappers():
-    """Every kernel wrapper of the package, by the name its row carries."""
+    """Every kernel wrapper of the package, by the name its row carries
+    (the linter's two seeded-fault kernels last)."""
+    from repro_torch.analysis.seeded import missing_init, oob_gather
     from repro_torch.kernels import (grouped_cs_matmul, kwta_hist_cuda,
                                      packed_matmul, topk_gather)
     return {"topk_gather": topk_gather, "packed_matmul": packed_matmul,
             "grouped_cs_matmul": grouped_cs_matmul,
-            "kwta_hist": kwta_hist_cuda}
+            "kwta_hist": kwta_hist_cuda, "oob_gather": oob_gather,
+            "missing_init": missing_init}
 
 
 def reset_counts():
@@ -1267,6 +1287,287 @@ def phase_paged(engine_c):
     return launches, steps
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sparsity-invariant linter on the card
+# ---------------------------------------------------------------------------
+
+SEEDED = {
+    "oob_gather": ("src/repro_torch/analysis/csrc/oob_gather.cu",
+                   "src/repro/analysis/lint.py:439"),
+    "missing_init": ("src/repro_torch/analysis/csrc/missing_init.cu",
+                     "src/repro/analysis/lint.py:479"),
+}
+# The one PyTorch call timed beside each seeded kernel, at the reference's
+# own seeded shapes (lint.py:770, :818-829).
+SEEDED_LIBRARY = {
+    "oob_gather": "F.embedding_bag(pidx, packed[1:], per_sample_weights="
+                  "vals, mode='sum'): the same sum over the rows one past "
+                  "the indices, for in-range indices",
+    "missing_init": "torch.bmm(xg, packed): the function on a zeroed "
+                    "output",
+}
+
+
+def seeded_checks():
+    """The seeded kernels against their plain versions on in-range inputs
+    (indices <= P - 2, so that ``pidx + 1`` stays inside packed; a zeroed
+    output).  Returns ({name: max_abs_err}, {name: operands})."""
+    from repro_torch.analysis import seeded
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 800)
+    b, k, p, g, n = (seeded.OOB_SHAPE[x] for x in "bkpgn")
+    vals = randn(gen, b, k)
+    pidx = torch.randint(0, p - 1, (b, k), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    pidx.view(-1)[-1] = p - 2
+    packed = randn(gen, p, g, n)
+    errs = {"oob_gather": check(
+        "oob_gather at the seeded shape, indices in [0, P-2]",
+        seeded.oob_gather(vals, pidx, packed),
+        seeded.oob_gather_plain(vals, pidx, packed), phase="analysis")}
+    s_, m, kk, c, bk = (seeded.MISSING_SHAPE[x] for x in
+                        ("s", "m", "k", "c", "bk"))
+    xg, w = randn(gen, s_, m, kk), randn(gen, s_, kk, c)
+    out = torch.zeros((s_, m, c), device="cuda")
+    seeded.missing_init_into(out, xg, w, bk)
+    errs["missing_init"] = check(
+        "missing_init at the seeded shape on a zeroed output", out,
+        seeded.missing_init_plain(torch.zeros_like(out), xg, w, bk),
+        phase="analysis")
+    return errs, {"oob_gather": (vals, pidx, packed),
+                  "missing_init": (xg, w, bk)}
+
+
+def seeded_times(operands):
+    """Each seeded kernel, its plain version and one library call, warm in
+    L2 (a few KB of operands), with its bound.  Returns {name: row}."""
+    import torch.nn.functional as tF
+    from repro_torch.analysis import seeded
+    vals, pidx, packed = operands["oob_gather"]
+    b, k = vals.shape
+    p, g, n = packed.shape
+    out = torch.empty((b, g * n), device="cuda")
+    table = packed.reshape(p, g * n)[1:]
+    pidx64 = pidx.long()
+    touched = int(torch.unique(pidx).numel())
+    nbytes = b * k * 8 + touched * g * n * 4 + b * g * n * 4
+    oob = ({"kernel": lambda: seeded.oob_gather_into(out, vals, pidx, packed),
+            "plain": lambda: seeded.oob_gather_plain(vals, pidx, packed),
+            "library": lambda: tF.embedding_bag(
+                pidx64, table, per_sample_weights=vals, mode="sum")},
+           nbytes, 2 * b * k * g * n)
+    xg, w, bk = operands["missing_init"]
+    s_, m, kk = xg.shape
+    c = w.shape[2]
+    acc = torch.zeros((s_, m, c), device="cuda")
+    nbytes = (xg.numel() + w.numel() + 2 * acc.numel()) * 4
+    missing = ({"kernel": lambda: seeded.missing_init_into(acc, xg, w, bk),
+                "plain": lambda: seeded.missing_init_plain(acc, xg, w, bk),
+                "library": lambda: torch.bmm(xg, w)},
+               nbytes, 2 * s_ * m * kk * c)
+    rows = {}
+    for name, (fns, nbytes, flops) in (("oob_gather", oob),
+                                       ("missing_init", missing)):
+        ms = {v: device_ms(fn) for v, fn in fns.items()}
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        rows[name] = dict(
+            ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"[analysis] {name} (warm): kernel {ms['kernel']:.5f} ms, "
+              f"plain {ms['plain']:.5f} ms, library {ms['library']:.5f} "
+              f"ms, bound {rows[name]['bound_ms']:.7f} ms "
+              f"({rows[name]['bound_by']})")
+    return rows
+
+
+def op_dispatch_us(calls: int = 500, repeats: int = 5):
+    """Host time of one ``topk_gather`` call at the main shape through the
+    custom op (what the layers call) against ``launch_into`` (the bare
+    launch), in µs: the median over ``repeats`` runs of ``calls`` calls,
+    synchronised at the end of each.  Both enqueue the same ~6 µs kernel
+    and take longer on the host, so the difference is the op's dispatch
+    and its output allocation."""
+    from repro_torch.kernels.topk_gather import launch_into, topk_gather
+    vals, p_idx, s_off, packed_p, route, _ = kernel_operands(
+        MAIN_SHAPE, torch.bfloat16, SEED + 900)
+    out = torch.empty((vals.shape[0], packed_p.shape[1] * packed_p.shape[2]),
+                      device="cuda")
+    fns = {"op": lambda: topk_gather(vals, p_idx, s_off, packed_p, route),
+           "launch_into": lambda: launch_into(out, vals, p_idx, s_off,
+                                              packed_p, route)}
+    us = {}
+    for name, fn in fns.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+        us[name] = float(np.median(runs))
+    extra = us["op"] - us["launch_into"]
+    print(f"[analysis] topk_gather host time a call (main shape, median of "
+          f"{repeats} x {calls}): custom op {us['op']:.2f} us, launch_into "
+          f"{us['launch_into']:.2f} us; the op adds {extra:.2f} us a call, "
+          f"{32 * extra / 1e3:.3f} ms a 32-layer decode step")
+
+
+def guarded_steps(engine_c):
+    """One contiguous and one paged decode step at full width, inputs on
+    the card, under ``set_sync_debug_mode("error")``: any host sync in
+    the step raises."""
+    from repro_torch.launch.serve import Engine
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device="cuda").item()
+    except RuntimeError:
+        print("[analysis] sync debug mode 'error' raises on .item(): the "
+              "guard is live")
+    else:
+        fail("sync debug mode 'error' let .item() through")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    engine_p = Engine(engine_c.cfg, max_seq=engine_c.max_seq,
+                      n_slots=engine_c.n_slots, params=engine_c.params,
+                      device="cuda", kv_layout="paged",
+                      page_size=PAGE_SIZE)
+    for label, engine in (("contiguous", engine_c), ("paged", engine_p)):
+        step = _decode_step(engine)
+        with torch.no_grad():
+            step()                                    # warm-up, unguarded
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, _ = step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits.float()).all()):
+            fail(f"the guarded {label} decode step gave non-finite logits")
+        print(f"[analysis] {label} decode step under sync debug mode "
+              f"'error': no host sync, logits {tuple(logits.shape)} finite")
+
+
+def observed_geometries():
+    """Each shipped kernel's launch at every case of ``kernel_cases`` as
+    ``torch.profiler`` saw the card run it (grid, block, shared memory),
+    against the launcher's ``launch_geometry`` that the linter's
+    launch-resource rule reads: grid and threads must be equal, and the
+    shared memory the profiler reports (static and dynamic) at least the
+    dynamic bytes.  Where the profiler records no kernel, says so."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import kernel_cases
+    from repro_torch.analysis.rules import kernel_geometry
+    cases = kernel_cases("cuda")
+    outs = [[torch.empty(shape, dtype=dt, device="cuda")
+             for shape, dt in case.outputs] for case in cases]
+    for case, out in zip(cases, outs):           # warm-up, outside the window
+        case.run(out, *case.inputs)
+    torch.cuda.synchronize()
+    # one window for every case (later windows of one process may record
+    # no kernel); each case launches one kernel, so the kernels in time
+    # order are the cases' launches in order
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for case, out in zip(cases, outs):
+            case.run(out, *case.inputs)
+            torch.cuda.synchronize()
+    trace_path = ROOT / "build" / "analysis_launch_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    kernels = sorted((e for e in json.loads(trace_path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    if not kernels:
+        print("[analysis] launch geometry against the profiler: not "
+              "measured (the profiler recorded no kernel)")
+        return
+    if len(kernels) != len(cases):
+        fail(f"the profiler saw {len(kernels)} kernels for {len(cases)} "
+             "launches")
+    for case, event in zip(cases, kernels):
+        seen = event["args"]
+        want = kernel_geometry(f"repro_torch.{case.kernel}", case.inputs)
+        grid, block = tuple(seen["grid"]), seen["block"]
+        threads = block[0] * block[1] * block[2]
+        if (grid != tuple(want.grid) or threads != want.threads
+                or seen["shared memory"] < want.smem):
+            fail(f"{case.label}: the card launched {event['name'][:60]} "
+                 f"on grid {grid}, block {block}, {seen['shared memory']} "
+                 f"B shared memory; launch_geometry says {want}")
+    print(f"[analysis] launch geometry of all {len(cases)} cases equals "
+          "what the profiler saw the card launch (grid, threads; shared "
+          "memory >= the dynamic bytes)")
+
+
+def phase_analysis(engine_c):
+    """Returns the seeded kernels' rows of the kernels line."""
+    from repro_torch.analysis import (lint_config, lint_kernels, self_test,
+                                      trace)
+    from repro_torch.analysis.lint import entry_args, resolve_config
+    from repro_torch.analysis.rules import KERNEL_OPS
+    from repro_torch.analysis.graph_walk import iter_nodes, op_name
+    errs, operands = seeded_checks()
+
+    reset_counts()
+    failures = self_test("cuda")
+    report = lint_kernels("cuda")
+    counts = read_counts()
+    for f in failures:
+        print(f"[analysis] self-test: {f}")
+    if failures:
+        fail("the self-test missed a seeded fault")
+    print("[analysis] self-test: all four seeded regressions caught, the "
+          "two kernel faults by guarded launches of the CUDA kernels")
+    print(f"[analysis] lint_kernels: {len(report.findings)} findings over "
+          f"{len(report.entries)} cases")
+    if not report.ok:
+        print(report.render())
+        fail("lint_kernels found faults in the shipped kernels")
+    print(f"[analysis] kernel launches of the self-test and lint_kernels "
+          f"run: {counts}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched by the analysis run: {missing}")
+
+    # in a fresh process: after phases 4 and 7's profiler windows, a later
+    # window of this one may record no kernel
+    subprocess.run([sys.executable, "-c", "import sys; sys.path[:0] = "
+                    f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import "
+                    "chip_smoke; chip_smoke.observed_geometries()"],
+                   check=True, timeout=600)
+
+    t = time.perf_counter()
+    report = lint_config("smollm-360m", device="cuda")
+    print(f"[analysis] lint_config('smollm-360m') full width on fake CUDA "
+          f"tensors in {time.perf_counter() - t:.1f} s: "
+          + report.render().splitlines()[0])
+    if not report.ok:
+        print(report.render())
+        fail("lint_config('smollm-360m') found faults")
+    cfg = resolve_config("smollm-360m")
+    fn, args = entry_args(cfg, "decode", "cuda")
+    ops = collections.Counter(op_name(nd) for nd, _ in iter_nodes(
+        trace(fn, *args)))
+    nodes = {k: ops[k] for k in KERNEL_OPS if ops[k]}
+    print(f"[analysis] kernel nodes in the traced full-width decode step: "
+          f"{nodes}")
+    if nodes != {"repro_torch.topk_gather": cfg.n_layers}:
+        fail(f"the decode graph holds {nodes}, want {cfg.n_layers} "
+             "repro_torch.topk_gather nodes and no other kernel")
+
+    guarded_steps(engine_c)
+    op_dispatch_us()
+    times = seeded_times(operands)
+    return [dict({"name": name, "route": "cuda", "source": source,
+                  "replaces": replaces, "launches": counts[name],
+                  "max_abs_err": errs[name]}, **times[name],
+                 library_note=SEEDED_LIBRARY[name])
+            for name, (source, replaces) in SEEDED.items()]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1281,7 +1582,7 @@ def main():
 
     t0 = time.perf_counter()
     builds = build_all(["topk_gather", "packed_matmul", "grouped_cs_matmul",
-                        "kwta_hist"])
+                        "kwta_hist", "oob_gather", "missing_init"])
     print(f"[build] {len(builds)} libraries in "
           f"{time.perf_counter() - t0:.2f} s, in parallel")
     for name, result in builds.items():
@@ -1319,6 +1620,9 @@ def main():
     row["launches_paged"], steps = phase_paged(engine)
     row["launches_per_decode_step_paged"] = row["launches_paged"] / steps
     print(f"[paged] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rows += phase_analysis(engine)
+    print(f"[analysis] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -12,6 +12,15 @@ cost.  Every Select call site in this package goes through
 
 PyTorch runs eagerly, so the counters tick once per call (the reference's
 tick once per trace).
+
+:func:`named_scope` is the counterpart of ``jax.named_scope``: the model
+code opens the reference's scopes (``b{i}_{kind}``, ``ffn_down``,
+``cs_topk``, ``select``...), and while the linter traces
+(:func:`tracing_scopes`, :mod:`repro_torch.analysis.graph_walk`) every
+graph node made inside one carries its path, e.g.
+``u0/b0_attn/ffn_down/cs_topk/select``, in ``node.meta["custom"]["scope"]``.
+Outside a trace it returns a shared null context: eager serving pays a
+call and a flag read for it, and no device work.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ class SelectCounter:
 class _State(threading.local):
     def __init__(self) -> None:
         self.stack: list[SelectCounter] = []
+        self.tracing = False           # set by tracing_scopes()
+        self.scopes: list[str] = []    # open named_scope segments
 
 
 _STATE = _State()
@@ -63,7 +74,41 @@ def count_selects() -> Iterator[SelectCounter]:
 
 def counted_top_k(x: torch.Tensor, k: int):
     """``torch.topk`` over the last axis (largest first, sorted, like
-    ``lax.top_k``) that ticks every active Select counter."""
+    ``lax.top_k``) that ticks every active Select counter.  Traced under
+    a ``select`` scope, as the reference stages it."""
     for c in _STATE.stack:
         c.counts["top_k"] += 1
-    return torch.topk(x, k, dim=-1)
+    with named_scope("select"):
+        return torch.topk(x, k, dim=-1)
+
+
+_NULL_SCOPE = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _scope(name: str) -> Iterator[None]:
+    import torch.fx.traceback as fx_traceback
+    _STATE.scopes.append(name)
+    try:
+        with fx_traceback.annotate({"scope": "/".join(_STATE.scopes)}):
+            yield
+    finally:
+        _STATE.scopes.pop()
+
+
+def named_scope(name: str):
+    """Open scope ``name`` (nested under the open ones) for the graph
+    nodes traced inside it; a null context unless the linter traces."""
+    return _scope(name) if _STATE.tracing else _NULL_SCOPE
+
+
+@contextlib.contextmanager
+def tracing_scopes() -> Iterator[None]:
+    """Make :func:`named_scope` annotate graph nodes while the block runs
+    (on this thread), starting from an empty path."""
+    saved = _STATE.tracing, _STATE.scopes
+    _STATE.tracing, _STATE.scopes = True, []
+    try:
+        yield
+    finally:
+        _STATE.tracing, _STATE.scopes = saved

@@ -28,6 +28,7 @@ import torch.nn.functional as tF
 
 from . import functional as F
 from .api import SparsityConfig, choose_executor, choose_path
+from .instrument import named_scope
 from .kwta import kwta_bisect, kwta_hist, kwta_local, kwta_support
 from .masks import CSLayout, make_routes, pad_to_multiple
 from .packing import pack_dense
@@ -155,20 +156,24 @@ def packed_linear_apply(params, x: torch.Tensor, cfg: SparsityConfig,
         x = tF.pad(x, (0, d_in - x.shape[-1]))
     batch = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
     path = choose_path(cfg, batch, d_in, x_is_sparse)
-    if path == "topk":
-        if support is None:
-            # No handoff: run this layer's own Select on the k-sparse x.
-            vals, idx = F.topk_support_flat(x, cfg.k_for(d_in))
+    # The cs_<path> scope lets the linter attribute every traced op to the
+    # execution path that produced it (repro_torch.analysis).
+    with named_scope(f"cs_{path}"):
+        if path == "topk":
+            if support is None:
+                # No handoff: run this layer's own Select on the k-sparse x.
+                vals, idx = F.topk_support_flat(x, cfg.k_for(d_in))
+            else:
+                # Handoff indices address the unpadded axis; zero-padding
+                # only appends positions, so they stay valid in the padded
+                # layout.
+                vals, idx = support
+            y = _topk_execute(vals, idx, packed,
+                              params["packed_p"].to(x.dtype), route, cfg)
+        elif path == "dense":
+            y = F.cs_matmul_dense(x, packed, route)
         else:
-            # Handoff indices address the unpadded axis; zero-padding only
-            # appends positions, so they stay valid in the padded layout.
-            vals, idx = support
-        y = _topk_execute(vals, idx, packed, params["packed_p"].to(x.dtype),
-                          route, cfg)
-    elif path == "dense":
-        y = F.cs_matmul_dense(x, packed, route)
-    else:
-        y = F.cs_matmul(x, packed, route)
+            y = F.cs_matmul(x, packed, route)
     if "b" in params:
         b = params["b"]
         y = y[..., :b.shape[0]] + b.to(x.dtype)

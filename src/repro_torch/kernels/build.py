@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into shared libraries at first use.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
+Each ``csrc/<name>.cu`` (the kernels' sources here, and the seeded
+faults of ``repro_torch/analysis/csrc``) exposes a plain C interface and is
+compiled by ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
 ``build/lib<name>-<hash>.so`` at the root of the checkout, then loaded with
 ``ctypes``.  The hash covers the source, every ``csrc`` header it includes
 (directly or through another header) and the flags, so an edited source or
@@ -26,9 +27,53 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the linter's seeded-fault kernels, looked up after :data:`CSRC`
+ANALYSIS_CSRC = Path(__file__).resolve().parents[1] / "analysis" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How a launcher launches its kernel: the grid (x, y, z), the threads
+    of a block, the blocks of a cluster and the dynamic shared memory in
+    bytes.  Each kernel module computes it with a pure function of the
+    shapes (``launch_geometry``), the mirror of its C++ launcher, for the
+    linter's ``launch-resource`` rule."""
+    grid: tuple
+    threads: int
+    cluster: int = 1
+    smem: int = 0
+
+
+#: the package's operator library: each kernel is one op,
+#: ``torch.ops.repro_torch.<name>``, defined by :func:`define_op`
+OPS = torch.library.Library("repro_torch", "DEF")
+
+
+def define_op(schema: str, cpu, cuda, fake):
+    """Register ``repro_torch::<schema>`` with its CPU body (the plain
+    version), its CUDA body (the kernel's launch) and its fake (the output's
+    shape and type, for fake-tensor tracing, where it is one graph node);
+    returns the op.  The bodies are registered per device key, so an eager
+    call reaches its body through the dispatcher alone
+    (``torch.library.custom_op`` also wraps every call in Python)."""
+    name = schema.split("(", 1)[0]
+    OPS.define(schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=OPS)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+def source(name: str) -> Path:
+    """``<name>.cu`` in :data:`CSRC`, else in :data:`ANALYSIS_CSRC`."""
+    for d in (CSRC, ANALYSIS_CSRC):
+        if (d / f"{name}.cu").is_file():
+            return d / f"{name}.cu"
+    raise FileNotFoundError(f"no CUDA source {name}.cu in {CSRC} or "
+                            f"{ANALYSIS_CSRC}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +105,7 @@ def build_key(name: str) -> str:
     header it includes with quotes that lies beside it (followed through
     headers too), and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    seen, todo = set(), [CSRC / f"{name}.cu"]
+    seen, todo = set(), [source(name)]
     while todo:
         path = todo.pop()
         if path in seen:
@@ -75,8 +120,8 @@ def build_key(name: str) -> str:
 
 @functools.cache
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` (once per process and source version)."""
-    src = CSRC / f"{name}.cu"
+    """Compile ``<name>.cu`` (once per process and source version)."""
+    src = source(name)
     out = BUILD_DIR / f"lib{name}-{build_key(name)}.so"
     if out.exists():
         return Build(out, 0.0, "")
@@ -103,7 +148,7 @@ def build_all(names) -> dict:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
+    """Build (if needed) and load ``<name>.cu``'s library."""
     return ctypes.CDLL(str(build(name).path))
 
 

@@ -15,9 +15,12 @@ Layouts:
 The CUDA source is ``csrc/grouped_cs_matmul.cu``; its header says which TPU
 kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
 runs a tensor-core body; f32 and mixed operand types a CUDA-core body.
-:func:`grouped_cs_matmul` launches it for CUDA tensors and runs
-:func:`grouped_cs_matmul_plain` for CPU tensors; it never falls back on a
-CUDA tensor.  ``grouped_cs_matmul.launches`` counts the kernel's launches.
+:func:`launch_geometry` is the launcher's geometry, for the linter.
+:func:`grouped_cs_matmul` validates the operands and calls the custom op
+``repro_torch::grouped_cs_matmul``, whose body launches the kernel for
+CUDA tensors (:func:`launch_into`) and runs :func:`grouped_cs_matmul_plain`
+for CPU tensors; it never falls back on a CUDA tensor.
+``grouped_cs_matmul.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -25,12 +28,16 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
-from .build import load_library, run_launch
+from .build import Geometry, define_op, load_library, run_launch
+from .packed_matmul import tc_smem
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the tensor-core body's tiles (``TileSmall``, ``TileLarge`` in the
+#: source): (BM, BN, warps along M, N and K, BK), the small one for B <= 16
+_TC_TILES = ((16, 16, 1, 1, 4, 64), (32, 32, 2, 1, 2, 64))
+_TC_STAGES = 6
 
 
 def _check(xg, packed):
@@ -58,6 +65,20 @@ def grouped_cs_matmul_plain(xg, packed) -> torch.Tensor:
     return torch.einsum("nbp,npg->nbg", xg.float(), packed.float())
 
 
+def launch_geometry(n: int, b: int, g: int, bf16: bool) -> Geometry:
+    """The launcher's geometry (``launch`` and ``launch_tc`` in
+    ``csrc/grouped_cs_matmul.cu``): bf16 x bf16 (``bf16``) runs the
+    tensor-core body on a grid of (G/BN, B/BM, N) tiles; other types the
+    CUDA-core body, (G/64, B/32, N) blocks of 16 x 16 threads."""
+    if not bf16:
+        return Geometry((-(-g // 64), -(-b // 32), n), 16 * 16)
+    bm, bn, wm, wn, wk, bk = _TC_TILES[0 if b <= 16 else 1]
+    # per stage: the xg and packed tiles in bf16
+    smem = tc_smem(_TC_STAGES * (bm * bk + bk * bn) * 2, bm, bn, wk)
+    return Geometry((-(-g // bn), -(-b // bm), n), wm * wn * wk * 32, 1,
+                    smem)
+
+
 def async_staging(xg, packed) -> bool:
     """Whether the bf16 tensor-core body may stage its tiles with 16-byte
     ``cp.async`` copies: both operands' base addresses and row and slot
@@ -81,41 +102,57 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def launch_into(out, xg, packed) -> None:
+    """Launch the kernel on CUDA operands into ``out`` (N, B, G) float32,
+    on the current stream, and count the launch: the custom op's CUDA
+    body, and the linter's guarded launches."""
+    n, b, p, g = _check(xg, packed)
+    if out.dtype != torch.float32 or tuple(out.shape) != (n, b, g):
+        raise ValueError(f"out must be {(n, b, g)} float32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if n > 65535 or b > 32 * 65535:
+        raise ValueError(f"N={n}, B={b} exceeds the kernel's grid")
+    for name, t in (("xg", xg), ("packed", packed), ("out", out)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n == 0 or b == 0 or g == 0:
+        return
+    run_launch(_library(), "grouped_cs_matmul", xg.device, xg.data_ptr(),
+               _DTYPES[xg.dtype], packed.data_ptr(), _DTYPES[packed.dtype],
+               int(async_staging(xg, packed)), out.data_ptr(), n, b, p, g)
+    grouped_cs_matmul.launches += 1
+
+
+def _cuda_body(xg, packed):
+    out = torch.empty((xg.shape[0], xg.shape[1], packed.shape[2]),
+                      dtype=torch.float32, device=xg.device)
+    launch_into(out, xg, packed)
+    return out
+
+
+def _fake(xg, packed):
+    return xg.new_empty((xg.shape[0], xg.shape[1], packed.shape[2]),
+                        dtype=torch.float32)
+
+
+_OP = define_op("grouped_cs_matmul(Tensor xg, Tensor packed) -> Tensor",
+                grouped_cs_matmul_plain, _cuda_body, _fake)
+
+
 def grouped_cs_matmul(xg, packed) -> torch.Tensor:
     """``out[s] = xg[s] @ packed[s]`` for each pack slot s.  CUDA tensors:
     the kernel, on the current stream, or an exception.  CPU tensors:
     :func:`grouped_cs_matmul_plain`.  Returns (N, B, G) float32."""
-    n, b, p, g = _check(xg, packed)
-    dev = xg.device
-    if dev.type == "cpu":
-        return grouped_cs_matmul_plain(xg, packed)
-    if dev.type != "cuda":
+    _check(xg, packed)
+    if xg.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grouped_cs_matmul takes CPU or CUDA tensors, got "
-                         f"{dev}")
-    if n > 65535 or b > 32 * 65535:
-        raise ValueError(f"N={n}, B={b} exceeds the kernel's grid")
-    for name, t in (("xg", xg), ("packed", packed)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    out = torch.empty((n, b, g), dtype=torch.float32, device=dev)
-    if n == 0 or b == 0 or g == 0:
-        return out
-    run_launch(_library(), "grouped_cs_matmul", dev, xg.data_ptr(),
-               _DTYPES[xg.dtype], packed.data_ptr(), _DTYPES[packed.dtype],
-               int(async_staging(xg, packed)), out.data_ptr(), n, b, p, g)
-    grouped_cs_matmul.launches += 1
-    return out
+                         f"{xg.device}")
+    return _OP(xg, packed)
 
 
 grouped_cs_matmul.launches = 0
-
-
-@functools.lru_cache(maxsize=64)
-def _permute_index(route_bytes: bytes, p: int, n: int,
-                   device: torch.device) -> torch.Tensor:
-    r = np.frombuffer(route_bytes, dtype=np.int64).reshape(p, n)
-    idx = np.arange(p)[:, None] * n + r                       # (P, N)
-    return torch.from_numpy(idx).to(device)
 
 
 def permute_activations(x: torch.Tensor, route_shared) -> torch.Tensor:
@@ -123,14 +160,12 @@ def permute_activations(x: torch.Tensor, route_shared) -> torch.Tensor:
     (N, ..., P), contiguous.
 
     ``route_shared`` is the (1, P, N) (or (P, N)) shared permutation, a
-    numpy array or CPU tensor: its gather index is built from it on the
-    host once per route and device, as the reference builds it at trace
-    time."""
-    if isinstance(route_shared, torch.Tensor):
-        route_shared = route_shared.cpu().numpy()
-    r = np.asarray(route_shared)
-    r = r.reshape(r.shape[-2], r.shape[-1]).astype(np.int64)  # (P, N)
-    idx = _permute_index(r.tobytes(), *r.shape, x.device)
+    tensor or a numpy array.  Its gather index ``p·N + route[p, s]`` is
+    computed where x lies: a route on the card never comes to the host."""
+    r = torch.as_tensor(route_shared, device=x.device)
+    p, n = r.shape[-2], r.shape[-1]
+    idx = (torch.arange(p, device=x.device)[:, None] * n
+           + r.reshape(p, n).long())                          # (P, N)
     return x[..., idx].movedim(-1, 0).contiguous()            # (N, ..., P)
 
 

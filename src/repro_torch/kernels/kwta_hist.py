@@ -14,9 +14,11 @@ other elements than this kernel; for float32 input all agree bin for bin.
 The CUDA source is ``csrc/kwta_hist.cu``; its header says which TPU kernel
 it replaces, what bounds it and how it is laid out.  The pure function
 :func:`register_path` picks between its two loops.  :func:`kwta_hist_cuda`
-launches it for CUDA tensors and runs :func:`kwta_hist_cuda_plain` for CPU
-tensors; it never falls back on a CUDA tensor.  ``kwta_hist_cuda.launches``
-counts the kernel's launches.
+calls the custom op ``repro_torch::kwta_hist``, whose body launches it for
+CUDA tensors (:func:`launch_into`) and runs :func:`kwta_hist_cuda_plain`
+for CPU tensors; it never falls back on a CUDA tensor.
+:func:`launch_geometry` is the launcher's geometry, for the linter.
+``kwta_hist_cuda.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ import functools
 
 import torch
 
-from .build import load_library, run_launch
+from .build import Geometry, define_op, load_library, run_launch
 
 _BINS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the longest row, in bytes, that the kernel holds in registers: 320
 #: threads of four 16-byte vectors
 REGISTER_ROW_BYTES = 320 * 4 * 16
+#: threads of a block (``kThreads`` in the source), one block a row
+THREADS = 320
 
 
 def _check(x: torch.Tensor, k: int):
@@ -65,6 +69,12 @@ def kwta_hist_cuda_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(q >= t, x, torch.zeros_like(x))
 
 
+def launch_geometry(b: int) -> Geometry:
+    """The launcher's geometry (``launch`` in ``csrc/kwta_hist.cu``): one
+    block of :data:`THREADS` a row, static shared memory only."""
+    return Geometry((b, 1, 1), THREADS)
+
+
 def register_path(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Whether the kernel reads each row of x once into registers and
     writes y with 16-byte stores: a row is at most ``REGISTER_ROW_BYTES``
@@ -86,28 +96,48 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def launch_into(y: torch.Tensor, x: torch.Tensor, k: int) -> None:
+    """Launch the kernel on CUDA ``x`` into ``y`` (x's shape and type), on
+    the current stream, and count the launch: the custom op's CUDA body,
+    and the linter's guarded launches."""
+    b, d = _check(x, k)
+    if y.dtype != x.dtype or y.shape != x.shape:
+        raise ValueError(f"y must be {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(y.shape)} {y.dtype}")
+    for name, t in (("x", x), ("y", y)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b == 0 or d == 0:
+        return
+    # every k <= 0 keeps bin 255 and every k > d the whole row: the clamp
+    # keeps the bins and fits k into the kernel's int
+    run_launch(_library(), "kwta_hist", x.device, x.data_ptr(),
+               _DTYPES[x.dtype], y.data_ptr(), b, d, min(max(k, 0), d + 1),
+               int(register_path(x, y)))
+    kwta_hist_cuda.launches += 1
+
+
+def _cuda_body(x, k):
+    y = torch.empty_like(x)
+    launch_into(y, x, k)
+    return y
+
+
+_OP = define_op("kwta_hist(Tensor x, int k) -> Tensor", kwta_hist_cuda_plain,
+                _cuda_body, lambda x, k: torch.empty_like(x))
+
+
 def kwta_hist_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
     """Histogram k-WTA over the last axis of x (B, D), quantized in float32.
     CUDA tensors: the kernel, on the current stream, or an exception.  CPU
     tensors: :func:`kwta_hist_cuda_plain`.  Returns x's shape and type."""
-    b, d = _check(x, k)
-    dev = x.device
-    if dev.type == "cpu":
-        return kwta_hist_cuda_plain(x, k)
-    if dev.type != "cuda":
-        raise ValueError(f"kwta_hist_cuda takes CPU or CUDA tensors, got {dev}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    y = torch.empty_like(x)
-    if b == 0 or d == 0:
-        return y
-    # every k <= 0 keeps bin 255 and every k > d the whole row: the clamp
-    # keeps the bins and fits k into the kernel's int
-    run_launch(_library(), "kwta_hist", dev, x.data_ptr(), _DTYPES[x.dtype],
-               y.data_ptr(), b, d, min(max(k, 0), d + 1),
-               int(register_path(x, y)))
-    kwta_hist_cuda.launches += 1
-    return y
+    _check(x, k)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kwta_hist_cuda takes CPU or CUDA tensors, got "
+                         f"{x.device}")
+    return _OP(x, k)
 
 
 kwta_hist_cuda.launches = 0

@@ -20,9 +20,12 @@ kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
 runs a tensor-core body that expands each chunk of packed weights into a
 dense tile in shared memory (:func:`expand_tile` is that rule in plain
 PyTorch); f32 and mixed operand types run a CUDA-core body.
-:func:`packed_matmul` launches it for CUDA tensors and runs
-:func:`packed_matmul_plain` for CPU tensors; it never falls back on a CUDA
-tensor.  ``packed_matmul.launches`` counts the kernel's launches.
+:func:`launch_geometry` is the launcher's geometry, for the linter.
+:func:`packed_matmul` validates the operands and calls the custom op
+``repro_torch::packed_matmul``, whose body launches the kernel for CUDA
+tensors (:func:`launch_into`) and runs :func:`packed_matmul_plain` for CPU
+tensors; it never falls back on a CUDA tensor.  ``packed_matmul.launches``
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -33,11 +36,15 @@ import functools
 import torch
 
 from repro_torch.core.functional import cs_matmul
-from .build import load_library, run_launch
+from .build import Geometry, define_op, load_library, run_launch
 
 #: pack factors the kernel is instantiated for
 SUPPORTED_N = (1, 2, 4, 8, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the tensor-core body's tiles (``TileSmall``, ``TileLarge`` in the
+#: source): (BM, BN, warps along M, N and K, BK), the small one for B <= 16
+_TC_TILES = ((16, 16, 1, 1, 4, 128), (32, 32, 2, 1, 2, 128))
+_TC_STAGES = 4
 
 
 def _check(x, packed, route):
@@ -69,6 +76,29 @@ def packed_matmul_plain(x, packed, route) -> torch.Tensor:
     (B, G·N) float32."""
     _check(x, packed, route)
     return cs_matmul(x.float(), packed.float(), route)
+
+
+def tc_smem(ring: int, bm: int, bn: int, wk: int) -> int:
+    """A tensor-core body's dynamic shared memory (``launch_tc``): its ring
+    of ``ring`` bytes, or the epilogue's f32 scratch of ``wk`` partial
+    (bm, bn) tiles with rows padded by 4, whichever is larger."""
+    return max(ring, wk * bm * (bn + 4) * 4)
+
+
+def launch_geometry(b: int, g: int, n: int, bf16: bool) -> Geometry:
+    """The launcher's geometry (``launch`` and ``launch_tc`` in
+    ``csrc/packed_matmul.cu``): bf16 x bf16 (``bf16``) runs the
+    tensor-core body on a grid of (G·N/BN, B/BM) tiles; other types the
+    CUDA-core body, (G/32, B/16) blocks of 32 x 8 threads."""
+    if not bf16:
+        return Geometry((-(-g // 32), -(-b // 16), 1), 32 * 8)
+    bm, bn, wm, wn, wk, bk = _TC_TILES[0 if b <= 16 else 1]
+    # per stage: the x tile in bf16, each group's packed row in bf16 and its
+    # route row in int8; then two expanded weight tiles in bf16
+    ring = _TC_STAGES * (bm * bk * 2 + bn // n * bk * 3) + 2 * bn * bk * 2
+    smem = tc_smem(ring, bm, bn, wk)
+    return Geometry((-(-g * n // bn), -(-b // bm), 1), wm * wn * wk * 32, 1,
+                    smem)
 
 
 def async_staging(x, packed, route) -> bool:
@@ -119,33 +149,59 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def packed_matmul(x, packed, route) -> torch.Tensor:
-    """``x @ decompress(packed, route)`` without the dense weight.  CUDA
-    tensors: the kernel, on the current stream, or an exception.  CPU
-    tensors: :func:`packed_matmul_plain`.  Returns (B, G·N) float32."""
+def launch_into(out, x, packed, route) -> None:
+    """Launch the kernel on CUDA operands into ``out`` (B, G·N) float32, on
+    the current stream, and count the launch: the custom op's CUDA body,
+    and the linter's guarded launches."""
     b, p, g, n, r = _check(x, packed, route)
-    dev = x.device
-    if dev.type == "cpu":
-        return packed_matmul_plain(x, packed, route)
-    if dev.type != "cuda":
-        raise ValueError(f"packed_matmul takes CPU or CUDA tensors, got {dev}")
+    if out.dtype != torch.float32 or tuple(out.shape) != (b, g * n):
+        raise ValueError(f"out must be ({b}, {g * n}) float32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
     if n not in SUPPORTED_N:
         raise ValueError(f"pack factor N={n} not in {SUPPORTED_N}")
     if b > 16 * 65535 or p * n >= 2**31 or g * n >= 2**31:
         raise ValueError(f"shape B={b}, P={p}, G={g}, N={n} exceeds the "
                          "kernel's grid or int indexing")
-    for name, t in (("x", x), ("packed", packed), ("route", route)):
+    for name, t in (("x", x), ("packed", packed), ("route", route),
+                    ("out", out)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    out = torch.empty((b, g * n), dtype=torch.float32, device=dev)
     if b == 0 or g == 0:
-        return out
-    run_launch(_library(), "packed_matmul", dev, x.data_ptr(),
+        return
+    run_launch(_library(), "packed_matmul", x.device, x.data_ptr(),
                _DTYPES[x.dtype], packed.data_ptr(), _DTYPES[packed.dtype],
                route.data_ptr(), int(async_staging(x, packed, route)),
                out.data_ptr(), b, p, g, n, r)
     packed_matmul.launches += 1
+
+
+def _cuda_body(x, packed, route):
+    out = torch.empty((x.shape[0], packed.shape[0] * packed.shape[2]),
+                      dtype=torch.float32, device=x.device)
+    launch_into(out, x, packed, route)
     return out
+
+
+def _fake(x, packed, route):
+    return x.new_empty((x.shape[0], packed.shape[0] * packed.shape[2]),
+                       dtype=torch.float32)
+
+
+_OP = define_op("packed_matmul(Tensor x, Tensor packed, Tensor route) -> "
+                "Tensor", packed_matmul_plain, _cuda_body, _fake)
+
+
+def packed_matmul(x, packed, route) -> torch.Tensor:
+    """``x @ decompress(packed, route)`` without the dense weight.  CUDA
+    tensors: the kernel, on the current stream, or an exception.  CPU
+    tensors: :func:`packed_matmul_plain`.  Returns (B, G·N) float32."""
+    _check(x, packed, route)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"packed_matmul takes CPU or CUDA tensors, got "
+                         f"{x.device}")
+    return _OP(x, packed, route)
 
 
 packed_matmul.launches = 0

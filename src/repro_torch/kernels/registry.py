@@ -6,8 +6,27 @@ the regimes the serving and training paths use (single-tile grids,
 multi-step accumulation, batched decode).  The block sizes are the
 reference's TPU tiles: the port's kernels take none and mask their edges,
 so they are kept only so that the tuples read as the reference's.  The CPU
-tests and ``chip_smoke.py`` run every kernel at these shapes.
+tests, ``chip_smoke.py`` and the linter's kernel checks
+(``repro_torch.analysis.lint_kernels``) run every kernel at these shapes.
+
+:data:`OPERAND_DTYPES` holds the types each kernel's custom op declares
+for its tensor operands, in order, for the linter's ``dtype-promotion``
+rule.
 """
+
+import torch
+
+_FLOATS = (torch.float32, torch.bfloat16)
+_INDICES = (torch.int32, torch.int64)
+
+#: custom op -> the types each tensor operand may take, in order
+OPERAND_DTYPES = {
+    "repro_torch.topk_gather": (_FLOATS, _INDICES, _INDICES, _FLOATS,
+                                (torch.int8,)),
+    "repro_torch.packed_matmul": (_FLOATS, _FLOATS, (torch.int8,)),
+    "repro_torch.grouped_cs_matmul": (_FLOATS, _FLOATS),
+    "repro_torch.kwta_hist": (_FLOATS,),
+}
 
 #: topk_gather_matmul: (b, k_nnz, p, g, n, block_g)
 TOPK_GATHER_SWEEP = (

@@ -20,9 +20,13 @@ The CUDA source is ``csrc/topk_gather.cu``; its header says which TPU
 kernel it replaces, what bounds it and how it is laid out.  Two pure
 functions here decide how it is launched: :func:`launch_rule` (the cluster
 size and strip width) and :func:`async_staging` (16-byte ``cp.async``
-copies or plain loads).  :func:`topk_gather` launches it for CUDA tensors
-and runs :func:`topk_gather_plain` for CPU tensors; it never falls back on
-a CUDA tensor.  ``topk_gather.launches`` counts the kernel's launches.
+copies or plain loads); :func:`launch_geometry` is the launcher's whole
+geometry, for the linter.  :func:`topk_gather` validates the operands and
+calls the custom op ``repro_torch::topk_gather``, a single node in a traced
+graph, whose body launches the kernel for CUDA tensors
+(:func:`launch_into`) and runs :func:`topk_gather_plain` for CPU tensors;
+it never falls back on a CUDA tensor.  ``topk_gather.launches`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import functools
 
 import torch
 
-from .build import load_library, run_launch
+from .build import Geometry, define_op, load_library, run_launch
 
 #: pack factors the kernel is instantiated for
 SUPPORTED_N = (1, 2, 4, 8, 16)
@@ -42,6 +46,8 @@ _INDEX_DTYPES = {torch.int32: 0, torch.int64: 1}
 TARGET_BLOCKS = 128
 #: the largest portable thread-block cluster
 MAX_CLUSTER = 8
+#: threads of a block (``kThreads`` in the source)
+THREADS = 256
 
 
 def _check(vals, p_idx, s_off, packed_p, route):
@@ -112,6 +118,17 @@ def launch_rule(b: int, k: int, g: int, n: int, elem_size: int):
     return cluster, lanes
 
 
+def launch_geometry(b: int, k: int, g: int, n: int,
+                    elem_size: int) -> Geometry:
+    """The launcher's geometry (``launch`` in ``csrc/topk_gather.cu``):
+    a grid of (strips × cluster, B) blocks of :data:`THREADS`, clusters of
+    :func:`launch_rule`'s size, no dynamic shared memory."""
+    cluster, lanes = launch_rule(b, k, g, n, elem_size)
+    row_vecs = -(-g * n * elem_size // 16)
+    strips = -(-row_vecs // lanes)
+    return Geometry((strips * cluster, b, 1), THREADS, cluster, 0)
+
+
 def async_staging(packed_p) -> bool:
     """Whether the kernel may stage the weight strips with 16-byte
     ``cp.async`` copies: packed_p's base address and its partition rows of
@@ -134,40 +151,67 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def launch_into(out, vals, p_idx, s_off, packed_p, route) -> None:
+    """Launch the kernel on CUDA operands into ``out`` (B, G·N), f32 or
+    bf16, on the current stream, and count the launch: the custom op's
+    CUDA body, and the linter's guarded launches (whose ``out`` is a view
+    inside a guard band)."""
+    b, k, p, g, n, r = _check(vals, p_idx, s_off, packed_p, route)
+    if out.dtype not in _FLOAT_DTYPES or tuple(out.shape) != (b, g * n):
+        raise ValueError(f"out must be ({b}, {g * n}) float32 or bfloat16, "
+                         f"got {tuple(out.shape)} {out.dtype}")
+    if n not in SUPPORTED_N:
+        raise ValueError(f"pack factor N={n} not in {SUPPORTED_N}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    for name, t in (("vals", vals), ("p_idx", p_idx), ("s_off", s_off),
+                    ("packed_p", packed_p), ("route", route), ("out", out)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not a CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    cluster, lanes = launch_rule(b, k, g, n, packed_p.element_size())
+    run_launch(_library(), "topk_gather", vals.device, vals.data_ptr(),
+               _FLOAT_DTYPES[vals.dtype], p_idx.data_ptr(), s_off.data_ptr(),
+               _INDEX_DTYPES[p_idx.dtype], packed_p.data_ptr(),
+               _FLOAT_DTYPES[packed_p.dtype], route.data_ptr(),
+               out.data_ptr(), _FLOAT_DTYPES[out.dtype], b, k, p, g, n, r,
+               cluster, lanes, int(async_staging(packed_p)))
+    topk_gather.launches += 1
+
+
+def _cuda_body(vals, p_idx, s_off, packed_p, route, out_dtype):
+    out = torch.empty((vals.shape[0], packed_p.shape[1] * packed_p.shape[2]),
+                      dtype=out_dtype, device=vals.device)
+    launch_into(out, vals, p_idx, s_off, packed_p, route)
+    return out
+
+
+def _fake(vals, p_idx, s_off, packed_p, route, out_dtype):
+    return vals.new_empty((vals.shape[0],
+                           packed_p.shape[1] * packed_p.shape[2]),
+                          dtype=out_dtype)
+
+
+_OP = define_op("topk_gather(Tensor vals, Tensor p_idx, Tensor s_off, "
+                "Tensor packed_p, Tensor route, ScalarType out_dtype) -> "
+                "Tensor", topk_gather_plain, _cuda_body, _fake)
+
+
 def topk_gather(vals, p_idx, s_off, packed_p, route,
                 out_dtype=torch.float32) -> torch.Tensor:
     """Sparse-sparse contraction of K non-zeros per row against packed
     weights.  CUDA tensors: the kernel, on the current stream, or an
     exception.  CPU tensors: :func:`topk_gather_plain`.  Returns (B, G·N)
     in ``out_dtype`` (float32 or bfloat16), summed in float32."""
-    b, k, p, g, n, r = _check(vals, p_idx, s_off, packed_p, route)
+    _check(vals, p_idx, s_off, packed_p, route)
     if out_dtype not in _FLOAT_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
-    dev = vals.device
-    if dev.type == "cpu":
-        return topk_gather_plain(vals, p_idx, s_off, packed_p, route,
-                                 out_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"topk_gather takes CPU or CUDA tensors, got {dev}")
-    if n not in SUPPORTED_N:
-        raise ValueError(f"pack factor N={n} not in {SUPPORTED_N}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
-    for name, t in (("vals", vals), ("p_idx", p_idx), ("s_off", s_off),
-                    ("packed_p", packed_p), ("route", route)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    cluster, lanes = launch_rule(b, k, g, n, packed_p.element_size())
-    out = torch.empty((b, g * n), dtype=out_dtype, device=dev)
-    run_launch(_library(), "topk_gather", dev, vals.data_ptr(),
-               _FLOAT_DTYPES[vals.dtype], p_idx.data_ptr(), s_off.data_ptr(),
-               _INDEX_DTYPES[p_idx.dtype], packed_p.data_ptr(),
-               _FLOAT_DTYPES[packed_p.dtype], route.data_ptr(),
-               out.data_ptr(), _FLOAT_DTYPES[out_dtype], b, k, p, g, n, r,
-               cluster, lanes, int(async_staging(packed_p)))
-    topk_gather.launches += 1
-    return out
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_gather takes CPU or CUDA tensors, got "
+                         f"{vals.device}")
+    return _OP(vals, p_idx, s_off, packed_p, route, out_dtype)
 
 
 topk_gather.launches = 0

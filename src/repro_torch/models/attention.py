@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as tF
 
 from repro_torch.core.api import SparsityConfig
+from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
                                      packed_linear_apply, packed_linear_init)
 from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
@@ -48,11 +49,12 @@ def _o_proj(params, out_flat, sp: SparsityConfig):
     projection family is activation-sparse, the attention output goes
     through k-WTA and its winner support is handed to the CS-packed
     o-projection (one Select per layer, as in the FFN)."""
-    if sp.activation_sparse:
-        out_flat, support = apply_kwta(out_flat, sp, return_support=True)
-        return _proj_apply(params, out_flat, sp, x_is_sparse=True,
-                           support=support)
-    return _proj_apply(params, out_flat, sp)
+    with named_scope("o_proj"):
+        if sp.activation_sparse:
+            out_flat, support = apply_kwta(out_flat, sp, return_support=True)
+            return _proj_apply(params, out_flat, sp, x_is_sparse=True,
+                               support=support)
+        return _proj_apply(params, out_flat, sp)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as tF
 
 from repro_torch.core.api import SparsityConfig
+from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
                                      packed_linear_apply, packed_linear_init)
 
@@ -63,13 +64,18 @@ def _apply_one(p, x, sp: SparsityConfig, x_is_sparse=False, support=None):
 def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
               act: str = "silu"):
     a = _act(act)
-    up = _apply_one(params["up"], x, cfg_sp)
+    with named_scope("ffn_up"):
+        up = _apply_one(params["up"], x, cfg_sp)
     if "gate" in params:
-        h = a(_apply_one(params["gate"], x, cfg_sp)) * up
+        with named_scope("ffn_gate"):
+            h = a(_apply_one(params["gate"], x, cfg_sp)) * up
     else:
         h = a(up)
     # Select (k-WTA) — identity when disabled. The winner support is handed
     # to the down projection so the sparse-sparse path never re-derives it.
-    h, support = apply_kwta(h, cfg_sp, return_support=True)
-    return _apply_one(params["down"], h, cfg_sp,
-                      x_is_sparse=cfg_sp.activation_sparse, support=support)
+    with named_scope("ffn_kwta"):
+        h, support = apply_kwta(h, cfg_sp, return_support=True)
+    with named_scope("ffn_down"):
+        return _apply_one(params["down"], h, cfg_sp,
+                          x_is_sparse=cfg_sp.activation_sparse,
+                          support=support)

@@ -24,6 +24,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.core.instrument import named_scope
 from repro_torch.runtime.kvcache.layout import copy_page
 from . import attention as A
 from .common import (dtype_of, embedding_apply, embedding_init,
@@ -51,6 +52,16 @@ def check_supported(cfg) -> None:
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+
+def _block_scope(cfg, layer: int):
+    """The reference's block scope ``b{i}_{kind}`` of layer ``u·L + i``,
+    under a ``u{u}`` scope of its unit: the reference stages one unit as
+    a scan body, the port runs every unit, and the linter counts each
+    unit against the reference's one."""
+    n = len(cfg.block_pattern)
+    i = layer % n
+    return named_scope(f"u{layer // n}/b{i}_{cfg.block_pattern[i]}")
+
 
 def _block_init(gen: torch.Generator, cfg):
     p = {"norm1": rmsnorm_init(cfg.d_model, gen.device),
@@ -172,8 +183,9 @@ def forward(params, batch, cfg):
     x = _embed(params, batch["tokens"], ct)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    for layer in params["layers"]:
-        x = _block_apply(layer, x, cfg, positions)
+    for j, layer in enumerate(params["layers"]):
+        with _block_scope(cfg, j):
+            x = _block_apply(layer, x, cfg, positions)
     return (_logits(params, x, cfg, ct),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -234,8 +246,9 @@ def prefill(params, batch, cfg, max_seq: int):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = []
-    for layer in params["layers"]:
-        x, c = _block_prefill(layer, x, cfg, positions, max_seq)
+    for j, layer in enumerate(params["layers"]):
+        with _block_scope(cfg, j):
+            x, c = _block_prefill(layer, x, cfg, positions, max_seq)
         cache.append(c)
     return _logits(params, x, cfg, ct), cache
 
@@ -258,8 +271,10 @@ def serve_step(params, cache, batch, pos, cfg, pages=None):
     check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
     x = _embed(params, batch["tokens"], ct)
-    for layer, c in zip(params["layers"], cache, strict=True):
-        x, _ = _block_decode(layer, x, cfg, c, pos, pages)
+    for j, (layer, c) in enumerate(zip(params["layers"], cache,
+                                       strict=True)):
+        with _block_scope(cfg, j):
+            x, _ = _block_decode(layer, x, cfg, c, pos, pages)
     return _logits(params, x, cfg, ct)[:, 0], cache
 
 
@@ -279,7 +294,9 @@ def prefill_chunk(params, cache, batch, pos_start: int, chunk_len: int, cfg,
     check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
     x = _embed(params, batch["tokens"], ct)
-    for layer, c in zip(params["layers"], cache, strict=True):
-        x, _ = _block_chunk_prefill(layer, x, cfg, c, pages, pos_start,
-                                    chunk_len)
+    for j, (layer, c) in enumerate(zip(params["layers"], cache,
+                                       strict=True)):
+        with _block_scope(cfg, j):
+            x, _ = _block_chunk_prefill(layer, x, cfg, c, pages, pos_start,
+                                        chunk_len)
     return _logits(params, x, cfg, ct), cache

@@ -33,6 +33,9 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
     assert {"repro_torch.runtime.kvcache",
             "repro_torch.runtime.kvcache.allocator",
             "repro_torch.runtime.kvcache.layout"} <= set(mods)
+    assert {f"repro_torch.analysis.{m}" for m in (
+        "__main__", "findings", "graph_rules", "graph_walk", "kernel_checks",
+        "lint", "rules", "seeded")} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
