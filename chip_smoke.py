@@ -77,7 +77,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, under ``torch.cuda.set_sync_debug_mode("error")``; the host
    time of a ``topk_gather`` call through the custom op against the bare
    launch; then the seeded kernels' times beside their plain versions, a
-   library call and their bounds.
+   library call and their bounds.  Then the reference verifier's fixture
+   kernels (``analysis/csrc/fixtures.cu``: gather, induction, accum, pad,
+   copy_scratch), every case through ``kernel_checks.check_case`` on the
+   card with exactly the findings ``analysis/fixtures.py`` lists (counted
+   in the same run as the self-test), the copy's over-budget scratches as
+   ``launch-resource`` findings of their geometry, never launched; each
+   family's clean launch against its plain version (exact for the copies,
+   1e-6 of the largest value for the sums) and its time, warm, beside its
+   plain version, one library call and its bound.  The guarded decode
+   steps also run with the dispatch observer on and probed (under a
+   support capture), the capture read back after the guard.
+9. telemetry — ``repro_torch.obs`` on the shipped smollm-360m config at
+   full width (bf16, 4 slots, phase 4's workload) with
+   ``Telemetry.on(jsonl, sparsity_every=1)``, on the contiguous and the
+   paged layout: the tokens equal a telemetry-off run's (a token may part
+   only between the top two, by phase 7's rule); every FFN layer reports
+   ``realized_k_frac`` in [K/d_ff, 1]; the dispatch summary holds 32
+   ``topk[cuda]`` sites with the shared memory of the launch;
+   ``topk_gather`` runs 32 times a step; the JSONL passes
+   ``validate_jsonl`` with every event kind.  Under ``torch.profiler``
+   the decode step issues the same device activities with telemetry off
+   and on but unprobed (the probed step's extra activities are printed).
+   Then the latency and sparsity columns, the stage totals, and tok/s and
+   the host-clock step with telemetry off and on, in turns off, on, on,
+   off (the overhead row: no limit, no claim).
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -85,6 +109,7 @@ The line before the last holds the card's name and power limit as
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import dataclasses
@@ -128,6 +153,13 @@ LONG_ROW = 16384
 PRODUCT_SHAPES = (("up", 128), ("up", 4), ("down", 128), ("down", 4))
 # Device activities of the profiled decode step printed, longest first.
 PROFILE_TOP = 12
+# Phase 9's profiler check of the decode step: one window in a fresh
+# process holds ACTIVITY_ROUNDS calls of each variant, interleaved; each
+# variant's count is one that ACTIVITY_AGREE or more of its calls saw,
+# and more of them than saw any other.
+ACTIVITY_ROUNDS, ACTIVITY_AGREE = 4, 3
+# The trace's categories of device activity: kernels, copies and fills.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The paged phase: pages of 16 rows, prompts prefilled in chunks of 64.
 PAGE_SIZE, PAGED_CHUNK = 16, 64
 # The reference's paged parity workload (tests/test_kvcache.py): 8
@@ -361,14 +393,16 @@ def phase_kernels():
 
 def kernel_wrappers():
     """Every kernel wrapper of the package, by the name its row carries
-    (the linter's two seeded-fault kernels last)."""
+    (the linter's two seeded-fault kernels, then the verifier's fixture
+    families, last)."""
+    from repro_torch.analysis.fixtures import FAMILIES
     from repro_torch.analysis.seeded import missing_init, oob_gather
     from repro_torch.kernels import (grouped_cs_matmul, kwta_hist_cuda,
                                      packed_matmul, topk_gather)
     return {"topk_gather": topk_gather, "packed_matmul": packed_matmul,
             "grouped_cs_matmul": grouped_cs_matmul,
             "kwta_hist": kwta_hist_cuda, "oob_gather": oob_gather,
-            "missing_init": missing_init}
+            "missing_init": missing_init, **FAMILIES}
 
 
 def reset_counts():
@@ -1155,8 +1189,10 @@ def plan_pool(cfg, reqs, max_seq):
         def _prefill_chunk(self, cache, tokens, table, start):
             return torch.zeros(self.cfg.vocab_size)
 
-        def _decode_step(self, cache, tokens, pos, tables=None):
-            return np.zeros((self.n_slots, self.cfg.vocab_size), np.float32)
+        def _decode_step(self, cache, tokens, pos, tables=None,
+                         probed=False):
+            return (np.zeros((self.n_slots, self.cfg.vocab_size),
+                             np.float32), None)
 
     blocks = -(-max_seq // PAGE_SIZE)
     for n_pages in range(4 * blocks + 1, blocks, -1):
@@ -1419,8 +1455,13 @@ def op_dispatch_us(calls: int = 500, repeats: int = 5):
 def guarded_steps(engine_c):
     """One contiguous and one paged decode step at full width, inputs on
     the card, under ``set_sync_debug_mode("error")``: any host sync in
-    the step raises."""
+    the step raises.  Each layout's step runs three ways: plain (telemetry
+    off), with the dispatch observer on (telemetry on, the first step),
+    and probed (under a support capture, whose tensors are read back after
+    the guard)."""
+    from repro_torch.core.api import observe_dispatch
     from repro_torch.launch.serve import Engine
+    from repro_torch.obs import sparsity as obs_sparsity
     torch.cuda.set_sync_debug_mode("error")
     try:
         torch.ones(1, device="cuda").item()
@@ -1435,21 +1476,43 @@ def guarded_steps(engine_c):
                       n_slots=engine_c.n_slots, params=engine_c.params,
                       device="cuda", kv_layout="paged",
                       page_size=PAGE_SIZE)
+    ways = {"telemetry off": contextlib.nullcontext,
+            "dispatch observer on": lambda: observe_dispatch(sites.append),
+            "probed": obs_sparsity.capture_supports}
     for label, engine in (("contiguous", engine_c), ("paged", engine_p)):
         step = _decode_step(engine)
         with torch.no_grad():
             step()                                    # warm-up, unguarded
             torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                logits, _ = step()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(logits.float()).all()):
-            fail(f"the guarded {label} decode step gave non-finite logits")
-        print(f"[analysis] {label} decode step under sync debug mode "
-              f"'error': no host sync, logits {tuple(logits.shape)} finite")
+            for way, ctx in ways.items():
+                sites = []
+                with ctx() as cap:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        logits, _ = step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(logits.float()).all()):
+                    fail(f"the guarded {label} decode step ({way}) gave "
+                         "non-finite logits")
+                extra = ""
+                if way == "probed":
+                    host = cap.to_host()             # the readback
+                    if len(host) != len(engine.cfg.block_pattern) or any(
+                            a[0].shape != (engine.cfg.n_layers // len(
+                                engine.cfg.block_pattern), engine.n_slots, 1)
+                            for a in host.values()):
+                        fail(f"the probed {label} step captured "
+                             f"{ {k: a[0].shape for k, a in host.items()} }")
+                    extra = (f"; captured {sorted(host)}, read back after "
+                             "the guard")
+                if way == "dispatch observer on" and len(sites) != \
+                        3 * engine.cfg.n_layers:
+                    fail(f"the observer saw {len(sites)} CS layers")
+                print(f"[analysis] {label} decode step ({way}) under sync "
+                      f"debug mode 'error': no host sync, logits "
+                      f"{tuple(logits.shape)} finite{extra}")
 
 
 def observed_geometries():
@@ -1502,8 +1565,141 @@ def observed_geometries():
           "memory >= the dynamic bytes)")
 
 
+# The verifier's fixture families: the Pallas fixture each replaces (the
+# function that reaches pallas_call) and the one PyTorch call timed beside
+# it.
+FIXTURES = {
+    "gather": ("tests/test_kernel_rules.py:70",
+               "F.embedding_bag(pidx, packed rows, per_sample_weights=vals, "
+               "mode='sum'): the same sum"),
+    "induction": ("tests/test_kernel_rules.py:146", "x.sum(0)"),
+    "accum": ("tests/test_kernel_rules.py:163",
+              "torch.bmm(x, w): the function on a zeroed output"),
+    "pad": ("tests/test_kernel_rules.py:226", "torch.mul(x, 2.0)"),
+    "copy_scratch": ("tests/test_kernel_rules.py:268; "
+                     "tests/test_analysis.py:171", "out.copy_(x)"),
+}
+FIXTURE_SOURCE = "src/repro_torch/analysis/csrc/fixtures.cu"
+
+
+def fixture_findings():
+    """Every fixture case through the guarded harness on the card; each
+    must give exactly the findings ``fixtures.fixture_cases`` lists.  The
+    copy's scratch geometries: ``launch-resource`` over the card's limit,
+    found before any launch, and nothing within it."""
+    from repro_torch.analysis import check_case, fixtures
+    from repro_torch.analysis.rules import check_geometry
+    for case, expect in fixtures.fixture_cases("cuda", SEED + 1000):
+        found = check_case(case, "fixtures")
+        got = tuple((f.rule, re.search(r"(in|out)\[\d+\]",
+                                       f.message).group(0)) for f in found)
+        print(f"[analysis] fixture {case.label}: "
+              + (", ".join(f"{r} {ref}" for r, ref in got) or "clean"))
+        if got != expect:
+            for f in found:
+                print(f"[analysis]   {f.message}")
+            fail(f"fixture {case.label}: the harness found {got}, want "
+                 f"{expect}")
+    for label, (geo, over) in fixtures.resource_cases().items():
+        found = check_geometry("copy_scratch", geo)
+        print(f"[analysis] fixture copy_scratch {label}: "
+              + ("; ".join(f.message for f in found) or "clean")
+              + ("" if over else ", launched above"))
+        if [f.rule for f in found] != (["launch-resource"] if over else []):
+            fail(f"fixture copy_scratch {label}: geometry findings "
+                 f"{[f.rule for f in found]}")
+
+
+def fixture_rows(counts):
+    """Each fixture family's clean launch against its plain version (exact
+    for the copies, 1e-6·(1 + max|plain|) for the sums), then its time,
+    its plain version's and one library call's, warm in L2 (a few hundred
+    bytes), with its bound.  Returns the families' rows of the kernels
+    line, with ``counts``' launches (the analysis run's)."""
+    import torch.nn.functional as tF
+    from repro_torch.analysis import fixtures as fx
+    ops = fx.operands("cuda", SEED + 1001)
+    vals, pidx, packed = ops["gather"]
+    b, k = vals.shape
+    p, g, n = packed.shape
+    out_g = torch.empty((b, g * n), device="cuda")
+    table, pidx64 = packed.reshape(p, g * n), pidx.long()
+    touched = int(torch.unique(pidx).numel())
+    (x_i,) = ops["induction"]
+    out_i = torch.empty((x_i.shape[1],), device="cuda")
+    x_a, w_a = ops["accum"]
+    out_a = torch.empty((x_a.shape[0], x_a.shape[1], w_a.shape[2]),
+                        device="cuda")
+    plain_a = torch.empty_like(out_a)
+    (x_p,) = ops["pad6"]
+    out_p = torch.empty_like(x_p)
+    (x_c,) = ops["copy"]
+    out_c, lib_c = torch.empty_like(x_c), torch.empty_like(x_c)
+    scratch = int(np.prod(fx.SCRATCH_SHAPES["within"]))
+    # name: (kernel, plain, library, exact, bytes, flops)
+    families = {
+        "gather": (lambda: fx.gather_into(out_g, vals, pidx, packed, 0),
+                   lambda: fx.gather_plain(vals, pidx, packed, 0),
+                   lambda: tF.embedding_bag(pidx64, table,
+                                            per_sample_weights=vals,
+                                            mode="sum"),
+                   out_g, False, b * k * 8 + touched * g * n * 4
+                   + b * g * n * 4, 2 * b * k * g * n),
+        "induction": (lambda: fx.induction_into(out_i, x_i, 0),
+                      lambda: fx.induction_plain(x_i, 0),
+                      lambda: x_i.sum(0), out_i, False,
+                      (x_i.numel() + out_i.numel()) * 4, x_i.numel()),
+        "accum": (lambda: fx.accum_into(out_a, x_a, w_a, "init", 2),
+                  lambda: fx.accum_plain(plain_a, x_a, w_a, "init", 2),
+                  lambda: torch.bmm(x_a, w_a), out_a, False,
+                  (x_a.numel() + w_a.numel() + out_a.numel()) * 4,
+                  2 * x_a.numel() * w_a.shape[2]),
+        "pad": (lambda: fx.pad_into(out_p, x_p, True),
+                lambda: fx.pad_plain(x_p, True),
+                lambda: torch.mul(x_p, 2.0), out_p, True,
+                2 * x_p.numel() * 4, x_p.numel()),
+        "copy_scratch": (lambda: fx.copy_scratch_into(out_c, x_c, scratch),
+                         lambda: fx.copy_scratch_plain(x_c),
+                         lambda: lib_c.copy_(x_c), out_c, True,
+                         2 * x_c.numel() * 4, 0),
+    }
+    rows = []
+    for name, (kern, plain, lib, out, exact, nbytes, flops) in \
+            families.items():
+        kern()
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        tol = 0.0 if exact else 1e-6 * (1.0 + float(want.abs().max()))
+        ok = bool(torch.equal(out, want)) if exact else err <= tol
+        print(f"[analysis] fixture {name} clean launch against its plain "
+              f"version: max_abs_err={err:.3e} tol={tol:.3e}")
+        if not ok:
+            fail(f"fixture {name}: the kernel disagrees with its plain "
+                 "version")
+        ms = {v: device_ms(fn) for v, fn in (("kernel", kern),
+                                             ("plain", plain),
+                                             ("library", lib))}
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        replaces, note = FIXTURES[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": FIXTURE_SOURCE, "replaces": replaces,
+                     "launches": counts[name], "max_abs_err": err,
+                     "ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": ("bytes" if t_bytes >= t_ops
+                                  else "operations"),
+                     "library_ms": ms["library"], "library_note": note})
+        print(f"[analysis] fixture {name} (warm): kernel {ms['kernel']:.5f} "
+              f"ms, plain {ms['plain']:.5f} ms, library {ms['library']:.5f}"
+              f" ms, bound {rows[-1]['bound_ms']:.7f} ms "
+              f"({rows[-1]['bound_by']})")
+    return rows
+
+
 def phase_analysis(engine_c):
-    """Returns the seeded kernels' rows of the kernels line."""
+    """Returns the seeded kernels' and the fixture families' rows of the
+    kernels line."""
     from repro_torch.analysis import (lint_config, lint_kernels, self_test,
                                       trace)
     from repro_torch.analysis.lint import entry_args, resolve_config
@@ -1514,6 +1710,7 @@ def phase_analysis(engine_c):
     reset_counts()
     failures = self_test("cuda")
     report = lint_kernels("cuda")
+    fixture_findings()
     counts = read_counts()
     for f in failures:
         print(f"[analysis] self-test: {f}")
@@ -1526,8 +1723,8 @@ def phase_analysis(engine_c):
     if not report.ok:
         print(report.render())
         fail("lint_kernels found faults in the shipped kernels")
-    print(f"[analysis] kernel launches of the self-test and lint_kernels "
-          f"run: {counts}")
+    print(f"[analysis] kernel launches of the self-test, lint_kernels and "
+          f"fixtures run: {counts}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched by the analysis run: {missing}")
@@ -1561,11 +1758,317 @@ def phase_analysis(engine_c):
     guarded_steps(engine_c)
     op_dispatch_us()
     times = seeded_times(operands)
-    return [dict({"name": name, "route": "cuda", "source": source,
-                  "replaces": replaces, "launches": counts[name],
-                  "max_abs_err": errs[name]}, **times[name],
-                 library_note=SEEDED_LIBRARY[name])
-            for name, (source, replaces) in SEEDED.items()]
+    return ([dict({"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces, "launches": counts[name],
+                   "max_abs_err": errs[name]}, **times[name],
+                  library_note=SEEDED_LIBRARY[name])
+             for name, (source, replaces) in SEEDED.items()]
+            + fixture_rows(counts))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: serving telemetry at full width
+# ---------------------------------------------------------------------------
+
+def phase4_requests(vocab):
+    """Phase 4's workload: 8 requests, prompts of 16, 16 new tokens."""
+    from repro_torch.runtime.scheduler import Request
+    rng = np.random.default_rng(SEED)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, 16).tolist(),
+                    max_new_tokens=16) for i in range(8)]
+
+
+def layout_kw(layout):
+    return ({} if layout == "contiguous" else
+            dict(kv_layout="paged", page_size=PAGE_SIZE,
+                 prefill_chunk=PAGED_CHUNK))
+
+
+def same_tokens(cfg, params, reqs, want_out, got_out, label):
+    """``got_out`` against ``want_out``: equal, or parted only between the
+    first run's top two tokens closer than TIE_MARGIN (phase 7's rule)."""
+    parted = 0
+    for req in reqs:
+        want, got = want_out[req.uid], got_out[req.uid]
+        if len(got) != len(want):
+            fail(f"{label}: request {req.uid} returned {len(got)} tokens, "
+                 f"want {len(want)}")
+        part = next((j for j, (a, b) in enumerate(zip(want, got))
+                     if a != b), None)
+        if part is None:
+            continue
+        best, margin = top2(cfg, params, list(req.prompt) + want[:part])
+        print(f"[telemetry] {label}: request {req.uid} parts at step "
+              f"{part}; top two {sorted(best)}, margin {margin:.3e}")
+        if best != {want[part], got[part]} or not margin < TIE_MARGIN:
+            fail(f"{label}: request {req.uid} differs at step {part} "
+                 "beyond a tie of the top two")
+        parted += 1
+    return parted
+
+
+def telemetry_serve(cfg, engine_c, layout, reqs):
+    """One layout with telemetry off, then on (JSONL, every step probed):
+    every phase-9 check of that run.  Returns the telemetry-on snapshot."""
+    from repro_torch.kernels.topk_gather import launch_geometry, static_smem
+    from repro_torch.launch.serve import Engine
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.export import validate_jsonl
+    max_seq = 33
+    off = Engine(cfg, max_seq=max_seq, n_slots=4, params=engine_c.params,
+                 device="cuda", **layout_kw(layout))
+    out_off, _ = off.serve(reqs)
+    path = ROOT / "build" / "telemetry" / f"{layout}.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    tel = Telemetry.on(jsonl_path=str(path), sparsity_every=1)
+    on = Engine(cfg, max_seq=max_seq, n_slots=4, params=engine_c.params,
+                device="cuda", telemetry=tel, **layout_kw(layout))
+    reset_counts()
+    out_on, stats = on.serve(reqs)
+    counts = read_counts()
+    tel.close()
+    snap = on.metrics_snapshot()
+    steps = stats["decode_steps"]
+    parted = same_tokens(cfg, engine_c.params, reqs, out_off, out_on,
+                         f"{layout} telemetry on vs off")
+    print(f"[telemetry] {layout}: tokens with telemetry on equal the "
+          f"telemetry-off run's ({len(reqs) - parted} identical, {parted} "
+          f"parted at a tie); {steps} decode steps, "
+          f"{snap['sparsity']['probe_steps']} probed; kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if counts["topk_gather"] != cfg.n_layers * steps:
+        fail(f"{layout}: topk_gather launched {counts['topk_gather']} "
+             f"times, want {cfg.n_layers} x {steps} decode steps")
+    if snap["sparsity"]["probe_steps"] != steps:
+        fail(f"{layout}: {snap['sparsity']['probe_steps']} probed steps of "
+             f"{steps}")
+    layers = snap["sparsity"]["layers"]
+    k = cfg.ffn_sparsity.k_for(cfg.d_ff)
+    fracs = {name: e.get("realized_k_frac") for name, e in layers.items()}
+    bad = {n: f for n, f in fracs.items()
+           if f is None or not k / cfg.d_ff <= f <= 1.0}
+    print(f"[telemetry] {layout}: {len(layers)} FFN layers report "
+          f"realized_k_frac in [{min(fracs.values()):.6f}, "
+          f"{max(fracs.values()):.6f}] (K/d_ff = {k / cfg.d_ff:.6f})")
+    if len(layers) != cfg.n_layers or bad:
+        fail(f"{layout}: layers {sorted(layers)[:4]}..., out of [K/d_ff, "
+             f"1]: {bad}")
+    paths = snap["sparsity"]["paths"]["paths"]
+    topk = paths.get("topk[cuda]", {})
+    n = cfg.ffn_sparsity.n
+    weight_bytes = on.params["layers"][0]["ffn"]["down"]["packed_p"] \
+        .element_size()
+    smem = (launch_geometry(on.n_slots, k, cfg.d_model // n, n,
+                            weight_bytes).smem + static_smem(weight_bytes))
+    print(f"[telemetry] {layout}: dispatch summary of one decode step "
+          f"{json.dumps(paths)}; est_smem_bytes a topk site {smem} B "
+          "(launch geometry + static arrays)")
+    if topk.get("sites") != cfg.n_layers or \
+            topk.get("est_smem_bytes") != cfg.n_layers * smem:
+        fail(f"{layout}: topk[cuda] {topk}, want {cfg.n_layers} sites of "
+             f"{smem} B")
+    n, errors = validate_jsonl(str(path))
+    kinds = collections.Counter(json.loads(line)["kind"]
+                                for line in path.read_text().splitlines())
+    print(f"[telemetry] {layout}: {path.name} {n} events {dict(kinds)}, "
+          f"schema {'OK' if not errors else errors[:3]}")
+    if errors or set(kinds) != {"span", "request", "snapshot"}:
+        fail(f"{layout}: the JSONL fails validate_jsonl or lacks an event "
+             "kind")
+    return snap
+
+
+def step_variants(engine):
+    """The engine's decode step at position 16, its inputs on the host as
+    the serve loop hands them over: {variant: callable}, for telemetry
+    off, on but unprobed (with the dispatch observer, as the first step),
+    and probed (with the capture's readback)."""
+    from repro_torch.core.api import observe_dispatch
+    n = engine.n_slots
+    tables = None
+    if engine.kv_layout == "paged":
+        cache = engine.new_paged_cache()
+        blocks = engine.kv_geo.blocks_per_slot
+        tables = np.arange(1, n * blocks + 1).reshape(n, blocks)
+    else:
+        cache = engine.new_cache(n)
+    tokens = np.zeros((n, 1), np.int64)
+    pos = np.full((n,), 16, np.int64)
+
+    def off():
+        engine._decode_step(cache, tokens, pos, tables)
+
+    def unprobed():
+        with observe_dispatch(lambda ev: None):
+            engine._decode_step(cache, tokens, pos, tables)
+
+    def probed():
+        _, cap = engine._decode_step(cache, tokens, pos, tables, probed=True)
+        cap.to_host()
+
+    return {"off": off, "on, unprobed": unprobed, "on, probed": probed}
+
+
+def settled(calls):
+    """The activity count that ACTIVITY_AGREE or more calls saw, and more
+    of them than saw any other; else None."""
+    seen = collections.Counter(frozenset(c.items()) for c in calls)
+    ranked = seen.most_common(2)
+    if not ranked or ranked[0][1] < ACTIVITY_AGREE or (
+            len(ranked) > 1 and ranked[1][1] == ranked[0][1]):
+        return None
+    return collections.Counter(dict(ranked[0][0]))
+
+
+def activity_window(layout):
+    """The device activities (kernels, copies) of the decode step of each
+    variant of ``step_variants`` on a fresh engine (phase 4's weights),
+    under one ``torch.profiler`` window; written as JSON to
+    build/activities_<layout>.json: {variant: [{name: count} a call]}.
+
+    Run in a process of its own (``telemetry_activities``): in a process
+    that has opened profiler windows before, a window may miss the head
+    or the tail of its records or none at all.  Inside the window each
+    call is a host range that starts with a spin kernel and ends with a
+    sync, and the calls are 2 ms apart; a device activity belongs to the
+    call whose range last began before it started.  A call's records are
+    then told apart by the host clock alone, with the spin's 0.5 ms
+    between a range's start and its first activity.  A pad call at each
+    end of the window takes what the window's edges may lose."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    eng = Engine(get_config("smollm-360m"), max_seq=33, n_slots=4,
+                 device="cuda", **layout_kw(layout))
+    variants = step_variants(eng)
+    order = (["pad"] + [v for _ in range(ACTIVITY_ROUNDS) for v in variants]
+             + ["pad"])
+    with torch.no_grad():
+        for fn in variants.values():                # warm-up
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i, v in enumerate(order):
+                with record_function(f"call {i}"):
+                    torch.cuda._sleep(1_000_000)
+                    variants["off" if v == "pad" else v]()
+                    torch.cuda.synchronize()
+                time.sleep(0.002)
+    t = time.perf_counter()
+    trace_path = ROOT / "build" / f"activities_{layout}.trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    trace_path.unlink()
+    begins = {int(e["name"].split()[1]): e["ts"] for e in events
+              if e.get("cat") == "user_annotation"
+              and e["name"].startswith("call ")}
+    if sorted(begins) != list(range(len(order))):
+        fail(f"{layout}: the profiler kept the ranges {sorted(begins)} of "
+             f"{len(order)} calls")
+    starts = [begins[i] for i in range(len(order))]
+    calls = [collections.Counter() for _ in order]
+    for e in events:
+        if (e.get("cat") not in DEVICE_CATS
+                or "spin_kernel" in e["name"]):
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i >= 0:
+            calls[i][e["name"]] += 1
+    print(f"[telemetry] {layout}: {len(order)} calls' trace read in "
+          f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
+    out = {v: [dict(c) for c, w in zip(calls, order) if w == v]
+           for v in variants}
+    (ROOT / "build" / f"activities_{layout}.json").write_text(
+        json.dumps(out))
+
+
+def telemetry_activities():
+    """Device activities of the decode step with telemetry off and on but
+    unprobed must be the same; the probed step's extra ones (and any it
+    lacks) are printed.  Each layout's window runs in a fresh process
+    (``activity_window``)."""
+    for layout in ("contiguous", "paged"):
+        path = ROOT / "build" / f"activities_{layout}.json"
+        path.unlink(missing_ok=True)
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import sys; sys.path[:0] = "
+                        f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import "
+                        f"chip_smoke; chip_smoke.activity_window("
+                        f"{layout!r})"], check=True, timeout=600)
+        windows = {v: [collections.Counter(c) for c in calls]
+                   for v, calls in json.loads(path.read_text()).items()}
+        per_call = {v: [sum(c.values()) for c in w]
+                    for v, w in windows.items()}
+        print(f"[telemetry] {layout} decode step under torch.profiler, "
+              f"activities a call: {json.dumps(per_call)} (the window's "
+              f"process took {time.perf_counter() - t:.1f} s)")
+        acts = {v: settled(w) for v, w in windows.items()}
+        unsettled = [v for v, a in acts.items() if a is None]
+        if unsettled:
+            fail(f"{layout}: no count of the device activities was seen "
+                 f"in {ACTIVITY_AGREE} calls of {unsettled}")
+        total = {v: sum(a.values()) for v, a in acts.items()}
+        print(f"[telemetry] {layout} decode step under torch.profiler: "
+              + ", ".join(f"{v} {t} device activities"
+                          for v, t in total.items()))
+        if not total["off"]:
+            fail(f"{layout}: the profiler recorded no device activity")
+        if acts["on, unprobed"] != acts["off"]:
+            fail(f"{layout}: telemetry on, unprobed, changes the step's "
+                 f"device activities: {acts['on, unprobed'] - acts['off']}"
+                 f" more, {acts['off'] - acts['on, unprobed']} fewer")
+        extra = acts["on, probed"] - acts["off"]
+        print(f"[telemetry] {layout}: the probed step's extra device "
+              f"activities ({sum(extra.values())}):")
+        for name, count in extra.most_common():
+            print(f"[telemetry]   {count:4d}x {name[:100]}")
+        missing = acts["off"] - acts["on, probed"]
+        if missing:
+            print(f"[telemetry] {layout}: activities of the unprobed step "
+                  f"the probed one lacks: {dict(missing)}")
+
+
+def telemetry_overhead(cfg, engine_c, reqs):
+    """tok/s and the host-clock decode step with telemetry off and on
+    (every step probed), in turns off, on, on, off, on each layout."""
+    from repro_torch.launch.serve import Engine
+    from repro_torch.obs import Telemetry
+    rows = {}
+    for layout in ("contiguous", "paged"):
+        runs = collections.defaultdict(list)
+        for turn in ("off", "on", "on", "off"):
+            tel = Telemetry.on(sparsity_every=1) if turn == "on" else None
+            eng = Engine(cfg, max_seq=33, n_slots=4, params=engine_c.params,
+                         device="cuda", telemetry=tel, **layout_kw(layout))
+            _, stats = eng.serve(reqs)
+            tok_s, _, step_ms = serve_numbers(stats)
+            runs[turn].append((tok_s, step_ms))
+            print(f"[telemetry] overhead {layout} telemetry {turn}: "
+                  f"{tok_s:.2f} tok/s, decode step {step_ms:.3f} ms (host "
+                  "clock)")
+        rows[layout] = {t: {"tok_s": [r[0] for r in v],
+                            "decode_step_ms": [r[1] for r in v]}
+                        for t, v in runs.items()}
+    print(f"[telemetry] overhead {json.dumps(rows)}")
+
+
+def phase_telemetry(engine_c):
+    """Phase 9 on the engine of phase 4 (its weights)."""
+    from repro_torch.obs import latency_columns, sparsity_columns
+    cfg = engine_c.cfg
+    reqs = phase4_requests(cfg.vocab_size)
+    for layout in ("contiguous", "paged"):
+        snap = telemetry_serve(cfg, engine_c, layout, reqs)
+        print(f"[telemetry] {layout} latency_columns "
+              f"{json.dumps(latency_columns(snap))}")
+        print(f"[telemetry] {layout} sparsity_columns "
+              f"{json.dumps(sparsity_columns(snap))}")
+        print(f"[telemetry] {layout} stage totals (host clock) "
+              f"{json.dumps(snap['stages'])}")
+    telemetry_activities()
+    telemetry_overhead(cfg, engine_c, reqs)
 
 
 def main():
@@ -1582,7 +2085,8 @@ def main():
 
     t0 = time.perf_counter()
     builds = build_all(["topk_gather", "packed_matmul", "grouped_cs_matmul",
-                        "kwta_hist", "oob_gather", "missing_init"])
+                        "kwta_hist", "oob_gather", "missing_init",
+                        "fixtures"])
     print(f"[build] {len(builds)} libraries in "
           f"{time.perf_counter() - t0:.2f} s, in parallel")
     for name, result in builds.items():
@@ -1623,6 +2127,9 @@ def main():
     t = time.perf_counter()
     rows += phase_analysis(engine)
     print(f"[analysis] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_telemetry(engine)
+    print(f"[telemetry] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -20,8 +20,11 @@ outside it here)
     canary bit pattern.  Then one launch per float input fills only that
     input's guards with NaN.  An output that turns non-finite, or differs
     from the clean launch in any bit, means the kernel read outside that
-    input: the finding names the kernel and ``in[i]``.  A changed canary
-    means it wrote outside ``out[j]``.
+    input: the finding names the kernel and ``in[i]``.  So does an
+    output guard band that differs from the clean launch's (a read
+    outside the input whose value the kernel stored outside the output,
+    as an unmasked ragged block does).  A changed canary means it wrote
+    outside ``out[j]``.
 
 ``grid-race`` (the reference's family of that name)
     The kernel runs twice, its outputs pre-filled with NaN and with a
@@ -55,7 +58,7 @@ the plain result into the given output).  There a view cannot be read
 past: torch's bounds check raises, and the operand that was indexed
 becomes the ``oob-access`` finding.  The reference's clean and faulty
 fixtures of ``tests/test_kernel_rules.py`` that a dynamic check can see
-have counterparts in ``tests/test_torch_analysis.py`` as plain functions.
+are CUDA kernels with plain versions in :mod:`.fixtures`.
 """
 
 from __future__ import annotations
@@ -222,6 +225,7 @@ def check_case(case: Case, entry: str = "") -> List[Finding]:
         read_outside(raised[0], f"the bounds check raised: {raised[1]}")
         return findings
     clean = [g.view.clone() for g in outs]
+    clean_bands = [[_bits(b).clone() for b in g.guards()] for g in outs]
     for i, g in enumerate(ins):
         if not g.view.dtype.is_floating_point:
             continue
@@ -236,6 +240,15 @@ def check_case(case: Case, entry: str = "") -> List[Finding]:
                                 f"output values turn non-finite and the "
                                 f"output changes")
                 break
+        else:
+            for j, (o, bands) in enumerate(zip(outs, clean_bands)):
+                if any(not torch.equal(_bits(b), want)
+                       for b, want in zip(o.guards(), bands)):
+                    read_outside(i, "with its guard bands NaN, what the "
+                                    "kernel writes past "
+                                    f"{ref_label('out', n_in + j, o.view)}"
+                                    " changes")
+                    break
     runs = []
     for fill in (float("nan"), 1.0):
         _launch(case, ins, outs, fill)

@@ -20,8 +20,10 @@ version for CPU tensors; ``off`` runs the formula of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Literal, Optional
+import threading
+from typing import Callable, Dict, Iterator, Literal, Optional
 
 Path = Literal["auto", "hadamard", "dense", "topk"]
 
@@ -99,6 +101,50 @@ def choose_executor(cfg: SparsityConfig) -> Executor:
         raise ValueError(f"use_pallas must be 'auto', 'force' or 'off', "
                          f"got {cfg.use_pallas!r}")
     return Executor(use_kernel=cfg.use_pallas != "off")
+
+
+# ---------------------------------------------------------------------------
+# Dispatch observation (runtime telemetry, repro_torch.obs)
+# ---------------------------------------------------------------------------
+
+class _DispatchObs(threading.local):
+    def __init__(self) -> None:
+        self.stack: list = []
+
+
+_DISPATCH_OBS = _DispatchObs()
+
+
+@contextlib.contextmanager
+def observe_dispatch(cb: Callable[[Dict], None]) -> Iterator[None]:
+    """Register an observer of CS-layer dispatch decisions.
+
+    While active (on this thread), every ``packed_linear_apply`` reports
+    one event dict — ``{"path", "backend", "batch", "d_in", "d_out", "n",
+    "k", "weight_bytes"}`` — describing which execution path and backend
+    the layer took.  Eager PyTorch runs the layers every step, so an
+    observer sees every step it is active for (the serving engine keeps
+    one active for its first decode step).  Host-side only: nothing is
+    added to the computation, and with no observer the notify below is a
+    single thread-local list check.
+    """
+    _DISPATCH_OBS.stack.append(cb)
+    try:
+        yield
+    finally:
+        _DISPATCH_OBS.stack.remove(cb)
+
+
+def dispatch_observed() -> bool:
+    """True when a dispatch observer is active on this thread (callers
+    skip building the event dict otherwise)."""
+    return bool(_DISPATCH_OBS.stack)
+
+
+def notify_dispatch(event: Dict) -> None:
+    """Deliver a dispatch event to the active observers (if any)."""
+    for cb in _DISPATCH_OBS.stack:
+        cb(event)
 
 
 def choose_path(cfg: SparsityConfig, batch: int, d_in: int,

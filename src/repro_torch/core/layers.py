@@ -26,8 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as tF
 
+from repro_torch.obs import sparsity as obs_sparsity
 from . import functional as F
-from .api import SparsityConfig, choose_executor, choose_path
+from .api import (SparsityConfig, choose_executor, choose_path,
+                  dispatch_observed, notify_dispatch)
 from .instrument import named_scope
 from .kwta import kwta_bisect, kwta_hist, kwta_local, kwta_support
 from .masks import CSLayout, make_routes, pad_to_multiple
@@ -156,6 +158,16 @@ def packed_linear_apply(params, x: torch.Tensor, cfg: SparsityConfig,
         x = tF.pad(x, (0, d_in - x.shape[-1]))
     batch = int(np.prod(x.shape[:-1])) if x.ndim > 1 else 1
     path = choose_path(cfg, batch, d_in, x_is_sparse)
+    if dispatch_observed():
+        # Dispatch telemetry (repro_torch.obs): which path and backend this
+        # layer application took.  Host-side only — nothing is launched.
+        kernel = (path == "topk" and choose_executor(cfg).use_kernel
+                  and x.is_cuda)
+        notify_dispatch({"path": path, "backend": "cuda" if kernel
+                         else "torch", "batch": batch, "d_in": d_in,
+                         "d_out": packed.shape[0] * packed.shape[2],
+                         "n": cfg.n, "k": cfg.k_for(d_in),
+                         "weight_bytes": packed.element_size()})
     # The cs_<path> scope lets the linter attribute every traced op to the
     # execution path that produced it (repro_torch.analysis).
     with named_scope(f"cs_{path}"):
@@ -200,4 +212,13 @@ def apply_kwta(x: torch.Tensor, cfg: SparsityConfig,
         y = kwta_local(x, k, cfg.kwta_partitions)
     else:
         y, support = kwta_support(x, k)
+    # Realized-sparsity capture (repro_torch.obs): when the serving engine's
+    # probed decode step runs, report this layer's winner set (exact top-k:
+    # tensors already made) or an nnz reduction (>=-K threshold impls).
+    # With no active capture — every other step, and everything the linter
+    # traces — both calls return at once and add nothing.
+    if support is not None:
+        obs_sparsity.observe_support(support[0], support[1], x.shape[-1])
+    elif obs_sparsity.capture_active():
+        obs_sparsity.observe_activation(y)
     return (y, support) if return_support else y

@@ -129,6 +129,18 @@ def launch_geometry(b: int, k: int, g: int, n: int,
     return Geometry((strips * cluster, b, 1), THREADS, cluster, 0)
 
 
+def static_smem(elem_size: int) -> int:
+    """Bytes of the kernel's static shared arrays for weights of
+    ``elem_size`` bytes (the ``__shared__`` declarations of
+    ``topk_gather_kernel``: the weight strips, three entry arrays of
+    ``kMaxEntries``, the warps' partials and the cluster's inbox, with
+    V = 16 / elem_size elements a 16-byte vector)."""
+    v = 16 // elem_size
+    strip_bytes, max_entries, warps = 24 * 1024, 256, THREADS // 32
+    return (strip_bytes + 3 * 4 * max_entries + warps * 32 * v * 4
+            + (32 * v + MAX_CLUSTER) * 4)
+
+
 def async_staging(packed_p) -> bool:
     """Whether the kernel may stage the weight strips with 16-byte
     ``cp.async`` copies: packed_p's base address and its partition rows of

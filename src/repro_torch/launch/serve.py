@@ -44,16 +44,34 @@ The engine runs on ``cuda`` unless ``device`` names another; with the
 sparse-sparse config its decode steps send every FFN down projection to
 the ``topk_gather`` CUDA kernel, on either layout.
 
+Telemetry: pass ``telemetry=repro_torch.obs.Telemetry.on(...)`` and the
+engine traces host-clock spans around every stage (``schedule.admit`` /
+``prefill`` / ``insert`` / ``decode.step`` / ``sample``, and on the paged
+layout ``prefill.chunk`` / ``kv.cow``), samples queue-depth and
+slot-occupancy gauges each step, keeps per-request lifecycle records
+(scheduler-side), attributes the execution paths of its first decode step
+(``repro_torch.core.api.observe_dispatch``), and — every
+``telemetry.sparsity_every`` steps — runs the decode step under a support
+capture, so realized activation sparsity and cross-step winner overlap
+are measured from what actually ran.  ``Engine.metrics_snapshot()``
+returns the whole picture as a JSON-ready dict, live or at end of run.
+With the default ``telemetry=None`` everything degrades to null objects,
+and an unprobed step issues the same device work, with no more host
+syncs, whether telemetry is on or off.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --slots 4 --requests 8 --prompt-len 16 --gen 32 [--full] [--device cpu]
       [--kv-layout paged --page-size 8 --n-pages 13]
+      [--telemetry] [--telemetry-jsonl PATH]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import os
 import time
 from collections import deque
@@ -63,8 +81,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.api import observe_dispatch
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
+from repro_torch.obs import DispatchStats, SparsityStats, Telemetry
+from repro_torch.obs import sparsity as obs_sparsity
 from repro_torch.runtime.kvcache import (NULL_PAGE, BlockAllocator, PagedKV,
                                          prefix_keys)
 from repro_torch.runtime.scheduler import (Request, RequestRecord,
@@ -99,10 +120,14 @@ class Engine:
     ``kv_layout="paged"`` serves from a pool of ``n_pages`` pages of
     ``page_size`` rows (default: full backing) with prompts prefilled in
     chunks of ``prefill_chunk`` rows (a multiple of ``page_size``;
-    default four pages), under ``kv_policy`` "grow" or "reserve"."""
+    default four pages), under ``kv_policy`` "grow" or "reserve".
+
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`; default off)
+    receives the engine's metrics, spans and sparsity probes."""
 
     def __init__(self, cfg, max_seq: int, n_slots: int = 4, params=None,
                  use_pallas: Optional[str] = None, device=None,
+                 telemetry: Optional[Telemetry] = None,
                  kv_layout: str = "contiguous", page_size: int = 16,
                  n_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
@@ -142,6 +167,10 @@ class Engine:
                                   else min(4 * self.kv_geo.page_size,
                                            self.kv_geo.view_len))
             self.kv_geo.chunk_spans(1, self.prefill_chunk)  # validates
+        self.telemetry = (telemetry if telemetry is not None
+                          else Telemetry.off())
+        self._sparsity = SparsityStats(self.telemetry.registry)
+        self._dispatch = DispatchStats()
 
     def new_cache(self, batch: int):
         return T.init_cache(self.cfg, batch, self.max_seq, self.device)
@@ -183,6 +212,7 @@ class Engine:
                                  {"tokens": self._to_device(toks)},
                                  self.cfg, self.max_seq)
         self.prefill_calls += 1
+        self.telemetry.registry.counter("serve.prefill_calls").inc()
         return _host_row(logits[0, p_len - 1]), frag
 
     def _prefill_chunk(self, cache, tokens: Sequence[int], table: np.ndarray,
@@ -200,15 +230,29 @@ class Engine:
         return logits[0, ln - 1]
 
     def _decode_step(self, cache, tokens: np.ndarray, pos: np.ndarray,
-                     tables: Optional[np.ndarray] = None) -> np.ndarray:
+                     tables: Optional[np.ndarray] = None,
+                     probed: bool = False):
         """One decode step of every slot (the cache written in place);
         with ``tables`` through the paged cache.  Returns the
-        (n_slots, vocab) logits on the host."""
-        logits, _ = T.serve_step(
-            self.params, cache, {"tokens": self._to_device(tokens)},
-            self._to_device(pos), self.cfg,
-            pages=None if tables is None else self._to_device(tables))
-        return _host_row(logits)
+        (n_slots, vocab) logits on the host and, for a ``probed`` step, the
+        capture: the same step run under ``capture_supports``, whose
+        tensors reach the host only after the logits have."""
+        capture = (obs_sparsity.capture_supports() if probed
+                   else contextlib.nullcontext())
+        with capture as cap:
+            logits, _ = T.serve_step(
+                self.params, cache, {"tokens": self._to_device(tokens)},
+                self._to_device(pos), self.cfg,
+                pages=None if tables is None else self._to_device(tables))
+        return _host_row(logits), cap
+
+    def _observe_step(self):
+        """The dispatch observer for this decode step: active for the
+        engine's first decode step with telemetry on (sealed after it, so
+        the sites describe one step), else a null context."""
+        if self.telemetry.enabled and not self._dispatch.sealed:
+            return observe_dispatch(self._dispatch.on_event)
+        return contextlib.nullcontext()
 
     # -- continuous-batching loop -------------------------------------------
     @torch.no_grad()
@@ -236,7 +280,18 @@ class Engine:
                     f"{self.max_seq}")
         if self.kv_layout == "paged":
             return self._serve_paged(requests)
-        sched = Scheduler(self.n_slots)
+        tel = self.telemetry
+        tracer = tel.tracer
+        reg = tel.registry
+        g_queue = reg.gauge("serve.queue_depth")
+        g_active = reg.gauge("serve.slots_active")
+        g_occ = reg.gauge("serve.slot_occupancy")
+        h_prefill = reg.histogram("serve.prefill_s")
+        h_step = reg.histogram("serve.decode_step_s")
+        h_step_recent = reg.rolling_histogram("serve.decode_step_recent_s")
+        c_steps = reg.counter("serve.decode_steps")
+        probe_every = tel.sparsity_every if tel.enabled else 0
+        sched = Scheduler(self.n_slots, telemetry=tel)
         self.records = sched.records
         sched.submit_many(requests, now=0.0)
         cache = self.new_cache(self.n_slots)
@@ -246,31 +301,58 @@ class Engine:
         decode_s = 0.0
         t0 = time.perf_counter()
         while sched.has_work:
-            for slot in sched.admit(now=time.perf_counter() - t0):
+            with tracer.span("schedule.admit"):
+                admitted = sched.admit(now=time.perf_counter() - t0)
+            for slot in admitted:
                 req = slot.request
-                row, frag = self._prefill(req.prompt)
-                cache = self._insert(cache, frag, slot.index)
-                first = sample_token(row, req.sampling, slot.rng)
+                self._sparsity.reset_row(slot.index)
+                t_pre = time.perf_counter()
+                with tracer.span("prefill", uid=req.uid,
+                                 prompt_len=len(req.prompt)):
+                    row, frag = self._prefill(req.prompt)
+                    with tracer.span("insert"):
+                        cache = self._insert(cache, frag, slot.index)
+                h_prefill.observe(time.perf_counter() - t_pre)
+                with tracer.span("sample"):
+                    first = sample_token(row, req.sampling, slot.rng)
                 sched.record_token(slot, first, now=time.perf_counter() - t0)
                 tokens[slot.index, 0] = first
                 pos[slot.index] = slot.pos  # == len(prompt)
             # budget-1 requests finish at prefill
             sched.retire_done(now=time.perf_counter() - t0)
             active = sched.active_slots()
+            g_queue.set(len(sched.queue))
+            g_active.set(len(active))
+            g_occ.set(len(active) / self.n_slots)
             if not active:
                 continue
+            probed = probe_every > 0 and n_steps % probe_every == 0
             t_step = time.perf_counter()
-            logits = self._decode_step(cache, tokens, pos)
-            decode_s += time.perf_counter() - t_step
+            # the span closes after the logits reach the host: it holds
+            # the step's device time
+            with tracer.span("decode.step", probed=probed), \
+                    self._observe_step():
+                logits, cap = self._decode_step(cache, tokens, pos,
+                                                probed=probed)
+            self._dispatch.seal()
+            dt_step = time.perf_counter() - t_step
+            decode_s += dt_step
+            h_step.observe(dt_step)
+            h_step_recent.observe(dt_step)
+            c_steps.inc()
             n_steps += 1
+            if probed:
+                self._sparsity.update(cap.to_host(), cap.meta,
+                                      active_rows=[s.index for s in active])
             now = time.perf_counter() - t0
-            for slot in active:
-                nxt = sample_token(logits[slot.index], slot.request.sampling,
-                                   slot.rng)
-                sched.record_token(slot, nxt, now=now)
-                tokens[slot.index, 0] = nxt
-                slot.pos += 1
-                pos[slot.index] = slot.pos
+            with tracer.span("sample"):
+                for slot in active:
+                    nxt = sample_token(logits[slot.index],
+                                       slot.request.sampling, slot.rng)
+                    sched.record_token(slot, nxt, now=now)
+                    tokens[slot.index, 0] = nxt
+                    slot.pos += 1
+                    pos[slot.index] = slot.pos
             sched.retire_done(now=time.perf_counter() - t0)
         dt = time.perf_counter() - t0
         total = sum(len(v) for v in sched.finished.values())
@@ -282,6 +364,9 @@ class Engine:
             "prefill_calls": self.prefill_calls,
             "ttft_s": dict(sched.ttft),
         }
+        if tel.enabled:
+            tel.emit({"kind": "snapshot",
+                      "metrics": self.metrics_snapshot()})
         return sched.finished, stats
 
     # -- paged serve loop -----------------------------------------------------
@@ -331,7 +416,21 @@ class Engine:
                     f"{alloc.capacity} — raise n_pages")
         grow = self.kv_policy == "grow"
         paranoid = os.environ.get("REPRO_KV_CHECK") == "1"
-        sched = Scheduler(self.n_slots, allocator=alloc,
+        tel = self.telemetry
+        tracer = tel.tracer
+        reg = tel.registry
+        g_queue = reg.gauge("serve.queue_depth")
+        g_active = reg.gauge("serve.slots_active")
+        g_occ = reg.gauge("serve.slot_occupancy")
+        h_chunk = reg.histogram("serve.prefill_chunk_s")
+        h_step = reg.histogram("serve.decode_step_s")
+        h_step_recent = reg.rolling_histogram("serve.decode_step_recent_s")
+        c_steps = reg.counter("serve.decode_steps")
+        c_chunks = reg.counter("serve.prefill_chunks")
+        c_cow = reg.counter("serve.cow_copies")
+        c_grow = reg.counter("serve.kv_grow_pages")
+        probe_every = tel.sparsity_every if tel.enabled else 0
+        sched = Scheduler(self.n_slots, telemetry=tel, allocator=alloc,
                           kv_policy=self.kv_policy)
         self.records = sched.records
         sched.submit_many(requests, now=0.0)
@@ -388,9 +487,12 @@ class Engine:
                 n_cow_inplace += 1
                 return True
             old, new = cow
-            T.copy_cache_page(cache, old, new)
+            # dispatch only: nothing waits for the copy to land
+            with tracer.span("kv.cow", uid=uid, block=blk):
+                T.copy_cache_page(cache, old, new)
             geo.set_chain(tables, slot.index, alloc.chain(uid))
             n_cow += 1
+            c_cow.inc()
             return True
 
         cache = self.new_paged_cache()
@@ -402,8 +504,11 @@ class Engine:
         while sched.has_work:
             if paranoid:
                 alloc.check()
-            for slot in sched.admit(now=time.perf_counter() - t0,
-                                    chunked=True):
+            with tracer.span("schedule.admit"):
+                admitted = sched.admit(now=time.perf_counter() - t0,
+                                       chunked=True)
+            for slot in admitted:
+                self._sparsity.reset_row(slot.index)
                 geo.set_chain(tables, slot.index,
                               alloc.chain(slot.request.uid))
                 prefillq.append(slot)
@@ -428,21 +533,29 @@ class Engine:
                             ok = False
                             break
                 if ok:
-                    row = self._prefill_chunk(
-                        cache, req.prompt[start:start + ln],
-                        tables[slot.index:slot.index + 1], start)
+                    t_pre = time.perf_counter()
+                    # dispatch only: the logits stay on the device
+                    with tracer.span("prefill.chunk", uid=req.uid,
+                                     start=start, chunk_len=ln):
+                        row = self._prefill_chunk(
+                            cache, req.prompt[start:start + ln],
+                            tables[slot.index:slot.index + 1], start)
+                    h_chunk.observe(time.perf_counter() - t_pre)
+                    c_chunks.inc()
                     n_chunks += 1
                     slot.prefill_pos += ln
                 if ok and not slot.prefilling:  # last chunk
                     prefillq.popleft()
                     self.prefill_calls += 1
+                    reg.counter("serve.prefill_calls").inc()
                     if grow:
                         # rows are on the device now — publish the
                         # prompt's pages for later prefix matches
                         alloc.register_chain_prefix(
                             req.uid, prefix_keys(req.prompt, ps))
-                    first = sample_token(_host_row(row), req.sampling,
-                                         slot.rng)
+                    row = _host_row(row)
+                    with tracer.span("sample"):
+                        first = sample_token(row, req.sampling, slot.rng)
                     sched.record_token(slot, first,
                                        now=time.perf_counter() - t0)
                     tokens[slot.index, 0] = first
@@ -470,6 +583,7 @@ class Engine:
                             break
                         alloc.extend(uid, 1)
                         n_grown += 1
+                        c_grow.inc()
                     if evicted or not slot.busy:
                         continue
                     # the write row may sit in a page adopted from a
@@ -478,6 +592,9 @@ class Engine:
                         continue
                     geo.set_chain(tables, slot.index, alloc.chain(uid))
             active = sched.decoding_slots()
+            g_queue.set(len(sched.queue))
+            g_active.set(len(active))
+            g_occ.set(len(active) / self.n_slots)
             if not active:
                 continue
             # Null the page-table rows of slots sitting this step out
@@ -488,18 +605,31 @@ class Engine:
             for i in range(self.n_slots):
                 if i not in decoding:
                     step_tables[i, :] = NULL_PAGE
+            probed = probe_every > 0 and n_steps % probe_every == 0
             t_step = time.perf_counter()
-            logits = self._decode_step(cache, tokens, pos, step_tables)
-            decode_s += time.perf_counter() - t_step
+            with tracer.span("decode.step", probed=probed), \
+                    self._observe_step():
+                logits, cap = self._decode_step(cache, tokens, pos,
+                                                step_tables, probed=probed)
+            self._dispatch.seal()
+            dt_step = time.perf_counter() - t_step
+            decode_s += dt_step
+            h_step.observe(dt_step)
+            h_step_recent.observe(dt_step)
+            c_steps.inc()
             n_steps += 1
+            if probed:
+                self._sparsity.update(cap.to_host(), cap.meta,
+                                      active_rows=[s.index for s in active])
             now = time.perf_counter() - t0
-            for slot in active:
-                nxt = sample_token(logits[slot.index], slot.request.sampling,
-                                   slot.rng)
-                sched.record_token(slot, nxt, now=now)
-                tokens[slot.index, 0] = nxt
-                slot.pos += 1
-                pos[slot.index] = slot.pos
+            with tracer.span("sample"):
+                for slot in active:
+                    nxt = sample_token(logits[slot.index],
+                                       slot.request.sampling, slot.rng)
+                    sched.record_token(slot, nxt, now=now)
+                    tokens[slot.index, 0] = nxt
+                    slot.pos += 1
+                    pos[slot.index] = slot.pos
             for slot in sched.retire_done(now=time.perf_counter() - t0):
                 geo.clear_chain(tables, slot.index)
         dt = time.perf_counter() - t0
@@ -526,7 +656,45 @@ class Engine:
             "grown_pages": n_grown,
             "ttft_s": dict(sched.ttft),
         }
+        if tel.enabled:
+            tel.emit({"kind": "snapshot",
+                      "metrics": self.metrics_snapshot()})
         return sched.finished, stats
+
+    # -- telemetry read side -------------------------------------------------
+    def metrics_snapshot(self) -> dict:
+        """JSON-ready snapshot of everything the telemetry layer measured.
+
+        Callable live (mid-``serve``) or at end of run:
+
+        * ``metrics`` — registry counters/gauges/histograms (per-request
+          TTFT and inter-token latency histograms, queue-depth and
+          slot-occupancy gauges, stage latency histograms);
+        * ``stages`` — the spans' host-clock totals and counts from the
+          tracer;
+        * ``requests`` — per-request lifecycle records keyed by uid, for
+          every submitted request (ones still queued or decoding appear
+          with ``status`` "queued"/"in_flight" and partial timings);
+        * ``sparsity`` — per-layer realized k/N and cross-step winner
+          overlap from the probed decode steps, plus the execution-path
+          attribution of the first decode step (topk/hadamard/dense ×
+          backend, est. FLOP shares, est. sparse-vs-dense decode time
+          split, and the shared memory of each ``topk[cuda]`` launch).
+        """
+        stages = self.telemetry.tracer.totals()
+        decode_total = stages.get("decode.step", {}).get("total_s")
+        return {
+            "enabled": self.telemetry.enabled,
+            "metrics": self.telemetry.registry.snapshot(),
+            "stages": stages,
+            "requests": {uid: rec.to_event()
+                         for uid, rec in self.records.items()},
+            "sparsity": {
+                "layers": self._sparsity.summary(),
+                "paths": self._dispatch.summary(decode_total),
+                "probe_steps": self._sparsity.probes,
+            },
+        }
 
     # -- static-batch oracle -------------------------------------------------
     @torch.no_grad()
@@ -591,14 +759,24 @@ def main(argv=None):
                     "(recompute-on-resume) when the pool runs dry; "
                     "'reserve' pins the worst case at admit (the "
                     "scheduling oracle)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="enable runtime telemetry (repro_torch.obs) and "
+                    "print a metrics snapshot at end of run")
+    ap.add_argument("--telemetry-jsonl", default=None, metavar="PATH",
+                    help="stream telemetry events to PATH as JSON lines "
+                    "(implies --telemetry)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    telemetry = None
+    if args.telemetry or args.telemetry_jsonl:
+        telemetry = Telemetry.on(jsonl_path=args.telemetry_jsonl)
     engine = Engine(cfg, max_seq=args.prompt_len + args.gen + 1,
                     n_slots=args.slots, use_pallas=args.use_pallas,
-                    device=args.device, kv_layout=args.kv_layout,
+                    device=args.device, telemetry=telemetry,
+                    kv_layout=args.kv_layout,
                     page_size=args.page_size, n_pages=args.n_pages,
                     prefill_chunk=args.prefill_chunk,
                     kv_policy=args.kv_policy)
@@ -622,6 +800,10 @@ def main(argv=None):
                  f"{stats['preemptions']} preemptions, "
                  f"{stats['grown_pages']} grown pages")
     print(f"{line}; sample: {out[0][:16]}")
+    if telemetry is not None:
+        print(json.dumps(engine.metrics_snapshot(), indent=2,
+                         sort_keys=True))
+        telemetry.close()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from repro_torch.core.api import SparsityConfig
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
                                      packed_linear_apply, packed_linear_init)
+from repro_torch.obs.sparsity import observe_site
 
 
 def _act(name: str):
@@ -73,7 +74,7 @@ def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
         h = a(up)
     # Select (k-WTA) — identity when disabled. The winner support is handed
     # to the down projection so the sparse-sparse path never re-derives it.
-    with named_scope("ffn_kwta"):
+    with named_scope("ffn_kwta"), observe_site("ffn"):
         h, support = apply_kwta(h, cfg_sp, return_support=True)
     with named_scope("ffn_down"):
         return _apply_one(params["down"], h, cfg_sp,

@@ -20,11 +20,13 @@ MLA, MoE and the SSM/hybrid block kinds are later slices of the port.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import torch
 
 from repro_torch.core.instrument import named_scope
+from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import copy_page
 from . import attention as A
 from .common import (dtype_of, embedding_apply, embedding_init,
@@ -53,14 +55,19 @@ def check_supported(cfg) -> None:
 # Blocks
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
 def _block_scope(cfg, layer: int):
     """The reference's block scope ``b{i}_{kind}`` of layer ``u·L + i``,
     under a ``u{u}`` scope of its unit: the reference stages one unit as
     a scan body, the port runs every unit, and the linter counts each
-    unit against the reference's one."""
+    unit against the reference's one.  Inside it the realized-sparsity
+    capture records under site ``b{i}`` and unit ``u``, so a probed
+    step's layer keys are the reference's ``b{i}.<site>.u{u}``."""
     n = len(cfg.block_pattern)
-    i = layer % n
-    return named_scope(f"u{layer // n}/b{i}_{cfg.block_pattern[i]}")
+    i, u = layer % n, layer // n
+    with named_scope(f"u{u}/b{i}_{cfg.block_pattern[i]}"), \
+            observe_site(f"b{i}", unit=u):
+        yield
 
 
 def _block_init(gen: torch.Generator, cfg):

@@ -13,9 +13,15 @@ which slot the request lands in or what else shares the batch.
 
 With a :class:`repro_torch.runtime.kvcache.BlockAllocator` admission is
 also gated on KV pages, and under ``kv_policy="grow"`` the engine preempts
-slots when the pool runs dry (see :class:`Scheduler`).  The reference's
-telemetry hooks (metrics registry, JSONL events) are not ported yet; the
-per-request records and the plain-int counters are.
+slots when the pool runs dry (see :class:`Scheduler`).
+
+Telemetry: construct with ``telemetry=repro_torch.obs.Telemetry`` and
+the scheduler keeps a full per-request lifecycle record
+(:class:`RequestRecord`: enqueue -> admit -> first token -> inter-token
+latencies -> finish), feeds the ``serve.*`` histograms/counters, and
+emits one ``kind="request"`` JSONL event per retirement.  With the
+default (disabled) telemetry every hook degrades to a null-metric call
+and the records still accumulate (they are plain Python, ~100 B each).
 """
 
 from __future__ import annotations
@@ -52,7 +58,11 @@ class RequestRecord:
     """Lifecycle of one request through the engine, in seconds relative
     to the serve loop's epoch.  ``itl_*`` aggregate the inter-token
     latencies (gaps between consecutive sampled tokens after the first).
-    ``status`` runs "queued" -> "in_flight" -> "finished"."""
+
+    ``status`` tracks where the request is in its lifecycle
+    ("queued" -> "in_flight" -> "finished"), so a metrics snapshot taken
+    mid-serve reports requests still decoding instead of silently
+    dropping them from the per-request table."""
     uid: int
     t_enqueue: float = 0.0
     t_admit: float = 0.0
@@ -74,7 +84,8 @@ class RequestRecord:
         return max(0.0, self.t_first_token - self.t_enqueue)
 
     def to_event(self) -> Dict:
-        """The ``kind="request"`` event of the reference's JSONL schema."""
+        """The ``kind="request"`` JSONL event (schema:
+        repro_torch.obs.export)."""
         ev = {"kind": "request", "uid": self.uid,
               "status": self.status,
               "t_enqueue": round(self.t_enqueue, 6),
@@ -157,7 +168,7 @@ class Scheduler:
     * ``"grow"`` (grow-on-demand): the head needs only
       ``pages_needed(len(prompt))`` — minus any prompt-prefix pages
       already live in the allocator's prefix index, which are adopted
-      by reference (:attr:`prefix_hit_pages`).  Decode pages are
+      by reference (``serve.prefix_hit_pages``).  Decode pages are
       allocated lazily by the engine (``BlockAllocator.extend`` at page
       boundaries); when the pool runs dry the engine preempts the
       youngest-admitted slot (:meth:`preemption_victim` /
@@ -170,18 +181,21 @@ class Scheduler:
     (no starvation of long prompts by short ones), and preemption evicts
     youngest-first, so a re-queued victim is still older than everything
     behind it.  Retirement releases the chain copy-free.
-
     ``REPRO_KV_CHECK=1`` in the environment runs the allocator's
     ``check()`` at every admission, preemption and retirement.
     """
 
-    def __init__(self, n_slots: int, allocator=None,
+    def __init__(self, n_slots: int, telemetry=None, allocator=None,
                  kv_policy: str = "reserve"):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if kv_policy not in ("reserve", "grow"):
             raise ValueError(
                 f"kv_policy must be 'reserve' or 'grow', got {kv_policy!r}")
+        if telemetry is None:
+            from repro_torch.obs import Telemetry
+            telemetry = Telemetry.off()
+        self.telemetry = telemetry
         self.allocator = allocator
         self.kv_policy = kv_policy
         self.slots: List[Slot] = [Slot(i) for i in range(n_slots)]
@@ -200,19 +214,40 @@ class Scheduler:
         # (orig + ALL generated), never append to the embedded copy —
         # that would duplicate the first round of tokens in the prompt
         self._orig_prompt: Dict[int, List[int]] = {}
+        reg = telemetry.registry
+        self._c_submitted = reg.counter("serve.requests_submitted")
+        self._c_finished = reg.counter("serve.requests_finished")
+        self._c_tokens = reg.counter("serve.tokens_generated")
+        self._h_wait = reg.histogram("serve.queue_wait_s")
+        self._h_ttft = reg.histogram("serve.ttft_s")
+        self._h_itl = reg.histogram("serve.itl_s")
+        # windowed twin: recent inter-token latency for long-lived serving
+        self._h_itl_recent = reg.rolling_histogram("serve.itl_recent_s")
+        self._g_pages_used = reg.gauge("serve.pages_used")
+        self._g_pages_free = reg.gauge("serve.pages_free")
+        self._g_occupancy = reg.gauge("serve.page_occupancy")
+        self._c_preemptions = reg.counter("serve.preemptions")
+        self._c_prefix_hits = reg.counter("serve.prefix_hit_pages")
+        # plain-int twins of the two counters above: stats and unit tests
+        # read these regardless of whether telemetry is enabled
         self.preemption_count = 0
         self.prefix_hit_pages = 0
         self._paranoid = os.environ.get("REPRO_KV_CHECK") == "1"
 
-    def _pages_changed(self) -> None:
-        if self.allocator is not None and self._paranoid:
-            self.allocator.check()
+    def _update_page_gauges(self) -> None:
+        if self.allocator is not None:
+            self._g_pages_used.set(self.allocator.used_pages)
+            self._g_pages_free.set(self.allocator.free_pages)
+            self._g_occupancy.set(self.allocator.occupancy)
+            if self._paranoid:
+                self.allocator.check()
 
     # -- queue side ---------------------------------------------------------
     def submit(self, request: Request, now: float = 0.0) -> None:
         self.queue.append(request)
         self.records[request.uid] = RequestRecord(uid=request.uid,
                                                   t_enqueue=now)
+        self._c_submitted.inc()
 
     def submit_many(self, requests: Sequence[Request],
                     now: float = 0.0) -> None:
@@ -271,6 +306,7 @@ class Scheduler:
                         break  # head-of-line blocking: keep FIFO order
                     a.allocate(req.uid, need, shared=shared)
                     if shared:
+                        self._c_prefix_hits.inc(len(shared))
                         self.prefix_hit_pages += len(shared)
                         shared_rows = min(len(shared) * a.page_size,
                                           len(req.prompt) - 1)
@@ -299,8 +335,9 @@ class Scheduler:
             if rec is not None:
                 rec.t_admit = now
                 rec.status = "in_flight"
+                self._h_wait.observe(rec.queue_wait_s)
             admitted.append(slot)
-        self._pages_changed()
+        self._update_page_gauges()
         return admitted
 
     # -- preemption (kv_policy="grow") --------------------------------------
@@ -322,9 +359,10 @@ class Scheduler:
         its sampling state, and re-queue the request AT THE HEAD with the
         tokens generated so far appended to the prompt — on re-admission
         chunked prefill rebuilds the KV rows from the extended prompt
-        (KV is a pure function of the token prefix) and decode continues
-        with the stashed rng, so greedy and stochastic outputs both
-        match the never-preempted run.  Returns the re-queued request."""
+        (token-exact: KV is a pure function of the token prefix) and
+        decode continues with the stashed rng, so greedy and stochastic
+        outputs both match the never-preempted run.  Returns the
+        re-queued request."""
         req = slot.request
         if req is None:
             raise ValueError(f"slot {slot.index} is not busy")
@@ -346,11 +384,12 @@ class Scheduler:
         if rec is not None:
             rec.status = "queued"
             rec.preemptions += 1
+        self._c_preemptions.inc()
         self.preemption_count += 1
         slot.request = None
         slot.rng = None
         slot.generated = []
-        self._pages_changed()
+        self._update_page_gauges()
         return resumed
 
     def record_token(self, slot: Slot, token: int, now: float = 0.0) -> None:
@@ -360,8 +399,11 @@ class Scheduler:
             self.ttft[slot.request.uid] = now
             if rec is not None:
                 rec.t_first_token = now
+                self._h_ttft.observe(rec.ttft_s)
         else:
             itl = max(0.0, now - slot.last_token_time)
+            self._h_itl.observe(itl)
+            self._h_itl_recent.observe(itl)
             if rec is not None:
                 rec.itl_sum += itl
                 rec.itl_count += 1
@@ -370,6 +412,7 @@ class Scheduler:
         slot.generated.append(token)
         if rec is not None:
             rec.n_tokens += 1
+        self._c_tokens.inc()
 
     def retire_done(self, now: float = 0.0) -> List[Slot]:
         """Free every slot whose request finished; their outputs land in
@@ -384,12 +427,14 @@ class Scheduler:
                 if rec is not None:
                     rec.t_finish = now
                     rec.status = "finished"
+                    self.telemetry.emit(rec.to_event())
                 if self.allocator is not None:
                     self.allocator.release(slot.request.uid)
                 self._orig_prompt.pop(slot.request.uid, None)
+                self._c_finished.inc()
                 retired.append(dataclasses.replace(slot))
                 slot.request = None
                 slot.rng = None
         if retired:
-            self._pages_changed()
+            self._update_page_gauges()
         return retired

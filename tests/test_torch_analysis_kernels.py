@@ -2,9 +2,10 @@
 versions against the reference's Pallas kernels run in interpret mode; the
 self-test; the guarded-launch harness (``kernel_checks``) on the clean and
 faulty fixtures of the reference's ``tests/test_kernel_rules.py`` that a
-dynamic check can see, as plain functions; ``lint_kernels`` over the four
-shipped kernels' plain versions; and the kernels as custom ops (one graph
-node each, the same eager results, the same gradients).
+dynamic check can see (``analysis/fixtures.py``, whose plain versions run
+here); ``lint_kernels`` over the four shipped kernels' plain versions; and
+the kernels as custom ops (one graph node each, the same eager results,
+the same gradients).
 
 Of the reference's fixtures a dynamic check cannot see the unguarded
 overwrite (deterministic: every launch writes the same bits) and the
@@ -31,7 +32,7 @@ from jax.experimental import pallas as pl
 from repro_torch.analysis import (Case, check_case, kernel_cases,
                                   lint_kernels, self_test, trace)
 from repro_torch.analysis import lint as t_lint
-from repro_torch.analysis import seeded
+from repro_torch.analysis import fixtures, seeded
 from repro_torch.analysis.graph_walk import iter_nodes, op_name
 from repro_torch.analysis.kernel_checks import _Guarded
 from repro_torch.analysis.rules import check_geometry
@@ -158,84 +159,40 @@ def _findings(kernel, inputs, outputs):
     return check_case(case, "test")
 
 
-def _gather(off):
-    """The reference's ``_gather_kernel(off)``, as a plain function."""
-    def kern(outs, vals, pidx, packed):
-        rows = packed.reshape(packed.shape[0], -1)[pidx.long() + off]
-        outs[0].copy_(torch.einsum("bk,bke->be", vals, rows))
-    kern.__name__ = f"_gather_off{off}_kernel"
-    return kern
+def _case(label):
+    """A fixture case of :mod:`repro_torch.analysis.fixtures` on the CPU, by
+    its label."""
+    (case,) = [c for c, _ in fixtures.fixture_cases("cpu") if c.label == label]
+    return case
 
 
-def _gather_operands(top=15):
-    rng = np.random.default_rng(SEED)
-    pidx = rng.integers(0, top + 1, (2, 8)).astype(np.int32)
-    pidx[-1, -1] = top
-    return ([rng.standard_normal((2, 8)).astype(np.float32), pidx,
-             rng.standard_normal((16, 4, 4)).astype(np.float32)],
-            [((2, 16), torch.float32)])
+def _fixture_findings(label):
+    return check_case(_case(label), "test")
 
 
 def test_gather_in_bounds_is_clean():
-    ins, outs = _gather_operands()
-    assert _findings(_gather(0), ins, outs) == []
+    assert _fixture_findings("gather off=0") == []
 
 
 def test_off_by_one_gather_names_kernel_and_ref():
-    ins, outs = _gather_operands()
-    fs = [f for f in _findings(_gather(1), ins, outs)
+    fs = [f for f in _fixture_findings("gather off=1")
           if f.rule == "oob-access"]
-    assert fs and "_gather_off1_kernel" in fs[0].message
+    assert fs and "kernel gather" in fs[0].message
     assert "in[2]" in fs[0].message
 
 
-def _rows(off):
-    """The reference's fori_loop induction fixtures: rows j (+ off) of
-    x (8, 4) summed."""
-    def kern(outs, x):
-        outs[0].copy_(x[torch.arange(8) + off].sum(0))
-    kern.__name__ = f"_rows_off{off}_kernel"
-    return kern
-
-
 def test_loop_induction_bounds():
-    x = np.arange(32, dtype=np.float32).reshape(8, 4)
-    assert _findings(_rows(0), [x], [((4,), torch.float32)]) == []
-    fs = _findings(_rows(1), [x], [((4,), torch.float32)])
+    assert _fixture_findings("induction off=0") == []
+    fs = _fixture_findings("induction off=1")
     assert any(f.rule == "oob-access" and "in[0]" in f.message for f in fs)
 
 
-def _accumulate(init: bool, steps: int = 2, overwrite: bool = False):
-    """The reference's grouped accumulation fixtures over K steps."""
-    def kern(outs, x, w):
-        if init:
-            outs[0].zero_()
-        for k0 in range(0, x.shape[2], x.shape[2] // steps):
-            blk = slice(k0, k0 + x.shape[2] // steps)
-            prod = torch.bmm(x[:, :, blk], w[:, blk, :])
-            if overwrite:
-                outs[0].copy_(prod)
-            else:
-                outs[0].add_(prod)
-    kern.__name__ = "_accum_kernel"
-    return kern
-
-
-def _accum_operands():
-    rng = np.random.default_rng(SEED + 3)
-    return ([rng.standard_normal((2, 8, 16)).astype(np.float32),
-             rng.standard_normal((2, 16, 8)).astype(np.float32)],
-            [((2, 8, 8), torch.float32)])
-
-
 def test_grid_race_init_then_accumulate_is_clean():
-    ins, outs = _accum_operands()
-    assert _findings(_accumulate(init=True), ins, outs) == []
+    assert _fixture_findings("accum init nk=2") == []
 
 
 def test_grid_race_missing_init_is_flagged():
-    ins, outs = _accum_operands()
-    fs = [f for f in _findings(_accumulate(init=False), ins, outs)
+    fs = [f for f in _fixture_findings("accum add nk=2")
           if f.rule == "grid-race"]
     assert fs and "out[2]" in fs[0].message
     assert "read before written" in fs[0].message
@@ -245,8 +202,7 @@ def test_grid_race_single_visit_without_init_is_a_read_too():
     """The reference's static rule checks only revisited blocks, so one K
     step with ``+=`` and no init passes there; it still reads what the
     buffer held, and a launch shows it."""
-    ins, outs = _accum_operands()
-    fs = _findings(_accumulate(init=False, steps=1), ins, outs)
+    fs = _fixture_findings("accum add nk=1")
     assert [f.rule for f in fs] == ["grid-race"]
 
 
@@ -254,32 +210,14 @@ def test_grid_race_unguarded_overwrite_is_not_visible():
     """Last writer wins, deterministically: every launch writes the same
     bits, so a dynamic check cannot see the reference's
     ``unguarded-overwrite`` (listed in ``kernel_checks``' limits)."""
-    ins, outs = _accum_operands()
-    assert _findings(_accumulate(init=False, overwrite=True), ins,
-                     outs) == []
-
-
-def _pad(masked: bool, rows: int):
-    """The reference's padded-block fixtures: blocks of 4 rows over x
-    (rows, 8); the last block past the end unless masked."""
-    def kern(outs, x):
-        blocks = -(-rows // 4)
-        r = torch.arange(blocks * 4)
-        if masked:
-            r = r.clamp(max=rows - 1)
-        y = x[r] * 2.0
-        outs[0].copy_(y[:rows])
-    kern.__name__ = "_pad_kernel"
-    return kern
+    assert _fixture_findings("accum overwrite nk=2") == []
 
 
 def test_unmasked_pad_reads_outside_the_operand():
-    x = np.ones((6, 8), np.float32)
-    fs = _findings(_pad(False, 6), [x], [((6, 8), torch.float32)])
+    fs = _fixture_findings("pad rows=6 unmasked")
     assert fs and fs[0].rule == "oob-access" and "in[0]" in fs[0].message
-    assert _findings(_pad(True, 6), [x], [((6, 8), torch.float32)]) == []
-    x8 = np.ones((8, 8), np.float32)
-    assert _findings(_pad(False, 8), [x8], [((8, 8), torch.float32)]) == []
+    assert _fixture_findings("pad rows=6 masked") == []
+    assert _fixture_findings("pad rows=8 unmasked") == []
 
 
 def test_scratch_overflow_is_a_launch_resource_finding():
@@ -287,6 +225,10 @@ def test_scratch_overflow_is_a_launch_resource_finding():
     assert over and over[0].rule == "launch-resource"
     assert "dynamic shared memory" in over[0].message
     assert check_geometry("k", Geometry((1, 1, 1), 256, 1, 64 << 10)) == []
+    for label, (geo, over) in fixtures.resource_cases().items():
+        found = check_geometry("copy_scratch", geo)
+        assert [f.rule for f in found] == (["launch-resource"] if over
+                                           else []), label
 
 
 def test_a_stray_read_past_a_float_input_shows_through_its_nan_guards():

@@ -34,8 +34,10 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
             "repro_torch.runtime.kvcache.allocator",
             "repro_torch.runtime.kvcache.layout"} <= set(mods)
     assert {f"repro_torch.analysis.{m}" for m in (
-        "__main__", "findings", "graph_rules", "graph_walk", "kernel_checks",
-        "lint", "rules", "seeded")} <= set(mods)
+        "__main__", "findings", "fixtures", "graph_rules", "graph_walk",
+        "kernel_checks", "lint", "rules", "seeded")} <= set(mods)
+    assert {f"repro_torch.obs.{m}" for m in (
+        "export", "metrics", "sparsity", "trace")} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -47,6 +49,32 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+def test_obs_imports_nothing_of_core_or_models():
+    """The reference's module rule (``repro/obs/sparsity.py``): the hooks
+    point from core and models to obs, never back, so a capture can be
+    active while those modules run."""
+    mods = [m for m in _modules() if m == "repro_torch.obs"
+            or m.startswith("repro_torch.obs.")]
+    assert len(mods) == 5
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(k for k in sys.modules if k.startswith("
+            "('repro_torch.core', 'repro_torch.models', 'repro_torch.launch',"
+            " 'repro_torch.kernels', 'jax', 'repro.'))))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    for f in sorted((PORT / "obs").glob("*.py")):
+        text = f.read_text()
+        assert not re.search(r"^\s*(from|import)\s+(repro_torch\.)?"
+                             r"(core|models)\b", text, re.M), f
+        assert not re.search(r"^\s*from\s+\.\.(core|models)", text,
+                             re.M), f
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
