@@ -102,6 +102,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then the latency and sparsity columns, the stage totals, and tok/s and
    the host-clock step with telemetry off and on, in turns off, on, on,
    off (the overhead row: no limit, no claim).
+10. moe — the MoE + MLA family and the int8 KV cache: deepseek-v2-lite-16b
+   as shipped (27 layers, d_model 2048, MLA kv_lora 512, 64 routed
+   experts top-6 + 2 shared), bf16, random weights from seed 0, serves
+   phase 4's workload on the contiguous and the paged layout (tok/s,
+   TTFT, host-clock step); ``topk_gather`` (the shared experts' decode
+   down projection) runs once a layer a decode step and never in a
+   prefill; each layout's step under ``torch.profiler`` and, where it
+   captures, in a CUDA graph.  ``topk_gather`` at that shape (B=4, K=352,
+   P=704, G=512, N=4, bf16) against its plain version, then its times
+   beside one library call and its bound (row 1's ``moe_shape``).  In
+   float32 a prefill of two prompts and three decode steps through the
+   kernel give the formula path's logits (1e-3) with every k-WTA
+   selection and router choice held.  smollm-360m with
+   ``kv_cache_dtype="int8"`` on phase 4's weights and workload, both
+   layouts: the cache's bytes against bf16's, paged tokens equal to
+   contiguous ones but at ties.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -300,7 +316,6 @@ def shifted(t):
 
 
 def phase_kernels():
-    from repro_torch.core.functional import decompress
     from repro_torch.kernels.topk_gather import (async_staging, topk_gather,
                                                  topk_gather_plain)
     bf16 = torch.bfloat16
@@ -349,6 +364,21 @@ def phase_kernels():
         fail("topk_gather: two launches on the same operands differ")
     print("[kernels] topk_gather: two launches on the same operands are "
           "bit-identical")
+    times = topk_times(MAIN_SHAPE, vals, p_idx, s_off, packed_p, route,
+                       packed, "kernels")
+    return {"name": "topk_gather", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/topk_gather.cu",
+            "replaces": "src/repro/kernels/topk_gather.py:61",
+            "max_abs_err": worst, **times, "body": TOPK_BODY}
+
+
+def topk_times(shape, vals, p_idx, s_off, packed_p, route, packed, phase):
+    """``topk_gather``'s time at ``shape`` (bf16), L2-cold and warm, beside
+    its plain version, one library call, an empty launch and its bound:
+    the timing keys of a kernels-line row."""
+    from repro_torch.core.functional import decompress
+    from repro_torch.kernels.topk_gather import (topk_gather,
+                                                 topk_gather_plain)
     # library yardstick, never called by the port: the scattered k-sparse
     # activation times the decompressed dense weight, one torch.matmul
     p, g, n = packed_p.shape
@@ -358,7 +388,7 @@ def phase_kernels():
                      vals.to(torch.bfloat16))
     w_dense = decompress(packed, route)
     # On the serving path a layer's weights are cold: the other layers'
-    # ~0.5 GB stream through L2 between two launches of one layer.  So the
+    # weights stream through L2 between two launches of one layer.  So the
     # reported times rotate over COPIES copies of the weights; the warm
     # times, printed beside them, reuse one copy.
     copies = [(packed_p.clone(), route.clone(), w_dense.clone())
@@ -376,19 +406,16 @@ def phase_kernels():
             for name, fn in timed.items()}
     bound_ms, bound_by = bound(vals, p_idx, packed_p, route)
     for label, t in (("L2-cold", cold), ("L2-warm", warm)):
-        print(f"[kernels] topk_gather at {MAIN_SHAPE} bf16, {label}: kernel "
+        print(f"[{phase}] topk_gather at {shape} bf16, {label}: kernel "
               f"{t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, library "
               f"{t['library']:.5f} ms, empty launch {t['empty']:.5f} ms")
-    print(f"[kernels] bound {bound_ms:.6f} ms ({bound_by})")
-    return {"name": "topk_gather", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/topk_gather.cu",
-            "replaces": "src/repro/kernels/topk_gather.py:61",
-            "max_abs_err": worst, "ms": cold["kernel"],
-            "plain_ms": cold["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": cold["library"],
-            "ms_warm": warm["kernel"], "plain_ms_warm": warm["plain"],
+    print(f"[{phase}] bound {bound_ms:.6f} ms ({bound_by})")
+    return {"ms": cold["kernel"], "plain_ms": cold["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cold["library"], "ms_warm": warm["kernel"],
+            "plain_ms_warm": warm["plain"],
             "library_ms_warm": warm["library"],
-            "empty_launch_ms": cold["empty"], "body": TOPK_BODY}
+            "empty_launch_ms": cold["empty"]}
 
 
 def kernel_wrappers():
@@ -983,20 +1010,15 @@ def kwta_selections(held=None):
         layers.kwta_bisect = select
 
 
-def paged_logits(cfg, params):
+def layout_logits(cfg, params):
     """Two 40-token prompts chunk-prefilled (three chunks of 16, the last
     padded) into page chains scattered over the pool, then three decode
     steps through the page tables, against one fused prefill and three
-    contiguous decode steps, float32, both through the kernel.
-
-    The two paths sum in other orders (a fused prefill of 80 rows against
-    chunks of 16; attention over the 48-row view against 40 rows), and the
-    k-WTA keeps a value or drops it on a threshold, so a difference of
-    ~1e-6 next to the threshold keeps another set, which moves the logits
-    by ~1e-2.  So the paged path runs twice: with every k-WTA selection
-    held to the contiguous run's (the gate, tolerance 1e-3), and free
-    (its difference and the number of selections that differ printed).
-    Returns the free run's largest logit difference."""
+    contiguous decode steps, both through the kernel: the paged path with
+    every k-WTA selection held to the contiguous run's, and free.
+    Returns the largest logit difference of each, the largest contiguous
+    logit, the selections of real rows that differ, their number and the
+    ``topk_gather`` launches of the three runs."""
     from repro_torch.models import transformer as T
     rng = np.random.default_rng(SEED + 3)
     b, s, n_steps = 2, 40, 3
@@ -1056,28 +1078,43 @@ def paged_logits(cfg, params):
         with kwta_selections() as free_masks:
             got_free = paged()
     torch.cuda.synchronize()
-    launches = read_counts()["topk_gather"]
+    if not bool(torch.isfinite(got_held).all()):
+        fail("paged logits: non-finite logits")
+    # selections of real rows (not chunk padding) that differ
+    return {"held": float((got_held - want).abs().max()),
+            "free": float((got_free - want).abs().max()),
+            "max_logit": float(want.abs().max()),
+            "flips": sum(int((h[:, :n] != f[:, :n]).any(-1).sum())
+                         for h, f, n in zip(held, free_masks, real)),
+            "selections": sum(h.shape[0] * n for h, n in zip(held, real)),
+            "launches": read_counts()["topk_gather"]}
+
+
+def paged_logits(cfg, params):
+    """``layout_logits`` in float32, gated.  The two paths sum in other
+    orders (a fused prefill of 80 rows against chunks of 16; attention
+    over the 48-row view against 40 rows), and the k-WTA keeps a value or
+    drops it on a threshold, so a difference of ~1e-6 next to the
+    threshold keeps another set, which moves the logits by ~1e-2.  So the
+    held run is the gate (tolerance 1e-3), and the free run's difference
+    and the number of selections that differ are printed.  Returns the
+    free run's largest logit difference."""
+    b, s, n_steps, n_layers = 2, 40, 3, cfg.n_layers
+    d = layout_logits(cfg, params)
+    launches, err, free_err = d["launches"], d["held"], d["free"]
     if launches != 3 * n_layers * n_steps:
         fail(f"paged logits: topk_gather launched {launches} times, want "
              f"3 runs x {n_layers} layers x {n_steps} steps")
-    # selections of real rows (not chunk padding) that differ
-    flips = sum(int((h[:, :n] != f[:, :n]).any(-1).sum())
-                for h, f, n in zip(held, free_masks, real))
-    n_sel = sum(h.shape[0] * n for h, n in zip(held, real))
-    if not bool(torch.isfinite(got_held).all()):
-        fail("paged logits: non-finite logits")
-    err = float((got_held - want).abs().max())
-    free_err = float((got_free - want).abs().max())
     tol = 1e-3
     print(f"[paged] f32 chunked prefill of {b} x {s} tokens in chunks of "
           f"{PAGE_SIZE} + {n_steps} paged decode steps vs fused prefill + "
           f"contiguous decode, k-WTA selections held to the contiguous "
           f"run's: max_abs_err={err:.3e} (max |logit| "
-          f"{float(want.abs().max()):.3f}) tol={tol:.0e}; topk_gather "
+          f"{d['max_logit']:.3f}) tol={tol:.0e}; topk_gather "
           f"launches {launches}")
     print(f"[paged] the same, selecting freely: max_abs_err={free_err:.3e}, "
-          f"{flips} of {n_sel} (layer, position) selections keep another "
-          "set")
+          f"{d['flips']} of {d['selections']} (layer, position) selections "
+          "keep another set")
     if not err <= tol:
         fail("paged logits disagree with the contiguous path")
     return free_err
@@ -1533,21 +1570,30 @@ def observed_geometries():
     torch.cuda.synchronize()
     # one window for every case (later windows of one process may record
     # no kernel); each case launches one kernel, so the kernels in time
-    # order are the cases' launches in order
+    # order are the cases' launches in order.  A spin kernel at each end
+    # of the window takes what its edges may lose (phase 9's window).
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         for case, out in zip(cases, outs):
             case.run(out, *case.inputs)
             torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
     trace_path = ROOT / "build" / "analysis_launch_trace.json"
     prof.export_chrome_trace(str(trace_path))
     kernels = sorted((e for e in json.loads(trace_path.read_text())[
-        "traceEvents"] if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+        "traceEvents"] if e.get("cat") == "kernel"
+        and "spin_kernel" not in e["name"]), key=lambda e: e["ts"])
     if not kernels:
         print("[analysis] launch geometry against the profiler: not "
               "measured (the profiler recorded no kernel)")
         return
     if len(kernels) != len(cases):
+        for e in kernels:
+            print(f"[analysis]   seen {e['name'][:80]} grid "
+                  f"{e['args']['grid']}")
         fail(f"the profiler saw {len(kernels)} kernels for {len(cases)} "
              "launches")
     for case, event in zip(cases, kernels):
@@ -1784,9 +1830,10 @@ def layout_kw(layout):
                  prefill_chunk=PAGED_CHUNK))
 
 
-def same_tokens(cfg, params, reqs, want_out, got_out, label):
+def same_tokens(cfg, params, reqs, want_out, got_out, label,
+                phase="telemetry", margin=TIE_MARGIN):
     """``got_out`` against ``want_out``: equal, or parted only between the
-    first run's top two tokens closer than TIE_MARGIN (phase 7's rule)."""
+    first run's top two tokens closer than ``margin`` (phase 7's rule)."""
     parted = 0
     for req in reqs:
         want, got = want_out[req.uid], got_out[req.uid]
@@ -1797,10 +1844,11 @@ def same_tokens(cfg, params, reqs, want_out, got_out, label):
                      if a != b), None)
         if part is None:
             continue
-        best, margin = top2(cfg, params, list(req.prompt) + want[:part])
-        print(f"[telemetry] {label}: request {req.uid} parts at step "
-              f"{part}; top two {sorted(best)}, margin {margin:.3e}")
-        if best != {want[part], got[part]} or not margin < TIE_MARGIN:
+        best, gap = top2(cfg, params, list(req.prompt) + want[:part])
+        print(f"[{phase}] {label}: request {req.uid} parts at step "
+              f"{part}; top two {sorted(best)}, margin {gap:.3e} (bound "
+              f"{margin:.3e})")
+        if best != {want[part], got[part]} or not gap < margin:
             fail(f"{label}: request {req.uid} differs at step {part} "
                  "beyond a tie of the top two")
         parted += 1
@@ -2071,6 +2119,293 @@ def phase_telemetry(engine_c):
     telemetry_overhead(cfg, engine_c, reqs)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE + MLA family at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+# Its shared experts' down projection at decode with 4 slots (d_ff
+# 2·1408 = 2816 -> 2048): B=4, K=k_for(2816)=352, P=704, G=512, N=4, R=G.
+MOE_SHAPE = dict(b=4, k=352, p=704, g=512, n=4, r=512)
+
+
+@contextlib.contextmanager
+def router_choices(held=None):
+    """Record every MoE router's expert choice made inside, in call order;
+    with ``held`` (an iterator of choices, one a call) route by those
+    instead, each token's weights read from its own softmax at the held
+    experts.  The MoE block routes with ``repro_torch.models.moe.
+    router_top_k``."""
+    moe = importlib.import_module("repro_torch.models.moe")
+    route, choices = moe.router_top_k, []
+
+    def spy(probs, k):
+        if held is None:
+            top_p, top_e = route(probs, k)
+        else:
+            top_e = next(held)
+            top_p = probs.gather(-1, top_e)
+        choices.append(top_e)
+        return top_p, top_e
+
+    moe.router_top_k = spy
+    try:
+        yield choices
+    finally:
+        moe.router_top_k = route
+
+
+def cache_bytes(cache):
+    return sum(leaf.numel() * leaf.element_size()
+               for layer in cache for leaf in layer.values())
+
+
+def moe_kernel():
+    """(c) ``topk_gather`` at the shared experts' decode shape against its
+    plain version (bf16, and the support as the layer hands it over), then
+    its times.  Returns the row-1 keys of that shape."""
+    from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
+    vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
+        MOE_SHAPE, torch.bfloat16, SEED + 60)
+    err = 0.0
+    for label, operands in (
+            ("", (vals, p_idx, s_off, packed_p, route)),
+            (", bf16 values, int64 indices",
+             (vals.to(torch.bfloat16), p_idx.long(), s_off.long(), packed_p,
+              route))):
+        err = max(err, check(f"topk_gather {MOE_SHAPE} bf16{label}",
+                             topk_gather(*operands),
+                             topk_gather_plain(*operands), phase="moe"))
+    times = topk_times(MOE_SHAPE, vals, p_idx, s_off, packed_p, route,
+                       packed, "moe")
+    return {"shape": MOE_SHAPE, "max_abs_err": err, **times}
+
+
+def moe_serve(params, cfg, reqs):
+    """(a)+(b) on one weight set: the bf16 engine on both layouts, each
+    after a warm-up, the counts set to 0 just before its run; then the
+    step's launches, profile and device time.  Returns the topk_gather
+    launches and decode steps of the two runs."""
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    launches = steps = 0
+    outs = {}
+    for layout in ("contiguous", "paged"):
+        eng = Engine(cfg, max_seq=33, n_slots=4, params=params,
+                     device="cuda", **layout_kw(layout))
+        eng.serve(reqs[:1])                    # warm-up
+        eng.prefill_calls = 0
+        reset_counts()
+        outs[layout], stats = eng.serve(reqs)
+        counts = read_counts()
+        n, k = counts["topk_gather"], stats["decode_steps"]
+        tok_s, ttft, step_ms = serve_numbers(stats)
+        print(f"[moe] {MOE_ARCH} full width bf16, {layout}: {len(reqs)} "
+              f"requests, {k} decode steps, {stats['prefill_calls']} "
+              f"prefill calls, {tok_s:.2f} tok/s, mean TTFT {ttft:.2f} ms, "
+              f"decode step {step_ms:.3f} ms (host clock); kernel launches "
+              f"{counts}")
+        if stats["prefill_calls"] != len(reqs):
+            fail(f"moe {layout}: prefill_calls {stats['prefill_calls']}")
+        for req in reqs:
+            toks = outs[layout].get(req.uid, [])
+            if len(toks) != req.max_new_tokens or not all(
+                    0 <= t < cfg.vocab_size for t in toks):
+                fail(f"moe {layout}: request {req.uid} returned {toks}")
+        if n == 0 or n != cfg.n_layers * k:
+            fail(f"moe {layout}: topk_gather launched {n} times, want "
+                 f"{cfg.n_layers} x {k} decode steps")
+        launches, steps = launches + n, steps + k
+    same = sum(outs["contiguous"][r.uid] == outs["paged"][r.uid]
+               for r in reqs)
+    print(f"[moe] paged tokens equal to contiguous in {same} of {len(reqs)} "
+          "requests (not required: a prompt bucket and a prefill chunk "
+          "compete for expert capacity differently, in the reference too)")
+    # (b) one fused prefill launches nothing (B·S·K >= d_ff: Hadamard), one
+    # decode step launches once a layer
+    toks = torch.tensor([reqs[0].prompt], device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        T.prefill(params, {"tokens": toks}, cfg, 33)
+        torch.cuda.synchronize()
+        in_prefill = read_counts()["topk_gather"]
+        step = _decode_step(eng)
+        reset_counts()
+        step()
+        torch.cuda.synchronize()
+        in_step = read_counts()["topk_gather"]
+    d_ff = cfg.n_shared_experts * cfg.d_ff
+    k = cfg.ffn_sparsity.k_for(d_ff)
+    print(f"[moe] topk_gather launches: one prefill of 1 x "
+          f"{len(reqs[0].prompt)} tokens {in_prefill} (B·S·K = "
+          f"{len(reqs[0].prompt) * k} >= d_ff {d_ff}), one decode step of 4 "
+          f"slots {in_step} (4·K = {4 * k} < {d_ff})")
+    if in_prefill != 0 or in_step != cfg.n_layers:
+        fail(f"moe: topk_gather launched {in_prefill} times in prefill and "
+             f"{in_step} in a decode step, want 0 and {cfg.n_layers}")
+    for layout, e in (("contiguous", Engine(cfg, max_seq=33, n_slots=4,
+                                            params=params, device="cuda")),
+                      ("paged", eng)):
+        acts = step_profile(e)
+        print(f"[moe] one eager {layout} decode step under torch.profiler: "
+              f"{sum(c for c, _ in acts.values())} device activities, "
+              f"{sum(t for _, t in acts.values()):.3f} ms busy; by time:")
+        for name, (count, ms) in sorted(acts.items(),
+                                        key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
+            print(f"[moe]   {ms:8.3f} ms {count:5d}x {name[:100]}")
+        try:
+            dev_ms = step_device_ms(e)
+        except RuntimeError as err:         # capture refused: say why
+            print(f"[moe] the {layout} decode step does not capture in a "
+                  f"CUDA graph: {str(err).splitlines()[0][:300]}")
+        else:
+            print(f"[moe] one {layout} decode step on the device alone "
+                  f"(CUDA graph replay): {dev_ms:.3f} ms")
+    return launches, steps
+
+
+def moe_parity(cfg32):
+    """(d) f32 at full width: a prefill of two prompts and 3 decode steps
+    through the kernel (``use_pallas="auto"``) against the formula
+    (``"off"``), with every k-WTA selection and every router choice held
+    to the kernel run's."""
+    from repro_torch.models import transformer as T
+    params = T.init_model(cfg32, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    b, s = 2, 16
+    prompt = torch.from_numpy(rng.integers(0, cfg32.vocab_size, (b, s))).cuda()
+    steps = [torch.from_numpy(rng.integers(0, cfg32.vocab_size, (b, 1)))
+             .cuda() for _ in range(3)]
+
+    def run(mode):
+        cfg_m = dataclasses.replace(cfg32, ffn_sparsity=dataclasses.replace(
+            cfg32.ffn_sparsity, use_pallas=mode))
+        with torch.no_grad():
+            logits, cache = T.prefill(params, {"tokens": prompt}, cfg_m,
+                                      s + 3)
+            rows = [logits[:, -1]]
+            for i, tok in enumerate(steps):
+                logits, cache = T.serve_step(params, cache, {"tokens": tok},
+                                             s + i, cfg_m)
+                rows.append(logits)
+        return torch.stack(rows)
+
+    reset_counts()
+    with kwta_selections() as masks, router_choices() as choices:
+        got = run("auto")
+    torch.cuda.synchronize()
+    launches = read_counts()["topk_gather"]
+    with kwta_selections(iter(masks)), router_choices(iter(choices)):
+        want = run("off")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail("moe parity: non-finite logits")
+    err = float((got - want).abs().max())
+    tol = 1e-3
+    print(f"[moe] f32 full width, prefill of {b} x {s} + 3 decode steps, "
+          f"kernel vs formula, {len(masks)} k-WTA selections and "
+          f"{len(choices)} router choices held: max_abs_err={err:.3e} (max "
+          f"|logit| {float(want.abs().max()):.3f}) tol={tol:.0e}; "
+          f"topk_gather launches {launches}")
+    if launches != 3 * cfg32.n_layers:
+        fail(f"moe parity: topk_gather launched {launches} times, want "
+             f"3 steps x {cfg32.n_layers} layers")
+    if not err <= tol:
+        fail("moe parity: kernel path and formula path disagree")
+
+
+def int8_serve(engine_c, reqs):
+    """(e) smollm-360m with ``kv_cache_dtype="int8"`` at full width, phase
+    4's workload on both layouts: in bf16 on phase 4's weights, tok/s,
+    TTFT, the step and the cache's bytes against bf16's; in float32 (phase
+    7's model), paged tokens equal to contiguous ones but at ties, by
+    phase 7's rule.  The int8 rounding of a K/V row is a selection too: a
+    row that differs by ~1e-7 between a fused prefill and a chunk may
+    round to another level, which holding the k-WTA sets does not cover.
+    So the held difference is printed, not gated, and the tie bound is
+    the free difference between the layouts measured here."""
+    from repro_torch.launch.serve import Engine
+    outs = {}
+    cfg = dataclasses.replace(engine_c.cfg, kv_cache_dtype="int8")
+    for layout in ("contiguous", "paged"):
+        eng = Engine(cfg, max_seq=33, n_slots=4, params=engine_c.params,
+                     device="cuda", **layout_kw(layout))
+        eng.serve(reqs[:1])                    # warm-up
+        reset_counts()
+        outs[layout], stats = eng.serve(reqs)
+        n = read_counts()["topk_gather"]
+        tok_s, ttft, step_ms = serve_numbers(stats)
+        print(f"[moe] smollm-360m int8 KV cache, bf16, {layout}: "
+              f"{tok_s:.2f} tok/s, mean TTFT {ttft:.2f} ms, decode step "
+              f"{step_ms:.3f} ms (host clock); topk_gather launches {n} in "
+              f"{stats['decode_steps']} decode steps")
+        if n != cfg.n_layers * stats["decode_steps"]:
+            fail(f"int8 {layout}: topk_gather launched {n} times")
+    same = sum(outs["contiguous"][r.uid] == outs["paged"][r.uid]
+               for r in reqs)
+    print(f"[moe] int8 bf16 paged tokens equal to contiguous in {same} of "
+          f"{len(reqs)} requests (the rule is held in float32, below)")
+    int8 = Engine(cfg, max_seq=33, n_slots=4, params=engine_c.params,
+                  device="cuda")
+    bf16 = cache_bytes(engine_c.new_cache(4))
+    q = cache_bytes(int8.new_cache(4))
+    scales = cache_bytes([{k: v for k, v in c.items() if "scale" in k}
+                          for c in int8.new_cache(4)])
+    print(f"[moe] int8 cache of 4 slots x 33 rows: {q} B against bf16's "
+          f"{bf16} B (int8 rows {q - scales} B = half, f32 scales "
+          f"{scales} B)")
+    if q - scales != bf16 // 2:
+        fail("int8 cache rows are not half of the bf16 cache")
+    cfg32, params32 = f32_model()
+    cfg32 = dataclasses.replace(cfg32, kv_cache_dtype="int8")
+    d = layout_logits(cfg32, params32)
+    margin = max(TIE_MARGIN, d["free"])
+    print(f"[moe] int8 f32 chunked prefill + paged decode vs fused prefill "
+          f"+ contiguous decode: max_abs_err {d['held']:.3e} with the k-WTA "
+          f"selections held (int8 rounding free), {d['free']:.3e} free "
+          f"({d['flips']} of {d['selections']} selections keep another "
+          f"set; max |logit| {d['max_logit']:.3f}); tie bound "
+          f"{margin:.3e}")
+    for layout in ("contiguous", "paged"):
+        eng = Engine(cfg32, max_seq=33, n_slots=4, params=params32,
+                     device="cuda", **layout_kw(layout))
+        outs[layout], _ = eng.serve(reqs)
+    parted = same_tokens(cfg32, params32, reqs, outs["contiguous"],
+                         outs["paged"], "int8 f32 paged vs contiguous",
+                         phase="moe", margin=margin)
+    print(f"[moe] int8 f32 paged tokens vs contiguous: {len(reqs) - parted} "
+          f"of {len(reqs)} requests identical, {parted} parted at a tie")
+
+
+def phase_moe(engine_c):
+    """Phase 10.  Returns row 1's keys of the MoE path: the timed shape,
+    and the launches and decode steps of its serving runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(MOE_ARCH)
+    t = time.perf_counter()
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[moe] {MOE_ARCH} as shipped: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, MLA kv_lora {cfg.kv_lora_rank}, {cfg.n_experts} "
+          f"routed experts top-{cfg.experts_per_token} + "
+          f"{cfg.n_shared_experts} shared, bf16, "
+          f"{T.param_count(params) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"random weights from seed {SEED} in "
+          f"{time.perf_counter() - t:.1f} s")
+    reqs = phase4_requests(cfg.vocab_size)
+    launches, steps = moe_serve(params, cfg, reqs)
+    del params
+    torch.cuda.empty_cache()
+    moe_parity(dataclasses.replace(cfg, compute_dtype="float32"))
+    torch.cuda.empty_cache()
+    keys = moe_kernel()
+    int8_serve(engine_c, phase4_requests(engine_c.cfg.vocab_size))
+    return {"moe_shape": keys, "launches_moe": launches,
+            "launches_per_decode_step_moe": launches / steps}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2130,6 +2465,9 @@ def main():
     t = time.perf_counter()
     phase_telemetry(engine)
     print(f"[telemetry] done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    row.update(phase_moe(engine))
+    print(f"[moe] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -234,7 +234,7 @@ def resolve_config(arch, use_pallas: Optional[str] = "force",
     except NotImplementedError as e:
         raise NotImplementedError(
             f"{e}; linting it waits for the port of these blocks (ROADMAP "
-            "Queue 1 items 3, 5 and 6)") from e
+            "Queue 1 items 5 and 6)") from e
     return _with_pallas_mode(cfg, use_pallas)
 
 

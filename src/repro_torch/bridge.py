@@ -6,9 +6,12 @@ params)``), so this module needs no JAX.  The leaves keep their layout —
 ``packed`` (G, P, N), int8 ``route`` (G/R, P, N), dense ``w`` (D_in,
 D_out), tables (vocab, d) — and the stacked ``units`` axis is split into
 the port's per-layer list (layer ``u·L + i`` is ``units["b{i}"][u]``).
-Each packed layer gains its partition-major copy, and every weight is cast
-to the compute dtype, as :func:`repro_torch.models.transformer.init_model`
-does.
+MLA's bare weights and the MoE leaves (router, stacked experts, shared
+experts) come across as they are.  Each packed linear layer (G, P, N)
+gains its partition-major copy; the routed experts' (E, G, P, N) do not
+(they never reach ``topk_gather``, and a copy would double the experts'
+bytes).  Every weight is cast to the compute dtype, as
+:func:`repro_torch.models.transformer.init_model` does.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from repro_torch.models.transformer import check_supported, prepare_params
 
 
 def _tensors(tree, device):
-    """numpy leaves -> tensors on ``device``; packed layers gain packed_p."""
+    """numpy leaves -> tensors on ``device``; packed linear layers (G, P, N)
+    gain packed_p, stacked experts (E, G, P, N) do not."""
     if isinstance(tree, dict):
         out = {k: _tensors(v, device) for k, v in tree.items()}
-        if "packed" in out:
+        if "packed" in out and out["packed"].ndim == 3:
             out["packed_p"] = partition_major(out["packed"])
         return out
     if isinstance(tree, list):

@@ -1,9 +1,12 @@
 """The shape sweeps of the reference's kernel registry
-(``repro/kernels/registry.py``), as plain data.
+(``repro/kernels/registry.py``), as plain data, and the port's serving
+shapes that the reference's sweeps lack.
 
-Each tuple is one configuration the reference proves clean; they bracket
-the regimes the serving and training paths use (single-tile grids,
-multi-step accumulation, batched decode).  The block sizes are the
+Each of the reference's tuples is one configuration it proves clean; they
+bracket the regimes the serving and training paths use (single-tile
+grids, multi-step accumulation, batched decode).  ``TOPK_GATHER_SWEEP``
+adds, after them, the shared experts' down projection of
+deepseek-v2-lite-16b at decode with 4 slots.  The block sizes are the
 reference's TPU tiles: the port's kernels take none and mask their edges,
 so they are kept only so that the tuples read as the reference's.  The CPU
 tests, ``chip_smoke.py`` and the linter's kernel checks
@@ -33,6 +36,9 @@ TOPK_GATHER_SWEEP = (
     (4, 16, 32, 8, 4, 8),
     (8, 32, 64, 16, 4, 8),
     (2, 8, 16, 4, 4, 2),
+    # deepseek-v2-lite-16b's shared experts (d_ff 2·1408 = 2816 -> 2048):
+    # B=4 slots, K=k_for(2816)=352, P=2816/4, G=2048/4, N=4
+    (4, 352, 704, 512, 4, 128),
 )
 
 #: grouped_cs_matmul: (n, b, p, g, block_b, block_p, block_g)

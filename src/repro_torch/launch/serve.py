@@ -41,8 +41,11 @@ scheduling oracle.  Greedy tokens equal the contiguous layout's, which
 stays the default.
 
 The engine runs on ``cuda`` unless ``device`` names another; with the
-sparse-sparse config its decode steps send every FFN down projection to
-the ``topk_gather`` CUDA kernel, on either layout.
+sparse-sparse config its decode steps send every FFN down projection (a
+MoE block's: its shared experts') to the ``topk_gather`` CUDA kernel, on
+either layout.  The cache's leaves (bf16 or int8 rows and scales, MLA's
+latent and rope-key rows) go through the insert, the page pools and
+copy-on-write alike.
 
 Telemetry: pass ``telemetry=repro_torch.obs.Telemetry.on(...)`` and the
 engine traces host-clock spans around every stage (``schedule.admit`` /

@@ -1,16 +1,18 @@
 """Attention blocks: GQA with RoPE (+ blockwise 'flash' softmax for long
-prefill) and its KV-cache decode and chunked-prefill steps, on the
-contiguous cache or the paged pool.
+prefill), MLA (DeepSeek-V2 latent compression), and their KV-cache decode
+and chunked-prefill steps, on the contiguous cache or the paged pool.
 
 Conventions (the reference's):
   x          (B, S, D)
   kv cache   {"k": (B, Smax, Hkv, Dh), "v": ...}; position carried by the
-             caller.  The paged layout keeps the same leaves as a pool
-             ``(n_pages, page_size, Hkv, Dh)`` addressed through per-slot
-             page tables (:mod:`repro_torch.runtime.kvcache.layout`).
-  Projections may be complementary-sparse (cfg.proj_sparsity).
-
-The int8 cache and MLA are later slices of the port.
+             caller.  With ``cfg.kv_cache_dtype == "int8"`` the rows are
+             int8 with f32 ``k_scale``/``v_scale`` leaves (B, Smax, Hkv);
+             MLA caches the latent ``ckv`` (B, Smax, r) and the rope key
+             ``kpe`` (B, Smax, dr).  The paged layout keeps the same leaves
+             as a pool ``(n_pages, page_size, ...)`` addressed through
+             per-slot page tables (:mod:`repro_torch.runtime.kvcache.layout`).
+  Projections may be complementary-sparse (cfg.proj_sparsity); MLA's are
+  bare dense weights, cast to the compute dtype once at init.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
                                                 paged_write_rows)
-from .common import apply_rope
+from .common import apply_rope, normal_init
 
 
 def _proj_init(gen, d_in, d_out, sp: SparsityConfig, name_seed):
@@ -146,10 +148,16 @@ def _flash_attn(q, k, v, scale, block: int):
     return out.transpose(1, 2).to(q.dtype)  # (B, S, H, Dh)
 
 
-def _gqa_forward(params, x, cfg, positions):
+def _gqa_forward(params, x, cfg, positions, quantize_kv: bool = False):
     """Full causal self-attention. Returns (y, k_rows, v_rows) where
     k_rows/v_rows are the roped true-head K/V — exactly what the decode
-    cache stores per position (the fused-prefill bulk write)."""
+    cache stores per position (the fused-prefill bulk write).
+
+    ``quantize_kv`` (int8 cache prefill): attention reads the
+    quantize→dequantize round trip of K/V, the cache's representation,
+    so fused prefill sees what chunked prefill and every later decode step
+    read back.  ``k_rows``/``v_rows`` stay exact: storage quantizes the
+    originals."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hp = cfg.padded_heads
     sp = cfg.proj_sparsity
@@ -159,6 +167,9 @@ def _gqa_forward(params, x, cfg, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     k_rows, v_rows = k, v
+    if quantize_kv:
+        k = _dequant(*_quant_rows(k), x.dtype)
+        v = _dequant(*_quant_rows(v), x.dtype)
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     q, k, v = (_pad_heads(t, hp) for t in (q, k, v))
@@ -186,9 +197,8 @@ def _pad_seq(x, max_seq: int):
     return tF.pad(x, pad)
 
 
-def _check_cache_kind(cfg):
-    if getattr(cfg, "kv_cache_dtype", "") == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+def _int8_cache(cfg) -> bool:
+    return getattr(cfg, "kv_cache_dtype", "") == "int8"
 
 
 def gqa_prefill(params, x, cfg, positions, max_seq: int):
@@ -196,26 +206,67 @@ def gqa_prefill(params, x, cfg, positions, max_seq: int):
     also emits the decode cache in bulk (rows [0, S) written at once).
     Rows >= S are scratch (pad-token K/V when the caller bucket-pads the
     prompt); decode overwrites row ``pos`` before its validity mask reads
-    it.  Returns (y, cache) with the same cache dict as gqa_cache_init."""
-    _check_cache_kind(cfg)
-    y, k, v = _gqa_forward(params, x, cfg, positions)
+    it.  With an int8 cache, attention reads the quantized representation
+    (``_gqa_forward(quantize_kv=True)``), so the fused path stays a
+    token-exact oracle for chunked paged prefill.  Returns (y, cache) with
+    the same cache dict as gqa_cache_init."""
+    int8 = _int8_cache(cfg)
+    y, k, v = _gqa_forward(params, x, cfg, positions, quantize_kv=int8)
+    if int8:
+        kq, ks = _quant_rows(k)
+        vq, vs = _quant_rows(v)
+        return y, {"k": _pad_seq(kq, max_seq), "v": _pad_seq(vq, max_seq),
+                   "k_scale": _pad_seq(ks, max_seq),
+                   "v_scale": _pad_seq(vs, max_seq)}
     return y, {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}
 
 
 def gqa_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
     """KV cache holding the *true* kv heads (head padding happens at use).
 
+    With ``cfg.kv_cache_dtype == "int8"`` the rows are stored quantized,
+    with one f32 scale per (batch, position, head) row: half the bytes of
+    a bf16 cache plus the scales; the attention reads dequantize.
+
     The paged pool is the same leaves with ``(n_pages, page_size)`` in
     place of ``(batch, max_seq)``.  Zeros, never uninitialised memory:
     masked columns still pass through ``probs @ v`` as ``0 * v``, so a
     NaN in a row nobody wrote (the null page, rows past a chain) would
     reach the logits."""
-    _check_cache_kind(cfg)
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((batch, max_seq, hkv, dh), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_seq, hkv, dh), dtype=dtype,
-                             device=device)}
+    rows = (batch, max_seq, hkv, dh)
+    if _int8_cache(cfg):
+        scales = (batch, max_seq, hkv)
+        return {"k": torch.zeros(rows, dtype=torch.int8, device=device),
+                "v": torch.zeros(rows, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scales, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(scales, dtype=torch.float32,
+                                       device=device)}
+    return {"k": torch.zeros(rows, dtype=dtype, device=device),
+            "v": torch.zeros(rows, dtype=dtype, device=device)}
+
+
+def _quant_rows(x):
+    """Per-(..., head)-row symmetric int8 quantization over head_dim.
+    Returns (int8 rows, f32 scales).
+
+    The scale divides by a tensor of 127s, not by the number: a CUDA
+    division by a CPU scalar multiplies by its reciprocal, one rounding
+    more than the reference's division.  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = (torch.clamp(amax, min=1e-8)
+             / torch.full_like(amax, 127.0))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant(q, scale, dtype):
+    """int8 rows and their scales back to ``dtype``, as the reference
+    reads them: both cast to ``dtype``, then multiplied."""
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def _cache_write(cache, new, pos):
@@ -256,12 +307,28 @@ def _kv_update(cache, k, v, pos, pos_b=None, pages=None):
     land in the null page.
     """
     if pages is None:
-        _cache_write(cache["k"], k, pos)
-        _cache_write(cache["v"], v, pos)
-        return cache, cache["k"], cache["v"]
-    paged_write_rows(cache["k"], k[:, 0], pages, pos_b)
-    paged_write_rows(cache["v"], v[:, 0], pages, pos_b)
-    return cache, paged_view(cache["k"], pages), paged_view(cache["v"], pages)
+        def write(leaf, new):
+            _cache_write(leaf, new, pos)
+
+        def view(leaf):
+            return leaf
+    else:
+        def write(leaf, new):
+            paged_write_rows(leaf, new[:, 0], pages, pos_b)
+
+        def view(leaf):
+            return paged_view(leaf, pages)
+    if "k_scale" in cache:  # int8-quantized cache
+        for name, rows in (("k", k), ("v", v)):
+            rows_q, scale = _quant_rows(rows)
+            write(cache[name], rows_q)
+            write(cache[f"{name}_scale"], scale)
+        return (cache,
+                _dequant(view(cache["k"]), view(cache["k_scale"]), k.dtype),
+                _dequant(view(cache["v"]), view(cache["v_scale"]), k.dtype))
+    write(cache["k"], k)
+    write(cache["v"], v)
+    return cache, view(cache["k"]), view(cache["v"])
 
 
 def _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg):
@@ -329,7 +396,6 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
 
     x: (1, C, D); pages: (1, n_blocks) int64; pos_start/chunk_len: ints.
     Returns (y (1, C, D), cache)."""
-    _check_cache_kind(cfg)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sp = cfg.proj_sparsity
     b, c, _ = x.shape
@@ -340,12 +406,172 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
     v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    paged_write_chunk(cache["k"], k[0], pages[0], pos_start, chunk_len)
-    paged_write_chunk(cache["v"], v[0], pages[0], pos_start, chunk_len)
-    k_view = paged_view(cache["k"], pages)
-    v_view = paged_view(cache["v"], pages)
+
+    def write(leaf, rows):
+        paged_write_chunk(leaf, rows[0], pages[0], pos_start, chunk_len)
+
+    if "k_scale" in cache:  # int8-quantized cache
+        for name, rows in (("k", k), ("v", v)):
+            rows_q, scale = _quant_rows(rows)
+            write(cache[name], rows_q)
+            write(cache[f"{name}_scale"], scale)
+        k_view = _dequant(paged_view(cache["k"], pages),
+                          paged_view(cache["k_scale"], pages), x.dtype)
+        v_view = _dequant(paged_view(cache["v"], pages),
+                          paged_view(cache["v_scale"], pages), x.dtype)
+    else:
+        write(cache["k"], k)
+        write(cache["v"], v)
+        k_view = paged_view(cache["k"], pages)
+        v_view = paged_view(cache["v"], pages)
     # causal in slot-logical coordinates: chunk row j sees cols <= pos0+j
     valid = (torch.arange(k_view.shape[1], device=x.device)[None, None, :]
              <= offs[None, :, None])
     y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent KV compression
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg):
+    """Bare dense weights, normal(0.02), the reference's leaves: ``q``
+    (d, h·(dh+dr)), ``dkv`` (d, r), ``kpe`` (d, dr), ``uk``/``uv``
+    (r, h·dh), ``o`` (h·dh, d)."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+    return {"q": normal_init(gen, (d, h * (dh + dr)), 0.02),
+            "dkv": normal_init(gen, (d, r), 0.02),
+            "kpe": normal_init(gen, (d, dr), 0.02),
+            "uk": normal_init(gen, (r, h * dh), 0.02),
+            "uv": normal_init(gen, (r, h * dh), 0.02),
+            "o": normal_init(gen, (h * dh, d), 0.02)}
+
+
+def _mla_qkv(params, x, cfg, positions):
+    """Queries (nope and roped parts), the latent ``c_kv`` (B, S, r) and
+    the roped shared key ``k_pe`` (B, S, dr).  The weights are already in
+    the compute dtype (:func:`repro_torch.models.transformer.
+    prepare_params`), where the reference casts them at each use."""
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = (x @ params["q"]).reshape(*x.shape[:-1], h, -1)
+    q_nope, q_pe = q[..., :dh], q[..., dh:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    c_kv = x @ params["dkv"]
+    k_pe = apply_rope(x @ params["kpe"], positions, cfg.rope_theta)
+    return q_nope, q_pe, c_kv, k_pe
+
+
+def _mla_expand(params, c_kv, cfg):
+    """Per-head keys (nope part) and values from the latent rows."""
+    h, dh = cfg.n_heads, cfg.head_dim
+    k_nope = (c_kv @ params["uk"]).reshape(*c_kv.shape[:-1], h, dh)
+    v = (c_kv @ params["uv"]).reshape(*c_kv.shape[:-1], h, dh)
+    return k_nope, v
+
+
+def _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg):
+    """(q, k, v): the queries and the expanded keys with the shared rope
+    key broadcast over the heads; v from the latent."""
+    k_nope, v = _mla_expand(params, c_kv, cfg)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k_pe = k_pe[..., None, :].expand(*k_pe.shape[:-1], cfg.n_heads,
+                                     k_pe.shape[-1])
+    return q, torch.cat([k_nope, k_pe], dim=-1), v
+
+
+def _mla_forward(params, x, cfg, positions):
+    """Full causal MLA forward. Returns (y, c_kv, k_pe) — the latent rows
+    the decode cache stores (fused-prefill bulk write)."""
+    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
+    q, k, v = _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg)
+    scale = 1.0 / np.sqrt(dh + dr)
+    if x.shape[1] > cfg.flash_block:
+        out = _flash_attn(q, k, v, scale, cfg.flash_block)
+    else:
+        out = _causal_attn(q, k, v, scale)
+    y = out.reshape(*x.shape[:-1], h * dh) @ params["o"]
+    return y, c_kv, k_pe
+
+
+def mla_apply(params, x, cfg, positions):
+    return _mla_forward(params, x, cfg, positions)[0]
+
+
+def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
+    """MLA caches the compressed latent and the rope key only: (r + dr)
+    values per token.  Zeros, as :func:`gqa_cache_init`'s."""
+    return {"ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_seq, cfg.rope_head_dim),
+                               dtype=dtype, device=device)}
+
+
+def mla_prefill(params, x, cfg, positions, max_seq: int):
+    """Fused full-sequence MLA prefill: forward + bulk latent-cache write
+    (the contract of :func:`gqa_prefill`)."""
+    y, c_kv, k_pe = _mla_forward(params, x, cfg, positions)
+    return y, {"ckv": _pad_seq(c_kv, max_seq), "kpe": _pad_seq(k_pe, max_seq)}
+
+
+def _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg):
+    """MLA attention over full-length latent-cache views with a
+    broadcastable validity mask ``valid`` (B|1, S_q|1, V).  The latent
+    views are expanded through ``uk``/``uv`` over the whole view every
+    step, as the reference does."""
+    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q, k, v = _mla_qk(params, q_nope, q_pe, ckv_view, kpe_view, cfg)
+    scale = 1.0 / np.sqrt(dh + dr)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = torch.where(valid[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return out.reshape(*x.shape[:-1], h * dh) @ params["o"]
+
+
+def mla_decode(params, x, cfg, cache, pos, pages=None):
+    """One-token MLA decode step (the contract of :func:`gqa_decode`): the
+    latent and rope-key rows are written in place at ``pos`` (through the
+    page tables with ``pages``)."""
+    b = x.shape[0]
+    if isinstance(pos, torch.Tensor):
+        pos_b = pos.to(device=x.device, dtype=torch.int64).expand(b)
+    else:
+        pos_b = torch.full((b,), int(pos), dtype=torch.int64,
+                           device=x.device)
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, pos_b[:, None])
+    if pages is None:
+        _cache_write(cache["ckv"], c_kv, pos)
+        _cache_write(cache["kpe"], k_pe, pos)
+        ckv_view, kpe_view = cache["ckv"], cache["kpe"]
+    else:
+        paged_write_rows(cache["ckv"], c_kv[:, 0], pages, pos_b)
+        paged_write_rows(cache["kpe"], k_pe[:, 0], pages, pos_b)
+        ckv_view = paged_view(cache["ckv"], pages)
+        kpe_view = paged_view(cache["kpe"], pages)
+    valid = (torch.arange(ckv_view.shape[1], device=x.device)[None, None, :]
+             <= pos_b[:, None, None])
+    y = _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid,
+                        cfg)
+    return y, cache
+
+
+def mla_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
+                      chunk_len: int):
+    """Chunked MLA prefill over the PAGED latent cache — the MLA
+    counterpart of :func:`gqa_chunk_prefill` (same contract: x (1, C, D),
+    pages (1, n_blocks), padded rows sink to the null page)."""
+    b, c, _ = x.shape
+    offs = int(pos_start) + torch.arange(c, device=x.device)
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, offs.expand(b, c))
+    paged_write_chunk(cache["ckv"], c_kv[0], pages[0], pos_start, chunk_len)
+    paged_write_chunk(cache["kpe"], k_pe[0], pages[0], pos_start, chunk_len)
+    ckv_view = paged_view(cache["ckv"], pages)
+    kpe_view = paged_view(cache["kpe"], pages)
+    valid = (torch.arange(ckv_view.shape[1], device=x.device)[None, None, :]
+             <= offs[None, :, None])
+    y = _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid,
+                        cfg)
     return y, cache

@@ -1,5 +1,7 @@
 """Decoder LM assembled from config-driven blocks: the attention-block
-(dense GQA) models of the reference's ``repro.models.transformer``.
+models of the reference's ``repro.models.transformer`` — GQA or MLA
+attention (``cfg.use_mla``), each followed by an FFN or a MoE block
+(``cfg.is_moe``), with a bf16 or an int8 KV cache.
 
 The reference scans over stacked superblocks; here the stack is a Python
 loop over ``params["layers"]``, one dict per layer (layer ``u·L + i`` is
@@ -15,7 +17,8 @@ Entry points:
   pools, page-aligned chunked prefill, decode through page tables and the
   device half of copy-on-write.
 
-MLA, MoE and the SSM/hybrid block kinds are later slices of the port.
+The SSM/hybrid block kinds and the modality frontends are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ from .common import (dtype_of, embedding_apply, embedding_init,
                      lm_head_apply, normal_init, resolve_device,
                      rmsnorm_apply, rmsnorm_init)
 from .ffn import ffn_apply, ffn_init
+from .moe import moe_apply, moe_init
 
-#: leaves that every use casts to the compute dtype
-_COMPUTE_LEAVES = ("w", "b", "packed", "packed_p", "table")
+#: leaves that every use casts to the compute dtype: the linear and packed
+#: layers', the tables, MLA's bare weights and the MoE router
+_COMPUTE_LEAVES = ("w", "b", "packed", "packed_p", "table",
+                   "q", "dkv", "kpe", "uk", "uv", "o", "router")
 
 
 def check_supported(cfg) -> None:
@@ -43,9 +49,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} is not ported "
             "yet (only attention blocks)")
-    if cfg.use_mla or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MLA / MoE blocks are not "
-                                  "ported yet")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
                                   "is not ported yet")
@@ -72,38 +75,50 @@ def _block_scope(cfg, layer: int):
 
 def _block_init(gen: torch.Generator, cfg):
     p = {"norm1": rmsnorm_init(cfg.d_model, gen.device),
-         "mixer": A.gqa_init(gen, cfg),
+         "mixer": (A.mla_init if cfg.use_mla else A.gqa_init)(gen, cfg),
          "norm2": rmsnorm_init(cfg.d_model, gen.device)}
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.n_shared_experts, cfg.act, cfg.ffn_sparsity)
+    elif cfg.d_ff > 0:
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_sparsity,
                             cfg.act)
     return p
 
 
 def _ffn_residual(params, x, cfg):
-    if "ffn" not in params:
-        return x
-    h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
-    return x + ffn_apply(params["ffn"], h, cfg.ffn_sparsity, cfg.act)
+    """The block's second half: x + FFN or MoE of the normed x.  Returns
+    (x, aux), aux the MoE's load-balancing loss (None without one)."""
+    if "moe" in params:
+        h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
+        h, aux = moe_apply(params["moe"], h, cfg, cfg.ffn_sparsity)
+        return x + h, aux
+    if "ffn" in params:
+        h = rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
+        x = x + ffn_apply(params["ffn"], h, cfg.ffn_sparsity, cfg.act)
+    return x, None
 
 
 def _block_apply(params, x, cfg, positions):
+    """Full-sequence forward. Returns (x, aux)."""
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
-    x = x + A.gqa_apply(params["mixer"], h, cfg, positions)
+    mixer = A.mla_apply if cfg.use_mla else A.gqa_apply
+    x = x + mixer(params["mixer"], h, cfg, positions)
     return _ffn_residual(params, x, cfg)
 
 
 def _block_prefill(params, x, cfg, positions, max_seq: int):
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
-    h, cache = A.gqa_prefill(params["mixer"], h, cfg, positions, max_seq)
-    return _ffn_residual(params, x + h, cfg), cache
+    pre = A.mla_prefill if cfg.use_mla else A.gqa_prefill
+    h, cache = pre(params["mixer"], h, cfg, positions, max_seq)
+    return _ffn_residual(params, x + h, cfg)[0], cache
 
 
 def _block_decode(params, x, cfg, cache, pos, pages=None):
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
-    h, cache = A.gqa_decode(params["mixer"], h, cfg, cache, pos,
-                            pages=pages)
-    return _ffn_residual(params, x + h, cfg), cache
+    dec = A.mla_decode if cfg.use_mla else A.gqa_decode
+    h, cache = dec(params["mixer"], h, cfg, cache, pos, pages=pages)
+    return _ffn_residual(params, x + h, cfg)[0], cache
 
 
 def _block_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
@@ -111,9 +126,10 @@ def _block_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
     """Chunked-prefill step of one block over the paged cache.
     Returns (x, cache)."""
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
-    h, cache = A.gqa_chunk_prefill(params["mixer"], h, cfg, cache, pages,
-                                   pos_start, chunk_len)
-    return _ffn_residual(params, x + h, cfg), cache
+    pre = A.mla_chunk_prefill if cfg.use_mla else A.gqa_chunk_prefill
+    h, cache = pre(params["mixer"], h, cfg, cache, pages, pos_start,
+                   chunk_len)
+    return _ffn_residual(params, x + h, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -184,24 +200,30 @@ def _logits(params, x, cfg, ct):
 
 
 def forward(params, batch, cfg):
-    """Full-sequence forward. Returns (logits, aux_loss)."""
+    """Full-sequence forward. Returns (logits, aux_loss), aux_loss the sum
+    of every MoE block's load-balancing loss (0 without MoE)."""
     check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
     x = _embed(params, batch["tokens"], ct)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, layer in enumerate(params["layers"]):
         with _block_scope(cfg, j):
-            x = _block_apply(layer, x, cfg, positions)
-    return (_logits(params, x, cfg, ct),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = _block_apply(layer, x, cfg, positions)
+        if a is not None:
+            aux = aux + a
+    return _logits(params, x, cfg, ct), aux
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
-    """One contiguous KV cache per layer, in the compute dtype."""
+    """One contiguous cache per layer: K/V rows in the compute dtype (int8
+    rows and f32 scales with ``kv_cache_dtype="int8"``), or MLA's latent
+    and rope-key rows."""
     check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
-    return [A.gqa_cache_init(cfg, batch, max_seq, ct, device)
+    init = A.mla_cache_init if cfg.use_mla else A.gqa_cache_init
+    return [init(cfg, batch, max_seq, ct, device)
             for _ in range(cfg.n_layers)]
 
 

@@ -399,4 +399,16 @@ def test_train_entry_and_unported_configs_raise():
         lint_config("smollm-360m", entries=("train",), reduced=True,
                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lint_config("deepseek-v2-lite-16b", reduced=True, device="cpu")
+        lint_config("zamba2-1.2b", reduced=True, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_configs_lint_clean(arch):
+    """The MLA/MoE family lints clean on every ported entry.  As in the
+    reference, MoE configs skip the select-count and dense-fallback rules
+    (the router runs its own top-k); the host-transfer rule holds the
+    decode steps, whose capacity dispatch must not sync."""
+    report = lint_config(arch, reduced=True, device="cpu")
+    assert report.findings == [], report.findings
+    assert sorted(report.entries) == sorted(t_lint.PORTED_ENTRIES)

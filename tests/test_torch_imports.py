@@ -30,6 +30,8 @@ def _modules():
 def test_importing_every_module_loads_neither_jax_nor_the_reference():
     mods = _modules()
     assert "repro_torch.kernels.topk_gather" in mods and len(mods) >= 30
+    assert {"repro_torch.models.moe", "repro_torch.models.attention",
+            "repro_torch.models.transformer"} <= set(mods)
     assert {"repro_torch.runtime.kvcache",
             "repro_torch.runtime.kvcache.allocator",
             "repro_torch.runtime.kvcache.layout"} <= set(mods)

@@ -10,8 +10,8 @@ contiguous engine), plus cross-checks against the reference itself:
   same tokens and the same chunk, preemption, prefix-hit and
   copy-on-write counts; and grow against reserve at 12 usable pages.
 
-The int8 and MLA cache variants are not ported yet; their engine tests
-stay with the reference."""
+The int8 and MLA cache variants' engine tests are in
+tests/test_torch_kvcache_variants.py and tests/test_torch_mla.py."""
 
 import dataclasses
 

@@ -1,0 +1,200 @@
+"""The port's MLA attention (``repro_torch.models.attention.mla_*``)
+against the JAX package's, in float32 on deepseek-v2-lite reduced with
+the JAX ``init_model`` weights bridged into the port: the full forward,
+fused prefill and decode steps with their latent caches, chunked prefill
+over the paged latent pool; the mirror of tests/test_models_blocks.py's
+MLA decode-against-forward test; and the mirror of tests/test_kvcache.py's
+MLA paged-against-contiguous engine test (``n_experts=0``).
+
+Tolerance 1e-4 on logits and cache rows (float32, sums in another order),
+as tests/test_torch_model.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.models import attention as JA
+from repro.models import transformer as JT
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import Engine
+from repro_torch.models import attention as A
+from repro_torch.models import transformer as T
+from repro_torch.runtime.scheduler import Request, SamplingParams
+
+ATOL = 1e-4
+BASE = dict(head_pad=0, compute_dtype="float32", param_dtype="float32")
+# tests/test_models_blocks.py's MLA model: no experts, a dense FFN
+DENSE_MLA = dict(remat=False, n_experts=0, n_shared_experts=0,
+                 experts_per_token=0, d_ff=64)
+
+
+def _cfgs(**overrides):
+    kw = dict(BASE, **overrides)
+    return (jget_config("deepseek-v2-lite-16b").reduced(**kw),
+            get_config("deepseek-v2-lite-16b").reduced(**kw))
+
+
+@pytest.fixture(scope="module", params=["moe", "dense_ffn"])
+def mla(request):
+    jcfg, cfg = _cfgs(**(DENSE_MLA if request.param == "dense_ffn" else {}))
+    jparams, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    return jcfg, cfg, jparams, params
+
+
+def _cache_from_jax(jcache, cfg):
+    return [{k: torch.from_numpy(np.array(v[u]))
+             for k, v in jcache[f"b{i}"].items()}
+            for u in range(cfg.n_units)
+            for i in range(len(cfg.block_pattern))]
+
+
+def _assert_cache_close(cache, jcache, cfg, rows):
+    ref = _cache_from_jax(jcache, cfg)
+    for c, r in zip(cache, ref, strict=True):
+        assert c.keys() == r.keys() == {"ckv", "kpe"}
+        for name in c:
+            np.testing.assert_allclose(c[name][:, :rows].numpy(),
+                                       r[name][:, :rows].numpy(), atol=ATOL)
+
+
+def test_mla_apply_matches_the_reference(mla):
+    """One MLA block alone: the 1/sqrt(dh + dr) scale, the -1e30 mask,
+    the latent expanded through uk/uv; a sequence longer than flash_block
+    (32 reduced) runs the blockwise attention."""
+    jcfg, cfg, jparams, params = mla
+    jmix = jax.tree.map(lambda a: a[0], jparams["units"]["b0"]["mixer"])
+    mix = params["layers"][0]["mixer"]
+    assert mix.keys() == {"q", "dkv", "kpe", "uk", "uv", "o"}
+    rng = np.random.default_rng(0)
+    for b, s in ((2, 9), (1, 64)):
+        x = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(s), (b, s))
+        jy = JA.mla_apply(jmix, jnp.asarray(x), jcfg, jnp.asarray(pos))
+        y = A.mla_apply(mix, torch.from_numpy(x), cfg,
+                        torch.from_numpy(pos.copy()))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5)
+
+
+def test_prefill_and_decode_match_the_reference(mla):
+    """Fused prefill (logits and the latent cache), then four decode steps
+    at per-slot positions."""
+    jcfg, cfg, jparams, params = mla
+    b, p_len, max_seq = 2, 9, 24
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (b, p_len))
+    jl, jc = JT.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg,
+                        max_seq)
+    tl, tc = T.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
+                       max_seq)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    _assert_cache_close(tc, jc, cfg, p_len)
+    for i in range(4):
+        nt = rng.integers(0, cfg.vocab_size, (b, 1))
+        pos = np.array([p_len + i, p_len + i - 2])
+        jl, jc = JT.serve_step(jparams, jc, {"tokens": jnp.asarray(nt)},
+                               jnp.asarray(pos, jnp.int32), jcfg)
+        tl, tc = T.serve_step(params, tc, {"tokens": torch.from_numpy(nt)},
+                              torch.from_numpy(pos), cfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    _assert_cache_close(tc, jc, cfg, p_len + 4)
+
+
+def test_chunked_prefill_and_paged_decode_match_the_reference(mla):
+    """Two chunks of 8 over scattered pages of the latent pool, then two
+    paged decode steps, against the reference's own paged functions."""
+    jcfg, cfg, jparams, params = mla
+    page, n_pages = 8, 7
+    table = np.array([[5, 2, 6]])
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab_size, 13)
+    jpool, _ = JT.init_paged_cache(jcfg, n_pages, page)
+    pool = T.init_paged_cache(cfg, n_pages, page, device="cpu")
+    assert pool[0]["ckv"].shape == (n_pages, page, cfg.kv_lora_rank)
+    assert pool[0]["kpe"].shape == (n_pages, page, cfg.rope_head_dim)
+    for start in (0, 8):
+        ln = min(8, 13 - start)
+        buf = np.zeros((1, 8), np.int64)
+        buf[0, :ln] = prompt[start:start + ln]
+        jl, jpool = JT.prefill_chunk(jparams, jpool,
+                                     {"tokens": jnp.asarray(buf)}, start,
+                                     ln, jcfg, jnp.asarray(table, jnp.int32))
+        tl, pool = T.prefill_chunk(params, pool,
+                                   {"tokens": torch.from_numpy(buf)}, start,
+                                   ln, cfg, torch.from_numpy(table))
+        np.testing.assert_allclose(tl[0, :ln].numpy(),
+                                   np.asarray(jl)[0, :ln], atol=ATOL)
+    for i in range(2):
+        nt = rng.integers(0, cfg.vocab_size, (1, 1))
+        pos = np.array([13 + i])
+        jl, jpool = JT.serve_step(jparams, jpool, {"tokens": jnp.asarray(nt)},
+                                  jnp.asarray(pos, jnp.int32), jcfg,
+                                  pages=jnp.asarray(table, jnp.int32))
+        tl, pool = T.serve_step(params, pool, {"tokens": torch.from_numpy(nt)},
+                                torch.from_numpy(pos), cfg,
+                                pages=torch.from_numpy(table))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    for name in ("ckv", "kpe"):
+        for blk in table[0]:
+            np.testing.assert_allclose(pool[1][name][blk].numpy(),
+                                       np.asarray(jpool["b0"][name][1, blk]),
+                                       atol=ATOL)
+
+
+def test_mla_cache_decode_matches_full():
+    """The mirror of tests/test_models_blocks.py's: stepping 8 tokens
+    through the latent cache gives the full forward's last logits (bf16
+    compute, its tolerance)."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced(**DENSE_MLA)
+    params = T.init_model(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 8)))
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    cache = T.init_cache(cfg, 2, 8, device="cpu")
+    assert cache[0]["ckv"].dtype == torch.bfloat16
+    for pos in range(8):
+        logits, cache = T.serve_step(params, cache,
+                                     {"tokens": toks[:, pos:pos + 1]}, pos,
+                                     cfg)
+    np.testing.assert_allclose(logits.float().numpy(),
+                               full[:, -1].float().numpy(), atol=0.15,
+                               rtol=0.05)
+
+
+def test_mla_cache_is_compressed():
+    """Per token the latent cache holds r + dr values, far fewer than a
+    GQA cache's 2·kv·dh (the shipped config)."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    cache = T.init_cache(cfg.reduced(), 1, 4, device="cpu")
+    assert {k: v.shape[-1] for k, v in cache[0].items()} == {
+        "ckv": cfg.reduced().kv_lora_rank, "kpe": cfg.reduced().rope_head_dim}
+    assert (cfg.kv_lora_rank + cfg.rope_head_dim) * 7 < \
+        2 * cfg.n_kv_heads * cfg.head_dim
+
+
+def _mixed_requests(cfg, plens, gens):
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=g, sampling=SamplingParams(seed=i))
+            for i, (n, g) in enumerate(zip(plens, gens))]
+
+
+def test_paged_engine_mla_cache_variant():
+    """The mirror of tests/test_kvcache.py's: MLA latent caches page
+    through the same gathers and scatters; the paged engine's tokens equal
+    the contiguous engine's (no experts, so no capacity to compete for)."""
+    _, cfg = _cfgs(**DENSE_MLA)
+    plens, gens = [11, 4, 17, 6], [5, 6, 5, 6]
+    eng_c = Engine(cfg, max_seq=32, n_slots=2, device="cpu")
+    out_c, _ = eng_c.serve(_mixed_requests(cfg, plens, gens))
+    eng_p = Engine(cfg, max_seq=32, n_slots=2, kv_layout="paged",
+                   page_size=8, prefill_chunk=8, params=eng_c.params,
+                   device="cpu")
+    out_p, stats = eng_p.serve(_mixed_requests(cfg, plens, gens))
+    assert out_p == out_c
+    assert stats["prefill_chunks"] == sum(-(-n // 8) for n in plens)
