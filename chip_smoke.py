@@ -118,6 +118,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``kv_cache_dtype="int8"`` on phase 4's weights and workload, both
    layouts: the cache's bytes against bf16's, paged tokens equal to
    contiguous ones but at ties.
+11. train — the training path (``repro_torch.launch.train.Trainer``),
+   which launches none of the kernels, as in the reference: (a) the
+   shipped smollm-360m at full width (float32 masters, bf16 compute) for
+   20 steps of ``lm_batch`` at batch 8, seq 128 (every loss finite, the
+   loss guard silent, the last five losses below the first; host-clock
+   step, tokens/s, peak memory; the four kernels' launches in the steps,
+   which must be 0), and one step's device activities under
+   ``torch.profiler`` in a fresh process; (b) ``save_async`` at step 10
+   while training goes on in place, restored into a fresh Trainer equal
+   to a host copy taken at the save; serving params made from the
+   step-20 weights (every ``packed_p`` equal to ``partition_major`` of
+   its ``packed``) serve phase 4's workload through ``topk_gather`` (32
+   launches a decode step), and an f32 decode step through the kernel
+   gives the formula's logits with the k-WTA selections held; (c) in a
+   fresh process under ``torch.use_deterministic_algorithms``, 10
+   straight steps against 5, a restart and 5 more on the reference
+   test's reduced config (1e-5); (d) the GSC CNN at the paper's size in
+   its three variants, 60 steps of AdamW at batch 32 each (last loss
+   below 0.7 of the first), held-out accuracy, step time, the compression
+   ratio and the realized k-WTA sparsity, and one f32 forward and
+   backward of each variant against the port on the CPU.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -2406,6 +2427,481 @@ def phase_moe(engine_c):
             "launches_per_decode_step_moe": launches / steps}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training on the card
+# ---------------------------------------------------------------------------
+
+# (a)-(b): the shipped smollm-360m trained at batch 8, seq 128 for 20 steps,
+# checkpointed (asynchronously) at step 10.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE = 8, 128, 20, 10
+# (c): the reference test's reduced config (tests/test_train_loop.py:20-23)
+RESUME_CUT = dict(d_model=64, d_ff=128, vocab_size=128, n_heads=4,
+                  n_kv_heads=2, head_pad=0, n_layers=2)
+# (d): the reference's GSC run (tests/test_gsc_e2e.py:17-40)
+GSC_VARIANTS = ("dense", "sparse_dense", "sparse_sparse")
+GSC_BATCH, GSC_STEPS, GSC_HELD_OUT = 32, 60, 5
+
+
+def run_fresh(call: str, env=None, timeout: int = 600):
+    """``chip_smoke.<call>`` in a process of its own (a profiler window,
+    or a determinism mode that must be set before CUDA starts)."""
+    import os
+    subprocess.run([sys.executable, "-c", "import sys; sys.path[:0] = "
+                    f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import "
+                    f"chip_smoke; chip_smoke.{call}"], check=True,
+                   timeout=timeout, env=dict(os.environ, **(env or {})))
+
+
+def lm_train_setup(device="cuda"):
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config("smollm-360m")
+    shape = ShapeConfig("phase11", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
+                       ckpt_dir=str(ckpt_dir), checkpoint_every=TRAIN_SAVE,
+                       log_every=1)
+    return cfg, shape, tcfg
+
+
+def host_tree(tree):
+    """A synchronous host copy of every leaf, path -> tensor."""
+    from repro_torch.tree import flatten
+    return {k: t.detach().to("cpu", copy=True) for k, t in flatten(tree)}
+
+
+def train_lm():
+    """(a) the port's ``Trainer`` on the shipped smollm-360m at full width;
+    (b)'s checkpoint at step TRAIN_SAVE, restored into a fresh Trainer.
+    Returns (trainer, median host-clock step ms)."""
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import batch_for
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten
+    cfg, shape, tcfg = lm_train_setup()
+    shutil.rmtree(tcfg.ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tcfg, (1, 1), shape, device="cuda")
+    if {t.device.type for _, t in flatten(trainer.state_tree())} != {"cuda"}:
+        fail("train: the trainer's state is not all on the card")
+    sp = cfg.ffn_sparsity
+    print(f"[train] smollm-360m as shipped: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} masters, {cfg.compute_dtype} compute, n={sp.n}"
+          f", k_frac={sp.k_frac}, {sp.kwta_impl}; "
+          f"{T.param_count(trainer.params) / 1e6:.1f} M parameters; batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, "
+          f"lr {tcfg.lr}, warmup {tcfg.warmup_steps}")
+    losses, saved = [], {}
+    check, save = trainer.guard.check, trainer.save
+
+    def guard(loss):
+        losses.append(loss)
+        return check(loss)
+
+    def save_spy(async_=True):
+        if trainer.step == TRAIN_SAVE:
+            saved["host"] = host_tree(trainer.state_tree())
+        out = save(async_)
+        if trainer.step == TRAIN_SAVE:
+            saved["thread"] = out
+        return out
+
+    trainer.guard.check, trainer.save = guard, save_spy
+    reset_counts()
+    t = time.perf_counter()
+    trainer.run(TRAIN_STEPS, lambda s: batch_for(cfg, shape, s,
+                                                 seed=tcfg.seed),
+                log=lambda *a: None)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps_ms = [e.duration * 1e3 for e in trainer.monitor.events]
+    med = float(np.median(steps_ms[2:]))
+    rollbacks = trainer.guard.registry.snapshot()["counters"].get(
+        "monitor.loss_rollbacks", 0)
+    print(f"[train] losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[train] host-clock step (steps 3-{TRAIN_STEPS}, loss read "
+          f"back): median {med:.3f} ms, min {min(steps_ms[2:]):.3f}, max "
+          f"{max(steps_ms[2:]):.3f}; first two {steps_ms[0]:.1f}, "
+          f"{steps_ms[1]:.1f} ms; {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} "
+          f"tokens/s; run {wall:.1f} s with its checkpoints; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    four = {k: counts[k] for k in ("topk_gather", "packed_matmul",
+                                   "grouped_cs_matmul", "kwta_hist")}
+    print(f"[train] kernel launches in {TRAIN_STEPS} training steps: {four} "
+          f"(a step: {json.dumps({k: v / TRAIN_STEPS for k, v in four.items()})})")
+    if any(four.values()):
+        fail("train: a kernel of the library ran in a training step")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train: losses {losses}")
+    if rollbacks or trainer.step != TRAIN_STEPS:
+        fail(f"train: the loss guard fired ({rollbacks} rollbacks)")
+    if not np.mean(losses[-5:]) < losses[0]:
+        fail("train: the mean of the last 5 losses is not below the first")
+
+    # (b) the async checkpoint of step TRAIN_SAVE, written while the
+    # trainer went on updating its tensors in place
+    saved["thread"].join(timeout=600)
+    if saved["thread"].is_alive():
+        fail("train: the async checkpoint did not finish")
+    t = time.perf_counter()
+    fresh = Trainer(cfg, tcfg, (1, 1), shape, device="cuda")
+    tree, extra = ckpt.restore(tcfg.ckpt_dir, TRAIN_SAVE, fresh.state_tree())
+    fresh.params, fresh.opt = tree["params"], tree["opt"]
+    got = host_tree(fresh.state_tree())
+    differ = [k for k, v in saved["host"].items()
+              if not (v.dtype == got[k].dtype and torch.equal(v, got[k]))]
+    print(f"[train] save_async at step {extra['step']} ({len(got)} leaves, "
+          f"{sum(v.numel() * v.element_size() for v in got.values()) / 2**30:.2f}"
+          f" GiB) restored into a fresh Trainer in "
+          f"{time.perf_counter() - t:.1f} s: {len(got) - len(differ)} of "
+          f"{len(got)} leaves equal to the host copy taken at the save; "
+          f"checkpoints on disk {ckpt.list_steps(tcfg.ckpt_dir)}")
+    if differ or sorted(got) != sorted(saved["host"]):
+        fail(f"train: the restored checkpoint differs in {differ[:5]}")
+    del fresh, tree, got, saved
+    shutil.rmtree(tcfg.ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return trainer, med
+
+
+def train_step_window():
+    """One full-width training step under ``torch.profiler``, in a fresh
+    process (as phase 9's windows): the step between two spin kernels,
+    after two warm-up steps and three timed ones; written as JSON to
+    build/train_window.json."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.data import canonical, lm_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import init_state
+    cfg, _, tcfg = lm_train_setup()
+    step, acfg = St.make_train_step(cfg, tcfg)
+    params = T.init_train_params(cfg, seed=SEED, device="cuda")
+    opt = init_state(params, acfg)
+    batch = {k: torch.from_numpy(canonical(v)).cuda() for k, v in
+             lm_batch(SEED, 0, TRAIN_BATCH, TRAIN_SEQ,
+                      cfg.vocab_size).items()}
+    host = []
+    for i in range(5):
+        t = time.perf_counter()
+        float(step(params, opt, batch)[2]["loss"])
+        host.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        with record_function("train step"):
+            float(step(params, opt, batch)[2]["loss"])
+            torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "train_window.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] == "train step"]
+    if len(ranges) != 1:
+        fail(f"train window: {len(ranges)} ranges of the step")
+    lo, hi = ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if (e.get("cat") in DEVICE_CATS and "spin_kernel" not in e["name"]
+                and lo <= e["ts"] <= hi):
+            by_name[e["name"]][0] += 1
+            by_name[e["name"]][1] += e.get("dur", 0) / 1e3
+    (ROOT / "build" / "train_window.json").write_text(json.dumps({
+        "host_ms": host[2:], "by_name": by_name}))
+
+
+def train_profile(host_ms):
+    """(a) one step's device activities, busy ms and idle share."""
+    path = ROOT / "build" / "train_window.json"
+    path.unlink(missing_ok=True)
+    t = time.perf_counter()
+    run_fresh("train_step_window()")
+    w = json.loads(path.read_text())
+    acts = w["by_name"]
+    n = sum(c for c, _ in acts.values())
+    busy = sum(ms for _, ms in acts.values())
+    own = float(np.median(w["host_ms"]))
+    print(f"[train] one full-width training step under torch.profiler (a "
+          f"fresh process, {time.perf_counter() - t:.1f} s): {n} device "
+          f"activities, {busy:.3f} ms busy; host-clock step there "
+          f"{own:.3f} ms (unprofiled, median of 3), here {host_ms:.3f} ms; "
+          f"device idle share {1 - busy / own:.3f} there, "
+          f"{1 - busy / host_ms:.3f} here; by time:")
+    for name, (count, ms) in sorted(acts.items(),
+                                    key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
+        print(f"[train]   {ms:8.3f} ms {count:5d}x {name[:100]}")
+    if n == 0:
+        fail("train: the profiler saw no device activity in the step")
+
+
+def packed_layers(tree, path=""):
+    """(path, layer) of every packed linear layer of a params tree."""
+    if isinstance(tree, dict):
+        here = [(path, tree)] if "packed" in tree else []
+        return here + [kv for k, v in tree.items()
+                       for kv in packed_layers(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in packed_layers(v, f"{path}/{i}")]
+    return []
+
+
+def serve_trained(trainer):
+    """(b) serving params from the trained weights: every packed_p made
+    from its trained packed, phase 4's workload through topk_gather, and
+    one f32 decode step, kernel against formula, selections held."""
+    from repro_torch.core.layers import partition_major
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    cfg = trainer.cfg
+    params = T.serving_params(trainer.params, cfg)
+    layers = packed_layers(params)
+    stale = [p for p, layer in layers
+             if not torch.equal(layer["packed_p"],
+                                partition_major(layer["packed"]))]
+    trained = packed_layers(trainer.params)
+    print(f"[train] serving params from the step-{trainer.step} weights: "
+          f"{len(layers)} packed layers, packed_p == partition_major(packed)"
+          f" in {len(layers) - len(stale)}; the training tree holds "
+          f"{sum('packed_p' in x for _, x in trained)} packed_p of "
+          f"{len(trained)} packed layers")
+    if stale or not layers or any("packed_p" in x for _, x in trained):
+        fail(f"train: stale or misplaced packed_p in {stale[:3]}")
+    eng = Engine(cfg, max_seq=33, n_slots=4, params=params, device="cuda")
+    reqs = phase4_requests(cfg.vocab_size)
+    eng.serve(reqs[:1])                       # warm-up
+    reset_counts()
+    out, stats = eng.serve(reqs)
+    n = read_counts()["topk_gather"]
+    tok_s, ttft, step_ms = serve_numbers(stats)
+    print(f"[train] the trained weights served (phase 4's workload, bf16): "
+          f"{tok_s:.2f} tok/s, mean TTFT {ttft:.2f} ms, decode step "
+          f"{step_ms:.3f} ms; topk_gather launches {n} in "
+          f"{stats['decode_steps']} decode steps")
+    if n != cfg.n_layers * stats["decode_steps"] or not n:
+        fail(f"train: topk_gather launched {n} times serving the trained "
+             "weights")
+    if any(len(out[r.uid]) != 16 for r in reqs):
+        fail("train: a request of the trained model came back short")
+    del eng, params
+    # f32: one prefill (Hadamard path) and one decode step through the
+    # kernel, then through the formula with every k-WTA selection held
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = T.serving_params(trainer.params, cfg32)
+    rng = np.random.default_rng(SEED + 2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+
+    def run(mode, held):
+        cfg_m = dataclasses.replace(cfg32, ffn_sparsity=dataclasses.replace(
+            cfg32.ffn_sparsity, use_pallas=mode))
+        with torch.no_grad(), kwta_selections(held) as masks:
+            _, cache = T.prefill(params32, {"tokens": prompt.cuda()}, cfg_m,
+                                 20)
+            reset_counts()
+            logits, _ = T.serve_step(params32, cache, {"tokens": tok.cuda()},
+                                     16, cfg_m)
+            torch.cuda.synchronize()
+        return logits, masks, read_counts()["topk_gather"]
+
+    got, masks, launches = run("auto", None)
+    want, _, off = run("off", iter(masks))
+    err = float((got - want).abs().max())
+    tol = 1e-3
+    print(f"[train] f32 decode step on the trained weights, kernel vs "
+          f"formula, {len(masks)} k-WTA selections held: max_abs_err="
+          f"{err:.3e} (max |logit| {float(want.abs().max()):.3f}) tol="
+          f"{tol:.0e}; topk_gather launches {launches} (formula run {off})")
+    if launches != cfg.n_layers or off:
+        fail(f"train: the decode step launched topk_gather {launches} "
+             f"times (formula run {off})")
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        fail("train: kernel and formula disagree on the trained weights")
+
+
+def resume_window():
+    """(c) in a fresh process under ``torch.use_deterministic_algorithms``
+    (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts): 10 straight
+    steps against 5, a restart and 5 more, on the reference test's
+    reduced config; written as JSON to build/train_resume.json."""
+    import shutil
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for
+    from repro_torch.launch.train import Trainer
+    from repro_torch.tree import flatten
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("smollm-360m").reduced(**RESUME_CUT)
+    shape = ShapeConfig("t", 32, 4, "train")
+    root = ROOT / "build" / "train_resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name):
+        tcfg = TrainConfig(lr=1e-3, total_steps=10, checkpoint_every=5,
+                           log_every=100, ckpt_dir=str(root / name))
+        return Trainer(cfg, tcfg, (1, 1), shape, device="cuda")
+
+    def batch_fn(step):
+        return batch_for(cfg, shape, step, seed=0)
+
+    t1 = trainer("a")
+    t1.run(10, batch_fn, log=lambda *a: None)
+    t2 = trainer("b")
+    t2.run(5, batch_fn, log=lambda *a: None)
+    t3 = trainer("b")
+    resumed = t3.try_resume() and t3.step == 5
+    t3.run(10, batch_fn, log=lambda *a: None)
+    a = [t for _, t in flatten(t1.params) if t.is_floating_point()]
+    b = [t for _, t in flatten(t3.params) if t.is_floating_point()]
+    diffs = [float((x - y).abs().max()) for x, y in zip(a, b)]
+    (ROOT / "build" / "train_resume.json").write_text(json.dumps({
+        "resumed": resumed, "leaves": len(a), "max_abs_diff": max(diffs),
+        "equal": sum(d == 0 for d in diffs), "steps": [t1.step, t3.step],
+        "device": str(a[0].device)}))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def train_resume():
+    path = ROOT / "build" / "train_resume.json"
+    path.unlink(missing_ok=True)
+    t = time.perf_counter()
+    run_fresh("resume_window()", env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    r = json.loads(path.read_text())
+    tol = 1e-5
+    print(f"[train] resume determinism (reduced smollm, a fresh process "
+          f"under use_deterministic_algorithms, {time.perf_counter() - t:.1f}"
+          f" s): 10 straight steps vs 5 + restart + 5 on {r['device']}: "
+          f"resumed at step 5 {r['resumed']}, max_abs_diff "
+          f"{r['max_abs_diff']:.3e} over {r['leaves']} float leaves "
+          f"({r['equal']} bit-equal) tol={tol:.0e}")
+    if not (r["resumed"] and r["steps"] == [10, 10]
+            and r["max_abs_diff"] <= tol and r["device"].startswith("cuda")):
+        fail("train: resume is not deterministic")
+
+
+@contextlib.contextmanager
+def kwta_zeros():
+    """The share of zeros in every k-WTA output of the GSC CNN made inside
+    (conv-1, conv-2, linear), in call order."""
+    gsc = importlib.import_module("repro_torch.models.gsc_cnn")
+    orig, seen = (gsc.kwta_channel, gsc.kwta), []
+
+    def spy(fn):
+        def wrapped(*args):
+            y = fn(*args)
+            seen.append(float((y == 0).float().mean()))
+            return y
+        return wrapped
+
+    gsc.kwta_channel, gsc.kwta = spy(orig[0]), spy(orig[1])
+    try:
+        yield seen
+    finally:
+        gsc.kwta_channel, gsc.kwta = orig
+
+
+def gsc_batch_on(seed, step, device):
+    from repro_torch.data import canonical, gsc_batch
+    return {k: torch.from_numpy(canonical(v)).to(device)
+            for k, v in gsc_batch(seed, step, GSC_BATCH).items()}
+
+
+def gsc_train(variant):
+    """(d) one variant at the paper's size: GSC_STEPS steps of AdamW (lr
+    2e-3, wd 0.01) at batch 32, then held-out accuracy and sparsity."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import gsc_cnn as G
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.tree import leaves
+    cfg = G.GSCConfig(variant=variant)
+    params = G.init_model(cfg, seed=SEED, device="cuda")
+    acfg = AdamWConfig(lr=2e-3, weight_decay=0.01)
+    opt = init_state(params, acfg)
+    losses, ms = [], []
+    for s in range(GSC_STEPS):
+        batch = gsc_batch_on(SEED, s, "cuda")
+        t = time.perf_counter()
+        (loss, _), grads = value_and_grad(
+            lambda p: G.loss_fn(p, batch, cfg), params)
+        apply_updates(params, grads, opt, acfg)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t) * 1e3)
+    with torch.no_grad(), kwta_zeros() as zeros:
+        acc = [float(G.loss_fn(params, gsc_batch_on(SEED + 1, s, "cuda"),
+                               cfg)[1]["accuracy"])
+               for s in range(GSC_HELD_OUT)]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in leaves(params) if t.is_floating_point())
+    stages = (np.mean(np.reshape(zeros, (GSC_HELD_OUT, -1)), axis=0)
+              if zeros else [])
+    print(f"[train] gsc {variant}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"in {GSC_STEPS} steps; held-out accuracy {np.mean(acc):.4f} on "
+          f"{GSC_HELD_OUT} x {GSC_BATCH}; step median "
+          f"{np.median(ms[5:]):.3f} ms (host clock, loss read back); "
+          f"{nbytes} float bytes"
+          + (f"; k-WTA zeros conv-1 {stages[0]:.4f}, conv-2 {stages[1]:.4f},"
+             f" linear {stages[2]:.4f}" if len(stages) else ""))
+    if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]):
+        fail(f"gsc {variant}: loss {losses[0]} -> {losses[-1]}")
+    if cfg.activation_sparse and not (len(stages) == 3
+                                      and min(stages) > 0.85):
+        fail(f"gsc {variant}: realized sparsity {stages}")
+    return nbytes
+
+
+def gsc_parity(variant):
+    """(d) one f32 forward and backward on the card against the port on
+    the CPU, on the same weights and batch."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import gsc_cnn as G
+    from repro_torch.tree import leaves, map_tree
+    cfg = G.GSCConfig(variant=variant)
+    cpu = G.init_model(cfg, seed=SEED, device="cpu")
+    out = {}
+    for name, params in (("cpu", cpu),
+                         ("card", map_tree(lambda t: t.cuda(), cpu))):
+        batch = gsc_batch_on(SEED, 0, leaves(params)[0].device)
+        (loss, _), grads = value_and_grad(
+            lambda p: G.loss_fn(p, batch, cfg), params)
+        out[name] = float(loss), [None if g is None else g.cpu()
+                                  for g in grads]
+    dl = abs(out["cpu"][0] - out["card"][0])
+    worst = max((float((a - b).abs().max()) / (1 + float(b.abs().max())))
+                for a, b in zip(out["card"][1], out["cpu"][1])
+                if b is not None)
+    print(f"[train] gsc {variant} f32 forward+backward, card vs CPU: loss "
+          f"{out['card'][0]:.6f}, |diff| {dl:.3e} (tol 1e-05); grads max "
+          f"|diff|/(1+max|g|) {worst:.3e} (tol 1e-04)")
+    if not (dl <= 1e-5 and worst <= 1e-4):
+        fail(f"gsc {variant}: the card and the CPU disagree")
+
+
+def phase_train():
+    """Phase 11."""
+    trainer, host_ms = train_lm()
+    train_profile(host_ms)
+    serve_trained(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    train_resume()
+    nbytes = {v: gsc_train(v) for v in GSC_VARIANTS}
+    ratio = nbytes["dense"] / nbytes["sparse_sparse"]
+    print(f"[train] gsc parameter compression dense / sparse-sparse: "
+          f"{ratio:.2f}x (float bytes)")
+    if not ratio > 8:
+        fail("gsc: parameter compression is not above 8x")
+    for v in GSC_VARIANTS:
+        gsc_parity(v)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2468,6 +2964,11 @@ def main():
     t = time.perf_counter()
     row.update(phase_moe(engine))
     print(f"[moe] done in {time.perf_counter() - t:.1f} s")
+    del engine
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase_train()
+    print(f"[train] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -41,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "kernels at the registry sweeps and serving shapes")
     p.add_argument("--entries", default="decode,decode_paged,prefill,kernel",
                    help="comma-separated entry points to lint (default: "
-                   "every ported one; 'train' waits for the port's loss)")
+                   "the serving ones; add 'train' for the training loss)")
     p.add_argument("--use-pallas", default="force",
                    choices=["auto", "force", "off", "config"],
                    help="override the config's executor mode while linting "

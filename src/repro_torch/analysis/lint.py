@@ -7,8 +7,9 @@ Library API
   (:func:`~.graph_walk.trace`) and run the graph rule pack over it.
 * :func:`lint_config` — lint a configuration's entry points (the decode
   step, the paged decode step, the fused prefill, the kwta→packed
-  projection pipeline) with params and caches made as fake tensors, so a
-  full-scale configuration lints on the CPU without allocating a weight.
+  projection pipeline, the training loss) with params and caches made as
+  fake tensors, so a full-scale configuration lints on the CPU without
+  allocating a weight.
   The decode steps are also held to the host-transfer and collective
   rules (the reference's HLO rules).
 * :func:`expected_selects` — the Select-count model, the reference's
@@ -52,9 +53,10 @@ from .rules import (check_geometry, kernel_geometry, rule_dense_fallback,
                     rule_dtype_promotion, rule_launch_resource,
                     rule_select_count)
 
-#: the reference's entry points; ``train`` waits for the port's loss
+#: the reference's entry points, every one ported
 ENTRIES = ("decode", "decode_paged", "prefill", "kernel", "train")
-#: what :func:`lint_config` lints by default
+#: what :func:`lint_config` lints by default: the serving entries (``train``
+#: on request)
 PORTED_ENTRIES = ("decode", "decode_paged", "prefill", "kernel")
 
 
@@ -243,10 +245,6 @@ def entry_args(cfg, entry: str, device, slots: int = 4, seq: int = 8,
     """(fn, fake args) of one entry point at full or reduced scale."""
     from repro_torch.models import transformer as T
     from repro_torch.runtime.kvcache.layout import PagedKV
-    if entry == "train":
-        raise NotImplementedError(
-            "the train entry waits for the port's loss and training step "
-            "(ROADMAP Queue 1 item 4)")
     if entry not in ENTRIES:
         raise ValueError(f"unknown entry {entry!r}; known: {ENTRIES}")
     if entry == "kernel":
@@ -262,6 +260,12 @@ def entry_args(cfg, entry: str, device, slots: int = 4, seq: int = 8,
     if entry == "prefill":
         return (lambda p, t: T.prefill(p, {"tokens": t}, cfg, max_seq)[0],
                 fake(lambda: (params(), ints(1, seq)), device))
+    if entry == "train":
+        # the forward of the loss on the training layout, two sequences
+        return (lambda p, t, lab: T.loss_fn(p, {"tokens": t, "labels": lab},
+                                            cfg)[0],
+                fake(lambda: (T.init_train_params(cfg, seed=0, device="cpu"),
+                              ints(2, seq), ints(2, seq)), device))
     if entry == "decode":
         return (lambda p, c, t, q: T.serve_step(p, c, {"tokens": t}, q,
                                                 cfg)[0],
@@ -288,8 +292,10 @@ def lint_config(arch, entries: Sequence[str] = PORTED_ENTRIES,
     ``use_pallas`` overrides both sparsity families' executor flag
     (default ``"force"``: the kernel path); ``None`` keeps the config's
     own.  ``check_host`` holds the decode steps to the host-transfer and
-    collective rules.  ``train``, and the configs ``check_supported``
-    rejects, raise ``NotImplementedError``."""
+    collective rules.  ``train`` lints the forward of ``loss_fn`` on the
+    training layout over two sequences of ``seq`` tokens (the
+    dense-fallback rule off, as the reference's).  The configs
+    ``check_supported`` rejects raise ``NotImplementedError``."""
     device = linting_device(device)
     cfg = resolve_config(arch, use_pallas, reduced)
     report = Report()
@@ -301,11 +307,13 @@ def lint_config(arch, entries: Sequence[str] = PORTED_ENTRIES,
                     device=device, waivers=waivers))
             continue
         fn, args = entry_args(cfg, entry, device, slots, seq, max_seq)
-        n_tokens = seq if entry == "prefill" else slots
+        n_tokens = {"prefill": seq, "train": 2 * seq}.get(entry, slots)
         report.extend(lint_fn(
             fn, *args, entry=entry,
             expected=expected_selects(cfg, n_tokens),
-            check_dense_fallback=_wants_dense_fallback_rule(cfg, n_tokens),
+            # the reference's train entry skips it (backward not linted)
+            check_dense_fallback=(entry != "train" and
+                                  _wants_dense_fallback_rule(cfg, n_tokens)),
             check_host=check_host and entry.startswith("decode"),
             waivers=waivers))
     return report

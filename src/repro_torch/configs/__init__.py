@@ -1,9 +1,8 @@
 """Architecture config registry: ``get_config(arch_id)`` /
 ``list_archs()``.
 
-One module per assigned architecture, the same data as ``repro.configs``.
-The paper's own ``gsc_cnn`` config belongs to the GSC slice of the port and
-is not here yet.
+One module per assigned architecture plus the paper's own ``gsc_cnn``,
+the same data as ``repro.configs``.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ _ALIAS.update({
 
 def get_config(arch: str) -> ModelConfig:
     arch_id = _ALIAS.get(arch, arch)
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS and arch_id != "gsc_cnn":
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ALIAS)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG

@@ -15,7 +15,13 @@ Packed layers hold:
 ``packed_p`` is made once, at init or load (:func:`partition_major`):
 eager PyTorch would otherwise copy the transpose of ``packed`` at every
 call of the sparse-sparse path, where the reference leaves it to XLA to
-fuse.  Conv/im2col layers belong to the GSC slice and are not here yet.
+fuse.  It is a derived copy, so the training layout of the params has
+none (:func:`drop_partition_major`: the optimizer would move it apart
+from ``packed``); serving params made from trained ones gain it anew
+(:func:`add_partition_major`).
+
+Conv layers (dense and packed, NHWC activations, HWIO weights) run the
+packed conv through :func:`im2col`, so it reuses the CS algebra.
 """
 
 from __future__ import annotations
@@ -76,6 +82,33 @@ def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
 def partition_major(packed: torch.Tensor) -> torch.Tensor:
     """(G, P, N) -> the kernel's (P, G, N), copied once."""
     return packed.transpose(0, 1).contiguous()
+
+
+def add_partition_major(tree):
+    """A copy of the params tree in which every packed linear layer
+    (``packed`` of shape (G, P, N)) holds ``packed_p`` made from its
+    ``packed`` now; stacked experts (E, G, P, N) gain none (they never
+    reach ``topk_gather``)."""
+    if isinstance(tree, dict):
+        out = {k: add_partition_major(v) for k, v in tree.items()
+               if k != "packed_p"}
+        if "packed" in out and out["packed"].ndim == 3:
+            out["packed_p"] = partition_major(out["packed"])
+        return out
+    if isinstance(tree, list):
+        return [add_partition_major(v) for v in tree]
+    return tree
+
+
+def drop_partition_major(tree):
+    """The params tree without its ``packed_p`` copies: the training
+    layout."""
+    if isinstance(tree, dict):
+        return {k: drop_partition_major(v) for k, v in tree.items()
+                if k != "packed_p"}
+    if isinstance(tree, list):
+        return [drop_partition_major(v) for v in tree]
+    return tree
 
 
 def packed_linear_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -222,3 +255,71 @@ def apply_kwta(x: torch.Tensor, cfg: SparsityConfig,
     elif obs_sparsity.capture_active():
         obs_sparsity.observe_activation(y)
     return (y, support) if return_support else y
+
+
+# ---------------------------------------------------------------------------
+# Conv2D (dense + packed) — NHWC, via im2col so conv reuses the CS algebra
+# ---------------------------------------------------------------------------
+
+def _same_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    ph, pw = kh // 2, kw // 2
+    return tF.pad(x, (0, 0, pw, pw, ph, ph))
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
+           padding: str = "VALID") -> torch.Tensor:
+    """Extract patches: (B, H, W, C) -> (B, OH, OW, kh*kw*C), patch entry
+    ``(i*kw + j)*C + c``, the reference's order."""
+    if padding == "SAME":
+        x = _same_pad(x, kh, kw)
+    b, h, w, c = x.shape
+    oh = (h - kh) // stride + 1
+    ow = (w - kw) // stride + 1
+    patches = torch.stack(
+        [x[:, i:i + oh * stride:stride, j:j + ow * stride:stride, :]
+         for i in range(kh) for j in range(kw)], dim=-2)
+    return patches.reshape(b, oh, ow, kh * kw * c)
+
+
+def conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
+                c_out: int, bias: bool = True, dtype=torch.float32):
+    """HWIO weights, uniform ±1/sqrt(kh·kw·c_in), as the reference's."""
+    params = {"w": _uniform(gen, (kh, kw, c_in, c_out),
+                            1.0 / np.sqrt(kh * kw * c_in), dtype)}
+    if bias:
+        params["b"] = torch.zeros((c_out,), dtype=dtype, device=gen.device)
+    return params
+
+
+def conv2d_apply(params, x: torch.Tensor, stride: int = 1,
+                 padding: str = "VALID") -> torch.Tensor:
+    """NHWC conv with HWIO weights: ``F.conv2d`` on permuted views.
+    ``padding`` is ``"VALID"`` or ``"SAME"`` (stride 1)."""
+    w = params["w"].to(x.dtype).permute(3, 2, 0, 1)        # OIHW
+    y = tF.conv2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                  padding=padding.lower()).permute(0, 2, 3, 1)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def packed_conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
+                       c_out: int, cfg: SparsityConfig, bias: bool = True,
+                       seed: int = 0, dtype=torch.float32):
+    """CS conv packed along the filter dimension (paper Fig. 7)."""
+    return packed_linear_init(gen, kh * kw * c_in, c_out, cfg, bias=bias,
+                              seed=seed, dtype=dtype)
+
+
+def packed_conv2d_apply(params, x: torch.Tensor, cfg: SparsityConfig,
+                        kh: int, kw: int, stride: int = 1,
+                        padding: str = "VALID",
+                        x_is_sparse: bool = False) -> torch.Tensor:
+    cols = im2col(x, kh, kw, stride, padding)  # (B, OH, OW, kh*kw*C)
+    return packed_linear_apply(params, cols, cfg, x_is_sparse=x_is_sparse)
+
+
+def maxpool2d(x: torch.Tensor, size: int = 2, stride: int = 2):
+    """VALID max pooling over H and W of an NHWC tensor."""
+    return tF.max_pool2d(x.permute(0, 3, 1, 2), size,
+                         stride).permute(0, 2, 3, 1)

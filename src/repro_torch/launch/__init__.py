@@ -1,1 +1,2 @@
-"""Launch: the serving entry point."""
+"""Launch: the serving and training entry points and their step
+functions."""

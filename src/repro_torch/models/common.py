@@ -1,5 +1,5 @@
 """Shared model components: device choice, dtypes, norms, RoPE,
-embeddings, inits.
+embeddings, inits, the cross-entropy loss.
 
 Params are nested dicts of tensors, as in the reference; every ``*_init``
 returns the params of one component, drawn from a ``torch.Generator``
@@ -7,6 +7,8 @@ whose device is the device of the new tensors.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -99,3 +101,21 @@ def embedding_apply(params, tokens: torch.Tensor, compute_dtype):
 def lm_head_apply(params, x: torch.Tensor, compute_dtype):
     """Project to vocab logits; table may be tied (vocab, d)."""
     return x @ params["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; with ``mask``, the mean over the
+    masked-in tokens."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

@@ -9,7 +9,9 @@ block ``b{i}`` of unit ``u`` for a block pattern of length L), and the
 decode cache is a list of per-layer dicts to match.
 
 Entry points:
-  :func:`forward` — full-sequence logits.
+  :func:`forward` — full-sequence logits; :func:`loss_fn` — the training
+  loss, on params in the training layout (:func:`init_train_params`;
+  :func:`serving_params` turns them into serving params).
   :func:`prefill` + :func:`serve_step` + :func:`init_cache` — fused prompt
   prefill and one-token decode with the contiguous KV cache.
   :func:`init_paged_cache` + :func:`prefill_chunk` + :func:`serve_step`
@@ -29,12 +31,14 @@ from typing import Dict, List
 import torch
 
 from repro_torch.core.instrument import named_scope
+from repro_torch.core.layers import add_partition_major, drop_partition_major
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import copy_page
+from repro_torch.tree import map_tree
 from . import attention as A
-from .common import (dtype_of, embedding_apply, embedding_init,
-                     lm_head_apply, normal_init, resolve_device,
-                     rmsnorm_apply, rmsnorm_init)
+from .common import (cross_entropy, dtype_of, embedding_apply,
+                     embedding_init, lm_head_apply, normal_init,
+                     resolve_device, rmsnorm_apply, rmsnorm_init)
 from .ffn import ffn_apply, ffn_init
 from .moe import moe_apply, moe_init
 
@@ -154,12 +158,7 @@ def prepare_params(params: Dict, cfg) -> Dict:
     return cast(params)
 
 
-def init_model(cfg, seed: int = 0, device=None) -> Dict:
-    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-    drawn from the reference's distributions (uniform ±1/sqrt(fan-in) for
-    dense, ±sqrt(N/D_in) for packed, normal(0.02) for tables), with the
-    reference's numpy routes.  Runs on ``cuda`` unless ``device`` says
-    otherwise."""
+def _init_params(cfg, seed: int, device) -> Dict:
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -170,7 +169,39 @@ def init_model(cfg, seed: int = 0, device=None) -> Dict:
     if not cfg.tie_embeddings:
         params["head"] = {"table": normal_init(
             gen, (cfg.padded_vocab, cfg.d_model), 0.02)}
-    return prepare_params(params, cfg)
+    return params
+
+
+def init_model(cfg, seed: int = 0, device=None) -> Dict:
+    """Random weights from ``torch.Generator(device).manual_seed(seed)``,
+    drawn from the reference's distributions (uniform ±1/sqrt(fan-in) for
+    dense, ±sqrt(N/D_in) for packed, normal(0.02) for tables), with the
+    reference's numpy routes, in the serving layout
+    (:func:`prepare_params`).  Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    return prepare_params(_init_params(cfg, seed, device), cfg)
+
+
+def init_train_params(cfg, seed: int = 0, device=None) -> Dict:
+    """The weights of :func:`init_model` (same seed, same values) in the
+    training layout: master weights in ``param_dtype`` (float32), cast to
+    the compute dtype at each use as the reference does, and no
+    ``packed_p`` (a derived copy the optimizer would move apart from
+    ``packed``).  Runs on ``cuda`` unless ``device`` says otherwise."""
+    pt = dtype_of(cfg.param_dtype)
+    return map_tree(lambda t: t.to(pt) if t.is_floating_point() else t,
+                    drop_partition_major(_init_params(cfg, seed, device)))
+
+
+@torch.no_grad()
+def serving_params(params: Dict, cfg) -> Dict:
+    """Serving params from training-layout ones (trained or bridged): a
+    copy, with every packed linear layer's ``packed_p`` made from its
+    ``packed`` now and every weight cast to the compute dtype
+    (:func:`prepare_params`).  Training on after this call does not reach
+    the copy."""
+    copied = map_tree(lambda t: t.detach().clone(), params)
+    return prepare_params(add_partition_major(copied), cfg)
 
 
 def param_count(params) -> int:
@@ -214,6 +245,16 @@ def forward(params, batch, cfg):
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg, ct), aux
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token LM loss: the cross-entropy of ``logits[:, :-1]`` against
+    ``labels[:, 1:]`` plus ``router_aux_weight`` times the MoE aux loss.
+    Returns (loss, {"loss", "lm_loss", "aux_loss"})."""
+    logits, aux = forward(params, batch, cfg)
+    lm = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    loss = lm + cfg.router_aux_weight * aux
+    return loss, {"loss": loss, "lm_loss": lm, "aux_loss": aux}
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:

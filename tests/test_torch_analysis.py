@@ -395,11 +395,29 @@ def test_cli_reduced_config_and_kernels_exit_zero(capsys):
 
 
 def test_train_entry_and_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        lint_config("smollm-360m", entries=("train",), reduced=True,
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lint_config("zamba2-1.2b", reduced=True, device="cpu")
+    """The configs ``check_supported`` rejects raise on every entry, the
+    training loss's too (the train entry itself is ported: next test)."""
+    for entries in (t_lint.PORTED_ENTRIES, ("train",)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lint_config("zamba2-1.2b", entries=entries, reduced=True,
+                        device="cpu")
+
+
+@pytest.mark.parametrize("kwta_impl", ["bisect", "topk"])
+def test_train_entry_lints_clean(kwta_impl):
+    """The reference's train entry (``lint.py:298-305``): the forward of
+    ``loss_fn`` over two sequences, the Select count of
+    ``expected_selects(cfg, n_tokens=2·seq)``, no dense-fallback rule:
+    0 findings on smollm reduced, with the shipped ``bisect`` k-WTA (0
+    Selects a layer) and with exact top-k (1 a layer)."""
+    cfg = t_get_config("smollm-360m").reduced()
+    cfg = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+        cfg.ffn_sparsity, kwta_impl=kwta_impl))
+    report = lint_config(cfg, entries=("train",), device="cpu")
+    assert report.entries == ["train"]
+    assert report.findings == [], report.render()
+    want = 0 if kwta_impl == "bisect" else 1
+    assert set(t_lint.expected_selects(cfg, 16).values()) == {want}
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",

@@ -13,9 +13,13 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.bridge import params_from_jax
-from repro_torch.configs import get_config
+from repro_torch.bridge import (gsc_params_from_jax, params_from_jax,
+                                train_params_from_jax)
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.serve import Engine
+from repro_torch.launch.train import Trainer, main as train_main
+from repro_torch.models import gsc_cnn as G
 from repro_torch.models import transformer as T
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,6 +44,12 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
         "kernel_checks", "lint", "rules", "seeded")} <= set(mods)
     assert {f"repro_torch.obs.{m}" for m in (
         "export", "metrics", "sparsity", "trace")} <= set(mods)
+    assert {"repro_torch.checkpoint.ckpt", "repro_torch.configs.gsc_cnn",
+            "repro_torch.data.pipeline", "repro_torch.data.synthetic",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.models.gsc_cnn", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.optim.schedule",
+            "repro_torch.runtime.monitor", "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -110,3 +120,38 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
     assert eng.device.type == "cpu"
     paged = Engine(cfg, max_seq=16, device="cpu", kv_layout="paged")
     assert paged.new_paged_cache()[0]["k"].device.type == "cpu"
+
+
+def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda,
+                                                          tmp_path):
+    cfg = get_config("smollm-360m").reduced()
+    shape = ShapeConfig("t", 8, 2, "train")
+    tcfg = TrainConfig(ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, tcfg, (1, 1), shape)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "smollm-360m", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_train_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        G.init_model(G.GSCConfig())
+    for bridge in (lambda: train_params_from_jax({"units": {}}, cfg),
+                   lambda: gsc_params_from_jax({})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bridge()
+    trainer = Trainer(cfg, tcfg, (1, 1), shape, device="cpu")
+    assert {t.device.type for t in trainer.opt["mu"]["final_norm"].values()
+            } == {"cpu"}
+
+
+def test_train_cli_without_a_card_exits_nonzero(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm-360m", "--steps", "1", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert not list(tmp_path.iterdir())
