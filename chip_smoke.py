@@ -139,6 +139,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    below 0.7 of the first), held-out accuracy, step time, the compression
    ratio and the realized k-WTA sparsity, and one f32 forward and
    backward of each variant against the port on the CPU.
+12. hybrid — the SSM/hybrid family and the modality frontends, full width
+   and depth, random weights from seed 0: (a) zamba2-1.2b (2 units of 18
+   Mamba2 blocks + the weight-shared attention block, whose FFN is the
+   paper's at n=4, k_frac=0.125) in bf16 through ``Engine.
+   generate_static`` (its serving path: the pattern has no fused
+   prefill), 4 prompts of 16 tokens and 16 new ones: tok/s, the
+   host-clock step, ``topk_gather`` launched exactly twice a step (the
+   shared block's two invocations at 4 rows, B·K = 4096 < 8192), the
+   step on the device alone (CUDA graph) and its device activities; its
+   tokens against the formula engine's (a row may part only between the
+   formula's top two, closer than twice the logit difference of the two
+   paths on equal inputs, phase 7's rule); (b) in float32, 16 steps of 4
+   rows through the kernel and the formula with every k-WTA selection
+   held: logits within 1e-3; (c) xlstm-350m in float32, the chunked
+   forward over 256 positions (two SSD chunks) against 256 decode steps
+   (1e-3); (d) musicgen-large, a prefill from ``embeds`` (no launch) and
+   3 decode steps from ``embeds`` (48 launches a step); (e) internvl2-2b,
+   a prefill with 256 ``patch_embeds`` before 16 tokens (no launch) and 3
+   decode steps (24 a step); (f) ``topk_gather`` at zamba2's shape (B=4,
+   K=1024, P=2048, G=512, N=4), bf16 and f32, against its plain version,
+   then its times beside one library call and its bound (row 1's
+   ``hybrid_shape``).  Phase 8 also lints zamba2-1.2b's decode step at
+   full width on fake CUDA tensors.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -1811,6 +1834,14 @@ def phase_analysis(engine_c):
     if not report.ok:
         print(report.render())
         fail("lint_config('smollm-360m') found faults")
+    t = time.perf_counter()
+    report = lint_config(HYBRID_ARCH, entries=("decode",), device="cuda")
+    print(f"[analysis] lint_config({HYBRID_ARCH!r}) decode, full width on "
+          f"fake CUDA tensors in {time.perf_counter() - t:.1f} s: "
+          + report.render().splitlines()[0])
+    if not report.ok or report.entries != ["decode"]:
+        print(report.render())
+        fail(f"lint_config({HYBRID_ARCH!r}) decode found faults")
     cfg = resolve_config("smollm-360m")
     fn, args = entry_args(cfg, "decode", "cuda")
     ops = collections.Counter(op_name(nd) for nd, _ in iter_nodes(
@@ -2001,10 +2032,11 @@ def activity_window(layout):
     or the tail of its records or none at all.  Inside the window each
     call is a host range that starts with a spin kernel and ends with a
     sync, and the calls are 2 ms apart; a device activity belongs to the
-    call whose range last began before it started.  A call's records are
-    then told apart by the host clock alone, with the spin's 0.5 ms
-    between a range's start and its first activity.  A pad call at each
-    end of the window takes what the window's edges may lose."""
+    call whose range last began before the host call that issued it (the
+    CUDA API event of the same correlation id; without one, before the
+    activity started).  A call's records are then told apart
+    by the host clock alone.  A pad call at each end of the window takes
+    what the window's edges may lose."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine
@@ -2037,12 +2069,19 @@ def activity_window(layout):
         fail(f"{layout}: the profiler kept the ranges {sorted(begins)} of "
              f"{len(order)} calls")
     starts = [begins[i] for i in range(len(order))]
+    # each device activity at the host time of the CUDA API call that
+    # issued it (the same correlation id): the device's clock in the trace
+    # may be offset from the host's by more than the spin's 0.5 ms
+    issued = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat", "").startswith("cuda_")
+              and "correlation" in e.get("args", {})}
     calls = [collections.Counter() for _ in order]
     for e in events:
         if (e.get("cat") not in DEVICE_CATS
                 or "spin_kernel" in e["name"]):
             continue
-        i = bisect.bisect_right(starts, e["ts"]) - 1
+        ts = issued.get(e.get("args", {}).get("correlation"), e["ts"])
+        i = bisect.bisect_right(starts, ts) - 1
         if i >= 0:
             calls[i][e["name"]] += 1
     print(f"[telemetry] {layout}: {len(order)} calls' trace read in "
@@ -2902,6 +2941,337 @@ def phase_train():
         gsc_parity(v)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SSM/hybrid family and the modality frontends at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-1.2b"
+# Its shared attention block's FFN down projection at decode with 4 slots
+# (d_ff 8192 -> 2048, gelu): B=4, K=k_for(8192)=1024, P=2048, G=512, N=4,
+# R=G.
+HYBRID_SHAPE = dict(b=4, k=1024, p=2048, g=512, n=4, r=512)
+HYBRID_PROMPT, HYBRID_GEN = 16, 16
+# xlstm-350m's chunked forward against its decode steps: two SSD chunks.
+XLSTM_POSITIONS = 256
+
+
+@contextlib.contextmanager
+def step_logits():
+    """Record the logits of every ``serve_step`` made inside (the static
+    engine's steps), in call order, as the engine got them."""
+    T = importlib.import_module("repro_torch.models.transformer")
+    step, rows = T.serve_step, []
+
+    def spy(*args, **kw):
+        logits, cache = step(*args, **kw)
+        rows.append(logits)
+        return logits, cache
+
+    T.serve_step = spy
+    try:
+        yield rows
+    finally:
+        T.serve_step = step
+
+
+def static_parity(toks_k, rows_k, toks_f, rows_f, label):
+    """The kernel engine's greedy tokens against the formula engine's
+    (phase 7's rule): where a row parts, the formula's top two at that
+    step are the two tokens, closer than the larger of TIE_MARGIN and
+    twice the logit difference the two paths show on equal inputs in this
+    run (steps up to each row's first parting).  Returns (rows parted,
+    that difference)."""
+    first = {}
+    for r in range(toks_k.shape[0]):
+        diff = np.nonzero(toks_k[r] != toks_f[r])[0]
+        first[r] = int(diff[0]) if diff.size else toks_k.shape[1] - 1
+    free = max(float((rows_k[s][r].float() - rows_f[s][r].float())
+                     .abs().max())
+               for r, part in first.items()
+               for s in range(HYBRID_PROMPT + part))
+    margin = max(TIE_MARGIN, 2 * free)
+    parted = 0
+    for r, part in first.items():
+        if toks_k[r, part] == toks_f[r, part]:
+            continue
+        top = torch.topk(rows_f[HYBRID_PROMPT - 1 + part][r].float(), 2)
+        best = set(top.indices.tolist())
+        gap = float(top.values[0] - top.values[1])
+        print(f"[hybrid] {label}: row {r} parts at token {part}; formula's "
+              f"top two {sorted(best)}, margin {gap:.3e} (bound "
+              f"{margin:.3e})")
+        if best != {int(toks_k[r, part]), int(toks_f[r, part])} \
+                or not gap < margin:
+            fail(f"{label}: row {r} differs at token {part} beyond a tie "
+                 "of the top two")
+        parted += 1
+    return parted, free
+
+
+def hybrid_serve(cfg, params):
+    """(a) zamba2-1.2b bf16 through ``Engine.generate_static`` (its
+    serving path: no fused prefill), the counts set to 0 just before the
+    timed run: tok/s, host-clock step, launches (2 a step: the shared
+    block's two invocations), the step on the device alone and its device
+    activities; then its tokens against the formula engine's.  Returns
+    (launches, steps)."""
+    from repro_torch.launch.serve import Engine
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, HYBRID_PROMPT))
+    max_seq = HYBRID_PROMPT + HYBRID_GEN + 1
+    eng = Engine(cfg, max_seq=max_seq, n_slots=4, params=params,
+                 device="cuda")
+    eng.generate_static(prompts[:, :2], 2)        # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    toks = eng.generate_static(prompts, HYBRID_GEN)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    steps = HYBRID_PROMPT + HYBRID_GEN
+    launches = counts["topk_gather"]
+    per_step = cfg.n_units * cfg.block_pattern.count("shared_attn")
+    step_ms = wall / steps * 1e3
+    print(f"[hybrid] {HYBRID_ARCH} full width bf16, generate_static of 4 "
+          f"prompts x {HYBRID_PROMPT} tokens + {HYBRID_GEN} new: {steps} "
+          f"steps in {wall:.3f} s, {4 * HYBRID_GEN / wall:.2f} tok/s, step "
+          f"{step_ms:.3f} ms (host clock, logits argmax on the card); kernel "
+          f"launches {counts}")
+    if toks.shape != (4, HYBRID_GEN) or not ((toks >= 0) &
+                                             (toks < cfg.vocab_size)).all():
+        fail(f"hybrid: generate_static returned {toks}")
+    if launches != per_step * steps:
+        fail(f"hybrid: topk_gather launched {launches} times, want "
+             f"{per_step} x {steps} steps")
+    dev_ms = step_device_ms(eng)
+    print(f"[hybrid] one decode step on the device alone (CUDA graph "
+          f"replay): {dev_ms:.3f} ms; device idle share of the eager step "
+          f"{1 - dev_ms / step_ms:.3f}")
+    acts = step_profile(eng)
+    print(f"[hybrid] one eager decode step under torch.profiler: "
+          f"{sum(c for c, _ in acts.values())} device activities, "
+          f"{sum(t for _, t in acts.values()):.3f} ms busy; by time:")
+    for name, (count, ms) in sorted(acts.items(),
+                                    key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
+        print(f"[hybrid]   {ms:8.3f} ms {count:5d}x {name[:100]}")
+    # the same run through the kernel and through the formula, logits kept
+    off = Engine(cfg, max_seq=max_seq, n_slots=4, params=params,
+                 use_pallas="off", device="cuda")
+    with step_logits() as rows_k:
+        toks_k = eng.generate_static(prompts, HYBRID_GEN)
+    with step_logits() as rows_f:
+        toks_f = off.generate_static(prompts, HYBRID_GEN)
+    if not np.array_equal(toks_k, toks):
+        fail("hybrid: two kernel runs of generate_static differ")
+    parted, free = static_parity(toks_k, rows_k, toks_f, rows_f,
+                                 "bf16 kernel vs formula")
+    print(f"[hybrid] bf16 tokens, kernel vs formula: {4 - parted} of 4 rows "
+          f"identical, {parted} parted at a tie; logit difference on equal "
+          f"inputs {free:.3e}")
+    return launches, steps
+
+
+def hybrid_parity(cfg32):
+    """(b) zamba2-1.2b f32: 4 rows stepped through 16 positions, kernel
+    (``use_pallas="auto"``) against formula (``"off"``) with every k-WTA
+    selection held to the kernel run's: logits within 1e-3."""
+    from repro_torch.models import transformer as T
+    params = T.init_model(cfg32, seed=SEED, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, cfg32.vocab_size, (4, HYBRID_PROMPT))).cuda()
+
+    def run(mode):
+        cfg_m = dataclasses.replace(cfg32, ffn_sparsity=dataclasses.replace(
+            cfg32.ffn_sparsity, use_pallas=mode))
+        cache = T.init_cache(cfg_m, 4, HYBRID_PROMPT, "cuda")
+        rows = []
+        with torch.no_grad():
+            for pos in range(HYBRID_PROMPT):
+                logits, cache = T.serve_step(params, cache,
+                                             {"tokens": toks[:, pos:pos + 1]},
+                                             pos, cfg_m)
+                rows.append(logits)
+        return torch.stack(rows)
+
+    reset_counts()
+    with kwta_selections() as masks:
+        got = run("auto")
+    torch.cuda.synchronize()
+    launches = read_counts()["topk_gather"]
+    with kwta_selections(iter(masks)):
+        want = run("off")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail("hybrid parity: non-finite logits")
+    err = float((got - want).abs().max())
+    tol = 1e-3
+    print(f"[hybrid] {HYBRID_ARCH} f32 full width, 4 rows x "
+          f"{HYBRID_PROMPT} steps, kernel vs formula, {len(masks)} k-WTA "
+          f"selections held: max_abs_err={err:.3e} (max |logit| "
+          f"{float(want.abs().max()):.3f}) tol={tol:.0e}; topk_gather "
+          f"launches {launches}")
+    per_step = cfg32.n_units * cfg32.block_pattern.count("shared_attn")
+    if launches != per_step * HYBRID_PROMPT:
+        fail(f"hybrid parity: topk_gather launched {launches} times, want "
+             f"{per_step} x {HYBRID_PROMPT} steps")
+    if not err <= tol:
+        fail("hybrid parity: kernel path and formula path disagree")
+
+
+def xlstm_parity():
+    """(c) xlstm-350m f32 at full width: the chunked forward over
+    XLSTM_POSITIONS positions (two SSD chunks) against as many
+    ``serve_step``s from an empty state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("xlstm-350m"),
+                              compute_dtype="float32")
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (2, XLSTM_POSITIONS))).cuda()
+    t = time.perf_counter()
+    with torch.no_grad():
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+        cache = T.init_cache(cfg, 2, XLSTM_POSITIONS, "cuda")
+        rows = []
+        for pos in range(XLSTM_POSITIONS):
+            logits, cache = T.serve_step(params, cache,
+                                         {"tokens": toks[:, pos:pos + 1]},
+                                         pos, cfg)
+            rows.append(logits)
+    steps = torch.stack(rows, dim=1)
+    torch.cuda.synchronize()
+    last = float((steps[:, -1] - full[:, -1]).abs().max())
+    worst = float((steps - full).abs().max())
+    tol = 1e-3
+    print(f"[hybrid] xlstm-350m f32 full width ({cfg.n_layers} layers, "
+          f"{cfg.block_pattern.count('mlstm')} mLSTM : 1 sLSTM a unit, "
+          f"chunk {cfg.ssm_chunk}): forward over {XLSTM_POSITIONS} "
+          f"positions vs {XLSTM_POSITIONS} serve_steps, last position's "
+          f"logits max_abs_err={last:.3e}, every position {worst:.3e} (max "
+          f"|logit| {float(full.abs().max()):.3f}) tol={tol:.0e}; "
+          f"{time.perf_counter() - t:.1f} s")
+    if not bool(torch.isfinite(full).all()) or not worst <= tol:
+        fail("xlstm: the chunked forward and the decode steps disagree")
+
+
+def frontend_serve(arch):
+    """(d), (e) a frontend config at full width, bf16: a fused prefill
+    (``embeds``, or 256 ``patch_embeds`` before 16 tokens) that launches
+    no kernel (B·S·K >= d_ff: Hadamard), then 3 decode steps (``embeds``
+    or tokens) of 4 slots, each launching ``topk_gather`` once a layer
+    (musicgen-large 48, internvl2-2b 24).  Returns the launches a decode
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 14)
+    b, s = 4, 16
+
+    def embeds(n):
+        return torch.from_numpy(rng.uniform(-0.5, 0.5, (b, n, cfg.d_model))
+                                .astype(np.float32)).cuda()
+
+    if cfg.frontend == "embed":
+        batch = {"embeds": embeds(s)}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s))).cuda(),
+            "patch_embeds": embeds(cfg.n_prefix)}
+    rows = s + (cfg.n_prefix if cfg.frontend == "vision_prefix" else 0)
+    with torch.no_grad():
+        T.prefill(params, batch, cfg, rows + 3)        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        logits, cache = T.prefill(params, batch, cfg, rows + 3)
+        torch.cuda.synchronize()
+        in_prefill = read_counts()["topk_gather"]
+        finite = bool(torch.isfinite(logits).all())
+        reset_counts()
+        for i in range(3):
+            step = ({"embeds": embeds(1)} if cfg.frontend == "embed" else
+                    {"tokens": logits[:, -1:].argmax(-1)})
+            logits, cache = T.serve_step(params, cache, step, rows + i, cfg)
+            logits = logits[:, None]
+            finite = finite and bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        in_steps = read_counts()["topk_gather"]
+    print(f"[hybrid] {arch} full width bf16 ({cfg.n_layers} layers, "
+          f"frontend {cfg.frontend}): prefill of {b} x {rows} rows "
+          f"launches topk_gather {in_prefill} times (B·S·K >= d_ff "
+          f"{cfg.d_ff}), 3 decode steps of {b} slots {in_steps} "
+          f"({in_steps / 3:.0f} a step); logits finite: {finite}")
+    if not finite:
+        fail(f"{arch}: non-finite logits")
+    if in_prefill != 0 or in_steps != 3 * cfg.n_layers:
+        fail(f"{arch}: topk_gather launched {in_prefill} times in prefill "
+             f"and {in_steps} in 3 decode steps, want 0 and "
+             f"3 x {cfg.n_layers}")
+    return in_steps / 3
+
+
+def hybrid_kernel():
+    """(f) ``topk_gather`` at zamba2's shape against its plain version
+    (bf16 and f32, and the support as the layer hands it over), then its
+    times.  Returns the row-1 keys of that shape."""
+    from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
+            HYBRID_SHAPE, dtype, SEED + 70)
+        cases = [("", (vals, p_idx, s_off, packed_p, route))]
+        if dtype == torch.bfloat16:
+            cases.append((", bf16 values, int64 indices",
+                          (vals.to(dtype), p_idx.long(), s_off.long(),
+                           packed_p, route)))
+        for label, operands in cases:
+            err = max(err, check(
+                f"topk_gather {HYBRID_SHAPE} {str(dtype)[6:]}{label}",
+                topk_gather(*operands), topk_gather_plain(*operands),
+                phase="hybrid"))
+    vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
+        HYBRID_SHAPE, torch.bfloat16, SEED + 70)
+    times = topk_times(HYBRID_SHAPE, vals, p_idx, s_off, packed_p, route,
+                       packed, "hybrid")
+    return {"shape": HYBRID_SHAPE, "max_abs_err": err, **times}
+
+
+def phase_hybrid():
+    """Phase 12.  Returns row 1's keys of the hybrid and frontend paths:
+    the timed shape, and the launches of their runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(HYBRID_ARCH)
+    t = time.perf_counter()
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[hybrid] {HYBRID_ARCH} as shipped: {cfg.n_layers} layers "
+          f"({cfg.n_units} units of {len(cfg.block_pattern) - 1} mamba2 + "
+          f"the shared attention block), d_model {cfg.d_model}, ssm_state "
+          f"{cfg.ssm_state}, shared FFN d_ff {cfg.d_ff} at "
+          f"n={cfg.ffn_sparsity.n}, k_frac={cfg.ffn_sparsity.k_frac}, "
+          f"{cfg.ffn_sparsity.kwta_impl}; bf16, "
+          f"{T.param_count(params) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"random weights from seed {SEED} in "
+          f"{time.perf_counter() - t:.1f} s")
+    launches, steps = hybrid_serve(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    hybrid_parity(dataclasses.replace(cfg, compute_dtype="float32"))
+    torch.cuda.empty_cache()
+    xlstm_parity()
+    torch.cuda.empty_cache()
+    per_step = {arch: frontend_serve(arch)
+                for arch in ("musicgen-large", "internvl2-2b")}
+    torch.cuda.empty_cache()
+    return {"hybrid_shape": hybrid_kernel(), "launches_hybrid": launches,
+            "launches_per_decode_step_hybrid": launches / steps,
+            "launches_per_decode_step_musicgen": per_step["musicgen-large"],
+            "launches_per_decode_step_internvl2": per_step["internvl2-2b"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2969,6 +3339,10 @@ def main():
     t = time.perf_counter()
     phase_train()
     print(f"[train] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_hybrid())
+    print(f"[hybrid] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -224,25 +224,43 @@ def _with_pallas_mode(cfg, mode: Optional[str]):
 def resolve_config(arch, use_pallas: Optional[str] = "force",
                    reduced: bool = False):
     """A config name or ``ModelConfig``, reduced and with its executor
-    mode set, as :func:`lint_config` lints it; raises
-    ``NotImplementedError`` for what the port does not run yet."""
+    mode set, as :func:`lint_config` lints it; a block kind the reference
+    does not know raises ``ValueError``."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
-    try:
-        T.check_supported(cfg)
-    except NotImplementedError as e:
-        raise NotImplementedError(
-            f"{e}; linting it waits for the port of these blocks (ROADMAP "
-            "Queue 1 items 5 and 6)") from e
+    T.check_supported(cfg)
     return _with_pallas_mode(cfg, use_pallas)
+
+
+def _decode_batch(cfg, slots: int):
+    if cfg.frontend == "embed":
+        return {"embeds": torch.empty((slots, 1, cfg.d_model))}
+    return {"tokens": torch.zeros((slots, 1), dtype=torch.int64)}
+
+
+def _seq_batch(cfg, batch: int, seq: int, labels: bool):
+    """A sequence batch of the config's frontend (the reference's
+    ``_seq_batch``): tokens or embeds, a vision prefix's patch
+    embeddings, the labels of a training batch."""
+    out = {}
+    if cfg.frontend == "embed":
+        out["embeds"] = torch.empty((batch, seq, cfg.d_model))
+    else:
+        out["tokens"] = torch.zeros((batch, seq), dtype=torch.int64)
+    if cfg.frontend == "vision_prefix":
+        out["patch_embeds"] = torch.empty((batch, cfg.n_prefix, cfg.d_model))
+    if labels:
+        out["labels"] = torch.zeros((batch, seq), dtype=torch.int64)
+    return out
 
 
 def entry_args(cfg, entry: str, device, slots: int = 4, seq: int = 8,
                max_seq: int = 64):
-    """(fn, fake args) of one entry point at full or reduced scale."""
+    """(fn, fake args) of one entry point at full or reduced scale; the
+    batches take the config's frontend."""
     from repro_torch.models import transformer as T
     from repro_torch.runtime.kvcache.layout import PagedKV
     if entry not in ENTRIES:
@@ -254,30 +272,32 @@ def entry_args(cfg, entry: str, device, slots: int = 4, seq: int = 8,
     def params():
         return T.init_model(cfg, seed=0, device="cpu")
 
-    def ints(*shape):
-        return torch.zeros(shape, dtype=torch.int64)
+    def positions():
+        return torch.zeros((slots,), dtype=torch.int64)
 
     if entry == "prefill":
-        return (lambda p, t: T.prefill(p, {"tokens": t}, cfg, max_seq)[0],
-                fake(lambda: (params(), ints(1, seq)), device))
+        return (lambda p, b: T.prefill(p, b, cfg, max_seq)[0],
+                fake(lambda: (params(), _seq_batch(cfg, 1, seq, False)),
+                     device))
     if entry == "train":
         # the forward of the loss on the training layout, two sequences
-        return (lambda p, t, lab: T.loss_fn(p, {"tokens": t, "labels": lab},
-                                            cfg)[0],
+        return (lambda p, b: T.loss_fn(p, b, cfg)[0],
                 fake(lambda: (T.init_train_params(cfg, seed=0, device="cpu"),
-                              ints(2, seq), ints(2, seq)), device))
+                              _seq_batch(cfg, 2, seq, True)), device))
     if entry == "decode":
-        return (lambda p, c, t, q: T.serve_step(p, c, {"tokens": t}, q,
-                                                cfg)[0],
+        return (lambda p, c, b, q: T.serve_step(p, c, b, q, cfg)[0],
                 fake(lambda: (params(), T.init_cache(cfg, slots, max_seq,
                                                      "cpu"),
-                              ints(slots, 1), ints(slots)), device))
+                              _decode_batch(cfg, slots), positions()),
+                     device))
     geo = PagedKV.build(max_seq, slots, page_size=16)
-    return (lambda p, c, t, q, pg: T.serve_step(p, c, {"tokens": t}, q, cfg,
+    return (lambda p, c, b, q, pg: T.serve_step(p, c, b, q, cfg,
                                                 pages=pg)[0],
             fake(lambda: (params(), T.init_paged_cache(
-                cfg, geo.n_pages, geo.page_size, "cpu"), ints(slots, 1),
-                ints(slots), ints(slots, geo.blocks_per_slot)), device))
+                cfg, geo.n_pages, geo.page_size, "cpu"),
+                _decode_batch(cfg, slots), positions(),
+                torch.zeros((slots, geo.blocks_per_slot),
+                            dtype=torch.int64)), device))
 
 
 def lint_config(arch, entries: Sequence[str] = PORTED_ENTRIES,
@@ -294,12 +314,17 @@ def lint_config(arch, entries: Sequence[str] = PORTED_ENTRIES,
     own.  ``check_host`` holds the decode steps to the host-transfer and
     collective rules.  ``train`` lints the forward of ``loss_fn`` on the
     training layout over two sequences of ``seq`` tokens (the
-    dense-fallback rule off, as the reference's).  The configs
-    ``check_supported`` rejects raise ``NotImplementedError``."""
+    dense-fallback rule off, as the reference's).  As in the reference,
+    ``decode_paged`` and ``prefill`` are skipped for patterns with SSM
+    blocks (no paged layout, no fused prefill)."""
+    from repro_torch.models import transformer as T
     device = linting_device(device)
     cfg = resolve_config(arch, use_pallas, reduced)
     report = Report()
     for entry in entries:
+        if (entry in ("decode_paged", "prefill")
+                and not T.supports_fused_prefill(cfg)):
+            continue
         if entry == "kernel":
             if cfg.d_ff > 0:
                 report.extend(lint_kernel_pipeline(

@@ -5,9 +5,11 @@ The caller converts the JAX pytree first (``jax.tree.map(np.asarray,
 params)``), so this module needs no JAX.  The leaves keep their layout —
 ``packed`` (G, P, N), int8 ``route`` (G/R, P, N), dense ``w`` (D_in,
 D_out), tables (vocab, d) — and the stacked ``units`` axis is split into
-the port's per-layer list (layer ``u·L + i`` is ``units["b{i}"][u]``).
-MLA's bare weights and the MoE leaves (router, stacked experts, shared
-experts) come across as they are.  Each packed linear layer (G, P, N)
+the port's per-layer list (layer ``u·L + i`` is ``units["b{i}"][u]``; a
+``shared_attn`` layer is an empty dict, its weights the reference's
+``shared`` subtree, carried over once).  MLA's bare weights, the MoE
+leaves (router, stacked experts, shared experts) and the SSM mixers'
+leaves come across as they are.  Each packed linear layer (G, P, N)
 gains its partition-major copy; the routed experts' (E, G, P, N) do not
 (they never reach ``topk_gather``, and a copy would double the experts'
 bytes).  Every weight is cast to the compute dtype, as
@@ -27,7 +29,8 @@ import torch
 
 from repro_torch.core.layers import add_partition_major
 from repro_torch.models.common import dtype_of, resolve_device
-from repro_torch.models.transformer import check_supported, prepare_params
+from repro_torch.models.transformer import (check_supported, layer_kinds,
+                                            prepare_params)
 from repro_torch.tree import map_tree
 
 
@@ -50,14 +53,15 @@ def _layers(params: Dict, cfg) -> Dict:
     """The reference's tree with its stacked ``units`` split into the
     port's per-layer list (numpy leaves)."""
     check_supported(cfg)
-    units = params["units"]
-    layers = [_unit_slice(units[f"b{i}"], u)
-              for u in range(cfg.n_units)
-              for i in range(len(cfg.block_pattern))]
+    units, n = params["units"], len(cfg.block_pattern)
+    layers = [{} if kind == "shared_attn" else
+              _unit_slice(units[f"b{j % n}"], j // n)
+              for j, kind in enumerate(layer_kinds(cfg))]
     out = {"embed": params["embed"], "layers": layers,
            "final_norm": params["final_norm"]}
-    if "head" in params:
-        out["head"] = params["head"]
+    for key in ("shared", "head"):
+        if key in params:
+            out[key] = params[key]
     return out
 
 

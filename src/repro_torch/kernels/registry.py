@@ -5,8 +5,9 @@ shapes that the reference's sweeps lack.
 Each of the reference's tuples is one configuration it proves clean; they
 bracket the regimes the serving and training paths use (single-tile
 grids, multi-step accumulation, batched decode).  ``TOPK_GATHER_SWEEP``
-adds, after them, the shared experts' down projection of
-deepseek-v2-lite-16b at decode with 4 slots.  The block sizes are the
+adds, after them, the decode down projections at 4 slots of
+deepseek-v2-lite-16b's shared experts and of zamba2-1.2b's shared
+attention block.  The block sizes are the
 reference's TPU tiles: the port's kernels take none and mask their edges,
 so they are kept only so that the tuples read as the reference's.  The CPU
 tests, ``chip_smoke.py`` and the linter's kernel checks
@@ -39,6 +40,9 @@ TOPK_GATHER_SWEEP = (
     # deepseek-v2-lite-16b's shared experts (d_ff 2·1408 = 2816 -> 2048):
     # B=4 slots, K=k_for(2816)=352, P=2816/4, G=2048/4, N=4
     (4, 352, 704, 512, 4, 128),
+    # zamba2-1.2b's shared block (d_ff 8192 -> 2048, gelu): B=4 slots,
+    # K=k_for(8192)=1024, P=8192/4, G=2048/4, N=4
+    (4, 1024, 2048, 512, 4, 128),
 )
 
 #: grouped_cs_matmul: (n, b, p, g, block_b, block_p, block_g)

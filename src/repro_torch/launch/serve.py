@@ -22,7 +22,9 @@ multiply — so the engine's job is to keep the decode batch full.
     EOS, and greedy or temperature/top-k sampling on host.
 
 ``Engine.generate_static`` keeps the static-batch greedy path (stepwise
-prefill through the decode step) as the correctness oracle.
+prefill through the decode step) as the correctness oracle; it is also
+how the SSM/hybrid patterns (zamba2, xLSTM) are served, since they have no
+fused prefill and ``Engine.serve`` refuses them, as the reference does.
 
 Paged KV cache: ``Engine(kv_layout="paged")`` swaps the
 ``(n_slots, max_seq)`` contiguous cache for a pool of fixed-size pages
@@ -266,8 +268,14 @@ class Engine:
         token list; stats has tok/s, time-to-first-token per request, the
         decode-step and prefill-call counts and the time spent in decode
         steps.  With ``kv_layout='paged'`` the loop of
-        :meth:`_serve_paged` runs instead.
+        :meth:`_serve_paged` runs instead.  SSM/hybrid block patterns have
+        no fused prefill and raise: serve them with
+        :meth:`generate_static`.
         """
+        if not T.supports_fused_prefill(self.cfg):
+            raise NotImplementedError(
+                f"{self.cfg.name}: block pattern {self.cfg.block_pattern} "
+                "has no fused prefill; serve with generate_static")
         for r in requests:
             if r.max_new_tokens < 1:
                 raise ValueError(f"request {r.uid}: max_new_tokens must "
@@ -704,7 +712,9 @@ class Engine:
     def generate_static(self, prompts: np.ndarray, gen_len: int):
         """Static greedy path: prefill by stepping every prompt position
         through the decode step, then decode the batch in lockstep.  Exact
-        but slow — the correctness oracle for the continuous engine."""
+        but slow — the correctness oracle for the continuous engine, and
+        the serving path of the SSM/hybrid patterns, whose cache
+        (:meth:`new_cache`) holds their recurrent state."""
         b, p_len = prompts.shape
         cache = self.new_cache(b)
         prompts = self._to_device(prompts)

@@ -68,6 +68,8 @@ class Trainer:
         self.guard = LossGuard()
         self.step = 0
         self._preempted = False
+        #: the async checkpoint writer not yet joined
+        self._writer = None
         self._build()
 
     # -- construction -----------------------------------------------------
@@ -84,13 +86,25 @@ class Trainer:
         return {"params": self.params, "opt": self.opt}
 
     def save(self, async_: bool = True):
+        self.wait_for_save()
         tree = self.state_tree()
         extra = {"step": self.step, "arch": self.cfg.name}
         if async_:
-            return ckpt.save_async(self.tcfg.ckpt_dir, self.step, tree, extra)
+            self._writer = ckpt.save_async(self.tcfg.ckpt_dir, self.step,
+                                           tree, extra)
+            return self._writer
         return ckpt.save(self.tcfg.ckpt_dir, self.step, tree, extra)
 
+    def wait_for_save(self):
+        """Join the async writer of the last ``save``, if one is running:
+        until it has committed, the directory may lack its step, and its
+        commit would replace a later save of the same step."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+
     def try_resume(self) -> bool:
+        self.wait_for_save()
         step, tree, extra = ckpt.restore_latest(self.tcfg.ckpt_dir,
                                                 self.state_tree())
         if step is None:
@@ -148,10 +162,12 @@ class Trainer:
             if self._preempted:
                 log(f"[preempt] signal received; checkpointing at step "
                     f"{self.step}")
+            self.wait_for_save()
             if ckpt.latest_step(tcfg.ckpt_dir) != self.step:
                 self.save(async_=False)
         finally:
             pre.close()
+            self.wait_for_save()
         return self.step
 
 

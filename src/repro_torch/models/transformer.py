@@ -1,26 +1,39 @@
-"""Decoder LM assembled from config-driven blocks: the attention-block
-models of the reference's ``repro.models.transformer`` — GQA or MLA
-attention (``cfg.use_mla``), each followed by an FFN or a MoE block
-(``cfg.is_moe``), with a bf16 or an int8 KV cache.
+"""Decoder LM assembled from config-driven blocks — the reference's
+``repro.models.transformer``.
+
+Block kinds (``cfg.block_pattern``):
+  attn        — GQA or MLA attention (``cfg.use_mla``) + FFN or MoE
+                (``cfg.is_moe``), pre-norm, with a bf16 or an int8 KV cache.
+  mamba2      — Mamba-2 mixer (chunked SSD), :mod:`.ssm`.
+  mlstm/slstm — xLSTM mixers, :mod:`.ssm`.
+  shared_attn — weight-shared attention + FFN block (zamba2): one set of
+                weights in ``params["shared"]``, used at every invocation,
+                each invocation with its own KV cache.
 
 The reference scans over stacked superblocks; here the stack is a Python
 loop over ``params["layers"]``, one dict per layer (layer ``u·L + i`` is
-block ``b{i}`` of unit ``u`` for a block pattern of length L), and the
-decode cache is a list of per-layer dicts to match.
+block ``b{i}`` of unit ``u`` for a block pattern of length L; a
+``shared_attn`` layer's dict is empty, as the reference's units skip it),
+and the decode cache is a list of per-layer dicts to match: K/V rows for
+attention, the O(1) recurrent state for the SSM kinds.
+
+Frontends (``cfg.frontend``): ``embed`` takes precomputed ``embeds``
+(B, S, D) in place of tokens; ``vision_prefix`` prefixes ``patch_embeds``
+(B, n_prefix, D) to the token embeddings, and the loss reads the text
+positions only.
 
 Entry points:
   :func:`forward` — full-sequence logits; :func:`loss_fn` — the training
   loss, on params in the training layout (:func:`init_train_params`;
   :func:`serving_params` turns them into serving params).
   :func:`prefill` + :func:`serve_step` + :func:`init_cache` — fused prompt
-  prefill and one-token decode with the contiguous KV cache.
+  prefill (attention-only patterns; SSM/hybrid patterns prefill stepwise
+  through :func:`serve_step`) and one-token decode with the contiguous
+  cache.
   :func:`init_paged_cache` + :func:`prefill_chunk` + :func:`serve_step`
-  with ``pages=`` + :func:`copy_cache_page` — the paged KV layout: page
-  pools, page-aligned chunked prefill, decode through page tables and the
-  device half of copy-on-write.
-
-The SSM/hybrid block kinds and the modality frontends are later slices
-of the port.
+  with ``pages=`` + :func:`copy_cache_page` — the paged KV layout
+  (attention-only patterns): page pools, page-aligned chunked prefill,
+  decode through page tables and the device half of copy-on-write.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import copy_page
 from repro_torch.tree import map_tree
 from . import attention as A
+from . import ssm as S
 from .common import (cross_entropy, dtype_of, embedding_apply,
                      embedding_init, lm_head_apply, normal_init,
                      resolve_device, rmsnorm_apply, rmsnorm_init)
@@ -43,19 +57,33 @@ from .ffn import ffn_apply, ffn_init
 from .moe import moe_apply, moe_init
 
 #: leaves that every use casts to the compute dtype: the linear and packed
-#: layers', the tables, MLA's bare weights and the MoE router
+#: layers', the tables, MLA's bare weights and the MoE router (the SSM
+#: mixers' are :data:`repro_torch.models.ssm.COMPUTE_LEAVES`)
 _COMPUTE_LEAVES = ("w", "b", "packed", "packed_p", "table",
                    "q", "dkv", "kpe", "uk", "uv", "o", "router")
+#: the block kinds with attention (and a KV cache)
+ATTN_KINDS = ("attn", "shared_attn")
 
 
 def check_supported(cfg) -> None:
-    if any(k != "attn" for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} is not ported "
-            "yet (only attention blocks)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
-                                  "is not ported yet")
+    """Raise for a block kind the reference does not know, as its
+    ``_block_init`` does."""
+    for kind in cfg.block_pattern:
+        if kind not in ATTN_KINDS and kind not in S.MIXERS:
+            raise ValueError(f"unknown block kind {kind}")
+
+
+def layer_kinds(cfg) -> List[str]:
+    """The block kind of every layer, ``u·L + i`` -> ``block_pattern[i]``."""
+    return list(cfg.block_pattern) * cfg.n_units
+
+
+def _layers(params, cfg):
+    """(kind, params) of every layer: a ``shared_attn`` layer's are
+    ``params["shared"]``."""
+    return [(kind, params["shared"] if kind == "shared_attn" else p)
+            for kind, p in zip(layer_kinds(cfg), params["layers"],
+                               strict=True)]
 
 
 # ---------------------------------------------------------------------------
@@ -77,11 +105,14 @@ def _block_scope(cfg, layer: int):
         yield
 
 
-def _block_init(gen: torch.Generator, cfg):
+def _block_init(kind: str, gen: torch.Generator, cfg):
+    if kind not in ATTN_KINDS:
+        return {"norm": rmsnorm_init(cfg.d_model, gen.device),
+                "mixer": S.MIXERS[kind].init(gen, cfg)}
     p = {"norm1": rmsnorm_init(cfg.d_model, gen.device),
          "mixer": (A.mla_init if cfg.use_mla else A.gqa_init)(gen, cfg),
          "norm2": rmsnorm_init(cfg.d_model, gen.device)}
-    if cfg.is_moe:
+    if cfg.is_moe and kind == "attn":
         p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                             cfg.n_shared_experts, cfg.act, cfg.ffn_sparsity)
     elif cfg.d_ff > 0:
@@ -103,8 +134,11 @@ def _ffn_residual(params, x, cfg):
     return x, None
 
 
-def _block_apply(params, x, cfg, positions):
+def _block_apply(kind: str, params, x, cfg, positions):
     """Full-sequence forward. Returns (x, aux)."""
+    if kind not in ATTN_KINDS:
+        h = rmsnorm_apply(params["norm"], x, cfg.norm_eps)
+        return x + S.MIXERS[kind].apply(params["mixer"], h, cfg), None
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     mixer = A.mla_apply if cfg.use_mla else A.gqa_apply
     x = x + mixer(params["mixer"], h, cfg, positions)
@@ -118,11 +152,24 @@ def _block_prefill(params, x, cfg, positions, max_seq: int):
     return _ffn_residual(params, x + h, cfg)[0], cache
 
 
-def _block_decode(params, x, cfg, cache, pos, pages=None):
+def _block_decode(kind: str, params, x, cfg, cache, pos, pages=None):
+    """One-token step; the cache is updated in place.  ``pages`` (the
+    paged KV layout's per-slot page table) is attention-only: SSM blocks
+    keep O(1) recurrence state and have no per-position rows to page."""
+    if kind not in ATTN_KINDS:
+        if pages is not None:
+            raise NotImplementedError(
+                f"paged KV layout not implemented for block kind {kind!r} "
+                "(SSM decode state has no sequence axis to page)")
+        h = rmsnorm_apply(params["norm"], x, cfg.norm_eps)
+        h, new = S.MIXERS[kind].decode(params["mixer"], h, cfg, cache, pos)
+        for name, leaf in new.items():
+            cache[name].copy_(leaf)
+        return x + h
     h = rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
     dec = A.mla_decode if cfg.use_mla else A.gqa_decode
-    h, cache = dec(params["mixer"], h, cfg, cache, pos, pages=pages)
-    return _ffn_residual(params, x + h, cfg)[0], cache
+    h, _ = dec(params["mixer"], h, cfg, cache, pos, pages=pages)
+    return _ffn_residual(params, x + h, cfg)[0]
 
 
 def _block_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
@@ -145,17 +192,26 @@ def prepare_params(params: Dict, cfg) -> Dict:
 
     Each use in the reference casts its weight to the compute dtype, so
     the values are the same; storing them cast saves a copy of every
-    weight at every step.  Norm scales stay float32, as they are used.
+    weight at every step.  Norm scales stay float32, as they are used,
+    and so do the SSM mixers' leaves that enter in float32 (``A_log``,
+    ``dt_bias``, ``gate_b``, sLSTM's ``b``): each kind's leaves are cast
+    by that kind's rule.
     """
     ct = dtype_of(cfg.compute_dtype)
 
-    def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict) else
-                    [cast(x) for x in v] if isinstance(v, list) else
-                    v.to(ct) if k in _COMPUTE_LEAVES else v)
+    def cast(tree, names):
+        return {k: (cast(v, names) if isinstance(v, dict) else
+                    [cast(x, names) for x in v] if isinstance(v, list) else
+                    v.to(ct) if k in names else v)
                 for k, v in tree.items()}
 
-    return cast(params)
+    layers = [cast(p, _COMPUTE_LEAVES if kind in ATTN_KINDS
+                   else S.COMPUTE_LEAVES)
+              for kind, p in zip(layer_kinds(cfg), params["layers"],
+                                 strict=True)]
+    return {k: layers if k == "layers" else
+            cast(v, _COMPUTE_LEAVES) if isinstance(v, dict) else v
+            for k, v in params.items()}
 
 
 def _init_params(cfg, seed: int, device) -> Dict:
@@ -163,9 +219,14 @@ def _init_params(cfg, seed: int, device) -> Dict:
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model),
-              "layers": [_block_init(gen, cfg) for _ in range(cfg.n_layers)],
-              "final_norm": rmsnorm_init(cfg.d_model, device)}
+    params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model)}
+    if "shared_attn" in cfg.block_pattern:
+        params["shared"] = _block_init("shared_attn", gen, cfg)
+    # a shared_attn layer's weights live in params["shared"]
+    params["layers"] = [{} if kind == "shared_attn" else
+                        _block_init(kind, gen, cfg)
+                        for kind in layer_kinds(cfg)]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["head"] = {"table": normal_init(
             gen, (cfg.padded_vocab, cfg.d_model), 0.02)}
@@ -220,8 +281,21 @@ def param_count(params) -> int:
 # Forward / serving
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, ct):
-    return embedding_apply(params["embed"], tokens, ct)
+def _embed(params, batch, cfg, ct):
+    """Token or frontend embedding of a decode or chunk batch: precomputed
+    ``embeds`` for the ``embed`` frontend, else the tokens' rows."""
+    if cfg.frontend == "embed":
+        return batch["embeds"].to(ct)
+    return embedding_apply(params["embed"], batch["tokens"], ct)
+
+
+def _embed_inputs(params, batch, cfg, ct):
+    """The full-sequence inputs: :func:`_embed`, with ``vision_prefix``'s
+    ``patch_embeds`` (B, n_prefix, D) before the tokens."""
+    x = _embed(params, batch, cfg, ct)
+    if cfg.frontend == "vision_prefix":
+        x = torch.cat([batch["patch_embeds"].to(ct), x], dim=1)
+    return x
 
 
 def _logits(params, x, cfg, ct):
@@ -231,17 +305,18 @@ def _logits(params, x, cfg, ct):
 
 
 def forward(params, batch, cfg):
-    """Full-sequence forward. Returns (logits, aux_loss), aux_loss the sum
-    of every MoE block's load-balancing loss (0 without MoE)."""
-    check_supported(cfg)
+    """Full-sequence forward. batch: ``tokens`` (B, S), or ``embeds`` (B,
+    S, D) for the ``embed`` frontend, with ``patch_embeds`` for
+    ``vision_prefix``.  Returns (logits, aux_loss), aux_loss the sum of
+    every MoE block's load-balancing loss (0 without MoE)."""
     ct = dtype_of(cfg.compute_dtype)
-    x = _embed(params, batch["tokens"], ct)
+    x = _embed_inputs(params, batch, cfg, ct)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j, layer in enumerate(params["layers"]):
+    for j, (kind, layer) in enumerate(_layers(params, cfg)):
         with _block_scope(cfg, j):
-            x, a = _block_apply(layer, x, cfg, positions)
+            x, a = _block_apply(kind, layer, x, cfg, positions)
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg, ct), aux
@@ -249,9 +324,13 @@ def forward(params, batch, cfg):
 
 def loss_fn(params, batch, cfg):
     """Next-token LM loss: the cross-entropy of ``logits[:, :-1]`` against
-    ``labels[:, 1:]`` plus ``router_aux_weight`` times the MoE aux loss.
+    ``labels[:, 1:]`` (over the text positions, after a vision prefix)
+    plus ``router_aux_weight`` times the MoE aux loss.
     Returns (loss, {"loss", "lm_loss", "aux_loss"})."""
     logits, aux = forward(params, batch, cfg)
+    if cfg.frontend == "vision_prefix":
+        # logits cover [prefix + text]; predict text tokens only
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     lm = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     loss = lm + cfg.router_aux_weight * aux
     return loss, {"loss": loss, "lm_loss": lm, "aux_loss": aux}
@@ -259,13 +338,15 @@ def loss_fn(params, batch, cfg):
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
     """One contiguous cache per layer: K/V rows in the compute dtype (int8
-    rows and f32 scales with ``kv_cache_dtype="int8"``), or MLA's latent
-    and rope-key rows."""
+    rows and f32 scales with ``kv_cache_dtype="int8"``) or MLA's latent
+    and rope-key rows for attention (every ``shared_attn`` invocation has
+    its own); the recurrent state for an SSM layer."""
     check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
-    init = A.mla_cache_init if cfg.use_mla else A.gqa_cache_init
-    return [init(cfg, batch, max_seq, ct, device)
-            for _ in range(cfg.n_layers)]
+    attn = A.mla_cache_init if cfg.use_mla else A.gqa_cache_init
+    return [attn(cfg, batch, max_seq, ct, device) if kind in ATTN_KINDS
+            else S.MIXERS[kind].cache_init(cfg, batch, ct, device)
+            for kind in layer_kinds(cfg)]
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int,
@@ -298,25 +379,34 @@ def copy_cache_page(cache: List[Dict], src: int, dst: int) -> List[Dict]:
 
 def supports_fused_prefill(cfg) -> bool:
     """Fused bulk-cache prefill exists for attention blocks; SSM/hybrid
-    patterns would fall back to stepwise prefill (their decode state is
-    the *final* recurrence state, not per-position rows)."""
-    return all(k in ("attn", "shared_attn") for k in cfg.block_pattern)
+    patterns fall back to stepwise prefill (their decode state is the
+    *final* recurrence state, not per-position rows)."""
+    return all(k in ATTN_KINDS for k in cfg.block_pattern)
+
+
+def _attention_only(cfg, what: str, hint: str = "") -> None:
+    for kind in cfg.block_pattern:
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"{what} not implemented for block kind {kind!r}{hint}")
 
 
 def prefill(params, batch, cfg, max_seq: int):
     """Fused full-sequence prefill: ONE forward over the prompt (B, S) that
     writes every layer's KV cache in bulk — rows [0, S) of a cache padded
     to ``max_seq`` (rows >= S are overwritten by decode before any read).
+    batch as :func:`forward`'s (a vision prefix fills the first rows).
+    Attention-only patterns (:func:`supports_fused_prefill`).
 
     Returns (logits (B, S, vocab), cache) with the :func:`init_cache`
     layout."""
-    check_supported(cfg)
+    _attention_only(cfg, "fused prefill", "; use the stepwise prefill path")
     ct = dtype_of(cfg.compute_dtype)
-    x = _embed(params, batch["tokens"], ct)
+    x = _embed_inputs(params, batch, cfg, ct)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = []
-    for j, layer in enumerate(params["layers"]):
+    for j, (_, layer) in enumerate(_layers(params, cfg)):
         with _block_scope(cfg, j):
             x, c = _block_prefill(layer, x, cfg, positions, max_seq)
         cache.append(c)
@@ -326,9 +416,10 @@ def prefill(params, batch, cfg, max_seq: int):
 def serve_step(params, cache, batch, pos, cfg, pages=None):
     """Decode one token given caches of past state.
 
-    batch: {"tokens": (B, 1)}.  pos: int position (static batch) or (B,)
-    tensor of per-slot positions (continuous batching).  pages: optional
-    (B, n_blocks) int64 per-slot page tables — the cache is then the
+    batch: {"tokens": (B, 1)} (or {"embeds": (B, 1, D)} for the ``embed``
+    frontend).  pos: int position (static batch) or (B,) tensor of
+    per-slot positions (continuous batching).  pages: optional (B,
+    n_blocks) int64 per-slot page tables — the cache is then the
     :func:`init_paged_cache` pools and every attention read/write goes
     through the page indirection (same math, same mask).  The cache is
     updated in place.  Returns (logits (B, vocab), cache).
@@ -338,13 +429,12 @@ def serve_step(params, cache, batch, pos, cfg, pages=None):
     contracts the whole decode batch in one ``topk_gather`` launch when
     the executor (``cfg.ffn_sparsity.use_pallas``) engages the kernel.
     """
-    check_supported(cfg)
     ct = dtype_of(cfg.compute_dtype)
-    x = _embed(params, batch["tokens"], ct)
-    for j, (layer, c) in enumerate(zip(params["layers"], cache,
-                                       strict=True)):
+    x = _embed(params, batch, cfg, ct)
+    for j, ((kind, layer), c) in enumerate(zip(_layers(params, cfg), cache,
+                                               strict=True)):
         with _block_scope(cfg, j):
-            x, _ = _block_decode(layer, x, cfg, c, pos, pages)
+            x = _block_decode(kind, layer, x, cfg, c, pos, pages)
     return _logits(params, x, cfg, ct)[:, 0], cache
 
 
@@ -354,18 +444,18 @@ def prefill_chunk(params, cache, batch, pos_start: int, chunk_len: int, cfg,
     layer, scattering its KV rows into the slot's page chains in place
     (the paged layout's incremental prefill — long prompts run as a
     sequence of these interleaved with decode steps instead of one
-    :func:`prefill` call).
+    :func:`prefill` call).  Attention-only patterns.
 
-    batch: {"tokens": (1, C)}; pages: (1, n_blocks) int64 — the
-    prefilling slot's page table; rows past ``chunk_len`` are bucket
-    padding: their KV sinks to the null page and their logits are
-    garbage the engine ignores.
+    batch: {"tokens": (1, C)} (or {"embeds": (1, C, D)}); pages: (1,
+    n_blocks) int64 — the prefilling slot's page table; rows past
+    ``chunk_len`` are bucket padding: their KV sinks to the null page and
+    their logits are garbage the engine ignores.
     Returns (logits (1, C, vocab), cache)."""
-    check_supported(cfg)
+    _attention_only(cfg, "chunked prefill")
     ct = dtype_of(cfg.compute_dtype)
-    x = _embed(params, batch["tokens"], ct)
-    for j, (layer, c) in enumerate(zip(params["layers"], cache,
-                                       strict=True)):
+    x = _embed(params, batch, cfg, ct)
+    for j, ((_, layer), c) in enumerate(zip(_layers(params, cfg), cache,
+                                            strict=True)):
         with _block_scope(cfg, j):
             x, _ = _block_chunk_prefill(layer, x, cfg, c, pages, pos_start,
                                         chunk_len)

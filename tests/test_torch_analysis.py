@@ -395,12 +395,52 @@ def test_cli_reduced_config_and_kernels_exit_zero(capsys):
 
 
 def test_train_entry_and_unported_configs_raise():
-    """The configs ``check_supported`` rejects raise on every entry, the
-    training loss's too (the train entry itself is ported: next test)."""
+    """What the linter refuses is what the reference refuses: a block
+    kind the reference does not know raises on every entry, the training
+    loss's too (the train entry itself is ported: next test), and so does
+    an unknown entry.  The SSM patterns' paged decode and fused prefill
+    raise in the model, and ``lint_config`` skips them, as the
+    reference's does (``lint.py:259-260``, ``:284``)."""
+    bad = dataclasses.replace(t_get_config("smollm-360m").reduced(),
+                              block_pattern=("attn", "retention"),
+                              n_layers=4)
     for entries in (t_lint.PORTED_ENTRIES, ("train",)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lint_config("zamba2-1.2b", entries=entries, reduced=True,
-                        device="cpu")
+        with pytest.raises(ValueError, match="unknown block kind"):
+            lint_config(bad, entries=entries, device="cpu")
+    cfg = t_lint.resolve_config("zamba2-1.2b", reduced=True)
+    with pytest.raises(ValueError, match="unknown entry"):
+        t_lint.entry_args(cfg, "decode_chunked", "cpu")
+    for entry in ("decode_paged", "prefill"):
+        with pytest.raises(NotImplementedError):
+            fn, args = t_lint.entry_args(cfg, entry, "cpu", SLOTS, SEQ,
+                                         MAX_SEQ)
+            fn(*args)
+    report = lint_config(cfg, entries=("decode_paged", "prefill"),
+                         device="cpu")
+    assert report.entries == [] and report.findings == []
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m",
+                                  "musicgen-large", "internvl2-2b"])
+def test_ssm_and_frontend_configs_lint_clean(arch):
+    """The SSM/hybrid and frontend configs lint clean, reduced, on every
+    entry they have (the train entry too; xLSTM has no FFN, so no kernel
+    entry): zamba2's shared block keyed
+    ``b18_shared_attn/ffn`` in the Select model, the SSM kinds without a
+    key, the decode and sequence batches of each frontend."""
+    cfg = t_lint.resolve_config(arch, reduced=True)
+    report = lint_config(cfg, entries=t_lint.ENTRIES, device="cpu")
+    assert report.findings == [], report.render()
+    ssm = not all(k in ("attn", "shared_attn") for k in cfg.block_pattern)
+    skipped = {"decode_paged", "prefill"} if ssm else set()
+    if cfg.d_ff == 0:                   # xLSTM: no FFN, no kernel entry
+        skipped.add("kernel")
+    assert sorted(report.entries) == sorted(set(t_lint.ENTRIES) - skipped)
+    exp = t_lint.expected_selects(cfg, SLOTS)
+    if arch == "zamba2-1.2b":
+        assert set(exp) == {"b18_shared_attn/ffn"}
+    elif arch == "xlstm-350m":
+        assert exp == {}
 
 
 @pytest.mark.parametrize("kwta_impl", ["bisect", "topk"])

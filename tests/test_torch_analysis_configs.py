@@ -26,3 +26,14 @@ def test_served_configs_lint_clean(arch, reduced):
     report = lint_config(arch, reduced=reduced, device="cpu")
     assert report.entries == list(PORTED_ENTRIES)
     assert report.ok, report.render()
+
+
+def test_zamba2_full_scale_decode_lints_clean(capsys):
+    """zamba2-1.2b as shipped (36 Mamba2 blocks and the shared attention
+    block at both of its invocations): its decode entry at full scale is
+    clean, through the CLI, which skips the paged decode and the fused
+    prefill that the pattern does not have."""
+    rc = cli_main(["--config", "zamba2-1.2b", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "clean: 0 findings over decode, kernel" in out

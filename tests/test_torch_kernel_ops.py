@@ -599,16 +599,16 @@ def test_ops_keep_the_input_type_and_record_nothing_under_no_grad():
 # ---------------------------------------------------------------------------
 
 def test_registry_sweeps_are_the_references():
-    """The reference's sweeps; ``TOPK_GATHER_SWEEP`` adds the MoE serving
-    shape after them."""
+    """The reference's sweeps; ``TOPK_GATHER_SWEEP`` adds the MoE and the
+    zamba2 serving shapes after them."""
     for name in ("GROUPED_CS_SWEEP", "PACKED_MATMUL_SWEEP",
                  "KWTA_HIST_SWEEP"):
         assert getattr(t_registry, name) == getattr(j_registry, name)
     n_ref = len(j_registry.TOPK_GATHER_SWEEP)
     assert (t_registry.TOPK_GATHER_SWEEP[:n_ref]
             == j_registry.TOPK_GATHER_SWEEP)
-    assert t_registry.TOPK_GATHER_SWEEP[n_ref:] == ((4, 352, 704, 512, 4,
-                                                     128),)
+    assert t_registry.TOPK_GATHER_SWEEP[n_ref:] == (
+        (4, 352, 704, 512, 4, 128), (4, 1024, 2048, 512, 4, 128))
 
 
 def test_ref_topk_support_matches_jax():

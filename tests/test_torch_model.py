@@ -88,6 +88,46 @@ def test_prefill_and_decode_match_reference(smollm):
     _assert_cache_close(tc, jc, cfg, p_len + 4)
 
 
+@pytest.mark.parametrize("kwta_impl", ["topk", "bisect"])
+def test_proj_sparsity_matches_reference(kwta_impl):
+    """``proj_sparsity`` set (n=4, k_frac=0.25): q/k/v/o CS-packed and the
+    attention output's k-WTA support handed to the o-projection
+    (``_o_proj``), with exact top-k and with ``bisect``.  The forward, a
+    prefill and 4 decode steps (2 slots: B·K < d_in, the topk path) within
+    ATOL of the reference's."""
+    from repro.core import SparsityConfig as JSparsity
+    from repro_torch.core import SparsityConfig
+    sp = dict(n=4, k_frac=0.25, kwta_impl=kwta_impl)
+    jcfg = jget_config("smollm-360m").reduced(**BASE,
+                                              proj_sparsity=JSparsity(**sp))
+    cfg = get_config("smollm-360m").reduced(
+        **BASE, proj_sparsity=SparsityConfig(**sp))
+    jparams, params = _bridged(jcfg, cfg, seed=4)
+    assert "packed_p" in params["layers"][0]["mixer"]["o"]
+    b, p_len, max_seq = 2, 9, 16
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (b, p_len))
+    jf, _ = jax.jit(lambda p, t: JT.forward(p, {"tokens": t}, jcfg))(
+        jparams, jnp.asarray(toks))
+    tf, _ = T.forward(params, {"tokens": torch.from_numpy(toks)}, cfg)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), atol=ATOL)
+    jl, jc = jax.jit(lambda p, t: JT.prefill(p, {"tokens": t}, jcfg,
+                                             max_seq))(jparams,
+                                                       jnp.asarray(toks))
+    tl, tc = T.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
+                       max_seq)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    step = jax.jit(lambda p, c, t, pos: JT.serve_step(p, c, {"tokens": t},
+                                                      pos, jcfg))
+    for i in range(4):
+        nt = rng.integers(0, cfg.vocab_size, (b, 1))
+        jl, jc = step(jparams, jc, jnp.asarray(nt), p_len + i)
+        tl, tc = T.serve_step(params, tc, {"tokens": torch.from_numpy(nt)},
+                              p_len + i, cfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    _assert_cache_close(tc, jc, cfg, p_len + 4)
+
+
 def test_vector_positions_match_scalar(smollm):
     """A (B,) position vector with equal entries equals the int-position
     decode — the continuous-batching contract."""
@@ -197,13 +237,27 @@ def test_init_model_layout_routes_and_distributions():
 
 
 def test_unported_block_kinds_raise():
-    """What the port still lacks raises: the SSM/hybrid block patterns
-    and the modality frontends (MLA, MoE and the int8 cache are ported:
-    tests/test_torch_moe*.py, test_torch_mla.py,
-    test_torch_kvcache_variants.py)."""
-    for arch, what in (("zamba2-1.2b", "block pattern"),
-                       ("xlstm-350m", "block pattern"),
-                       ("musicgen-large", "frontend"),
-                       ("internvl2-2b", "frontend")):
-        with pytest.raises(NotImplementedError, match=what):
-            T.init_model(get_config(arch).reduced(), device="cpu")
+    """What the port refuses is what the reference refuses.  Every shipped
+    block pattern and frontend is ported (the SSM/hybrid patterns and the
+    frontends: tests/test_torch_archs.py, test_torch_ssm.py): the four
+    last ones initialise; a block kind the reference does not know raises
+    its ``ValueError``; ``Engine.serve`` raises ``NotImplementedError`` on
+    a pattern without a fused prefill, on either layout."""
+    from repro_torch.launch.serve import Engine
+    from repro_torch.runtime.scheduler import Request
+    for arch in ("zamba2-1.2b", "xlstm-350m", "musicgen-large",
+                 "internvl2-2b"):
+        params = T.init_model(get_config(arch).reduced(), device="cpu")
+        assert T.param_count(params) > 0
+    bad = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              block_pattern=("attn", "retention"),
+                              n_layers=4)
+    with pytest.raises(ValueError, match="unknown block kind retention"):
+        T.init_model(bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind retention"):
+        T.init_cache(bad, 1, 8, device="cpu")
+    for layout in ("contiguous", "paged"):
+        eng = Engine(get_config("zamba2-1.2b").reduced(), max_seq=16,
+                     n_slots=2, device="cpu", kv_layout=layout)
+        with pytest.raises(NotImplementedError, match="no fused prefill"):
+            eng.serve([Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)])

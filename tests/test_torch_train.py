@@ -12,6 +12,7 @@ tests/test_train_loop.py), and the CLI."""
 import dataclasses
 import os
 import signal
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from repro.models import transformer as JT
 from repro.models.common import cross_entropy as j_cross_entropy
 from repro.optim import init_state as j_init_state
 from repro_torch import checkpoint as ckpt
+from repro_torch.checkpoint import ckpt as ckpt_module
 from repro_torch.bridge import params_from_jax, train_params_from_jax
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ShapeConfig
@@ -266,6 +268,41 @@ def test_resume_is_deterministic(tmp_path):
     assert len(ref) == len(got)
     for a, b in zip(ref, got):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+def test_run_waits_for_its_async_checkpoint(tmp_path, monkeypatch):
+    """The interleaving behind a flaky resume, forced: the step-5 async
+    writer holds its commit back (up to 1 s) while ``run(5)`` ends.  When
+    ``run`` returns every writer it started has committed, step 5 is
+    written once, and a restart resumes from it.  A writer still running
+    after ``run`` would later take the commit, delete ``step_5`` and
+    commit it again under a restart's reader."""
+    release = threading.Event()
+    writers, written = [], []
+    write = ckpt_module._write
+
+    def slow_write(directory, step, *rest):
+        if threading.current_thread() is not threading.main_thread():
+            writers.append(threading.current_thread())
+            release.wait(timeout=1.0)
+        path = write(directory, step, *rest)
+        written.append(step)
+        return path
+
+    monkeypatch.setattr(ckpt_module, "_write", slow_write)
+    trainer, batch_fn, *_ = _mk_trainer(tmp_path, total=10)
+    try:
+        trainer.run(5, batch_fn)
+        alive = [w for w in writers if w.is_alive()]
+        at_return = list(written)
+    finally:
+        release.set()
+        for w in writers:
+            w.join(timeout=10)
+    assert len(writers) == 1 and not alive, "run returned before its writer"
+    assert at_return == [5], at_return
+    fresh, *_ = _mk_trainer(tmp_path, total=10)
+    assert fresh.try_resume() and fresh.step == 5
 
 
 def test_rollback_on_nan(tmp_path):
