@@ -162,6 +162,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    then its times beside one library call and its bound (row 1's
    ``hybrid_shape``).  Phase 8 also lints zamba2-1.2b's decode step at
    full width on fake CUDA tensors.
+13. mesh — training on a mesh (``repro_torch.launch.mesh``,
+   ``repro_torch.sharding``, ZeRO-1, the int8 sync, GPipe), which
+   launches none of the kernels: smollm-360m at its shipped widths in
+   float32 (masters and compute), batch 8 x 128, ZeRO-1 on, the reference
+   comparison's ``TrainConfig(lr=1e-3)`` (a 100-step warmup), under
+   ``use_deterministic_algorithms``; every part in fresh processes
+   (``spawn``).  (b) four gloo ranks sharing the card on mesh 2x2 (data x
+   model): 5 steps through ``Trainer.run`` (every rank the same loss; each
+   rank's param and moment bytes equal to the reference's per-device
+   shards reckoned from the rule table on its stacked layout; the
+   host-clock step; the params' gather and the gradient mean alone; peak
+   memory), the run's step-5 checkpoint, the uninterrupted step 6 (the
+   k-WTA selections of all 6 steps kept), and the checkpoint restored
+   onto 4x1 (params and moments gathered whole bit-equal to the
+   checkpoint's) for one more step; (c) on the same
+   ranks, ``make_compressed_grad_sync`` on mesh 2x2 (pod x data) over a
+   gradient tree of smollm's shapes (within an int8 step of the exact pod
+   mean, the residual input - sent bit for bit) and ``pipeline_apply`` of
+   4 full-width decoder blocks on mesh 4 (pipe), n_micro 4, against the
+   blocks in sequence on each microbatch (1e-5), and which collectives
+   gloo runs on CUDA tensors; (a) in a fresh process, the single-device
+   Trainer and the Trainer on mesh 1x1 over NCCL at world size 1 (1e-6:
+   bit-equal expected), (b)'s losses (1e-5 relative) and step-5 params
+   (1e-5, which must lie below the smallest move of a leaf in step 5's
+   update: a skipped update would part by that much) against (a)'s, and
+   (b)'s checkpoint restored onto 1x1 (bit-equal to the checkpoint) for
+   one more step, whose params hold to the same 1e-5.  (a) and the restores hold (b)'s k-WTA selections: the
+   partitionings differ in f32 order, and a bisect threshold within an
+   ulp of a unit flips it.  ``[mesh]`` lines and a ``[mesh] numbers
+   {...}`` JSON line.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -177,9 +207,11 @@ import functools
 import importlib
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3272,6 +3304,640 @@ def phase_hybrid():
             "launches_per_decode_step_internvl2": per_step["internvl2-2b"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 5
+MESH_DIR = ROOT / "build" / "mesh"
+# cuBLAS's workspace setting for use_deterministic_algorithms, set before
+# a process starts CUDA
+MESH_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# params: between (b)'s reading against (a) (1.8e-6) and the smallest
+# per-leaf move of step 5's update (~4.5e-5: what a skipped ZeRO-1 slice
+# update would part by), which the phase prints and holds above it
+MESH_TOL = dict(world1=1e-6, loss_rel=1e-5, params=1e-5, pipe=1e-5)
+MESH_LAYERS = 32        # one bisect k-WTA call a layer a forward
+
+
+def mesh_setup(ckpt_dir):
+    """smollm-360m at its shipped widths, float32 masters and float32
+    compute (with bf16 compute the DP mean of bf16-rounded half-batch
+    gradients differs from the whole batch's by up to a bf16 ulp), and the
+    reference comparison's ``TrainConfig(lr=1e-3)``
+    (tests/test_distributed.py:39: a 100-step warmup).  Under phase 11's
+    2-step warmup the partitionings part by 2.2e-4 after 5 steps (Adam
+    scales the f32-order parting of gradients near its eps up to a
+    fraction of lr), a quarter of a step's smallest per-leaf move; under
+    this warmup they part by ~1.8e-6 against moves of ~4.5e-5."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              compute_dtype="float32")
+    shape = ShapeConfig("phase13", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=100, total_steps=1000,
+                       ckpt_dir=str(ckpt_dir), checkpoint_every=1000,
+                       log_every=1000)
+    return cfg, shape, tcfg
+
+
+def mesh_batch(cfg, shape, step, device):
+    from repro_torch.data import batch_for, canonical
+    return {k: torch.from_numpy(canonical(v)).to(device)
+            for k, v in batch_for(cfg, shape, step, seed=0).items()}
+
+
+def mesh_steps(trainer, steps):
+    """Steps ``trainer.step`` .. ``steps - 1`` through
+    ``Trainer.train_step`` (no checkpoint); returns each step's loss."""
+    losses = []
+    while trainer.step < steps:
+        batch = mesh_batch(trainer.cfg, trainer.shape, trainer.step,
+                           trainer.device)
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        trainer.step += 1
+    return losses
+
+
+def mesh_rows(trainer):
+    """This rank's rows of the global batch (its DP block)."""
+    return trainer.rules.sharding_for(
+        ("batch", None), (TRAIN_BATCH, TRAIN_SEQ)).block(
+        (TRAIN_BATCH, TRAIN_SEQ))[0]
+
+
+def mesh_held(masks, steps, rows, device):
+    """The k-WTA selections ``masks[step][layer]`` of ``steps`` as an
+    iterator of held masks: ``rows`` of each, on ``device``.  Two
+    partitionings of a step differ in f32 order, and a bisect threshold
+    within an ulp of a unit flips it (the repo's parity rule: hold the
+    selections)."""
+    return iter([m[rows].to(device) for s in steps for m in masks[s]])
+
+
+def state_bytes(trainer):
+    """This rank's bytes: params, and the float leaves' moments."""
+    from repro_torch.tree import leaves
+    params = leaves(trainer.params)
+    moments = [t for key in ("mu", "nu")
+               for t, p in zip(leaves(trainer.opt[key]), params)
+               if p.is_floating_point()]
+    return (sum(t.numel() * t.element_size() for t in params),
+            sum(t.numel() * t.element_size() for t in moments))
+
+
+def full_params(trainer):
+    """The trainer's params gathered whole (every rank takes part), on the
+    host, path -> tensor."""
+    from repro_torch.sharding.collectives import gather_leaves
+    from repro_torch.tree import flatten, leaves
+    whole = gather_leaves(leaves(trainer.params),
+                          leaves(trainer.shardings["params"]),
+                          trainer.shapes)
+    return {k: t.to("cpu", copy=True) for (k, _), t in
+            zip(flatten(trainer.params), whole)}
+
+
+def reckoned_bytes(trainer):
+    """The reference's per-device bytes on the trainer's mesh, reckoned
+    from the rule table on the reference's layout (the units stacked):
+    the params' ``param_sharding`` and the moments' ZeRO-1 specs."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import NamedSharding
+    from repro_torch.sharding.context import map_specs
+    from repro_torch.tree import flatten
+    cfg, rules, n = trainer.cfg, trainer.rules, len(trainer.cfg.block_pattern)
+    info = {}
+    for (path, t), shape in zip(flatten(trainer.params), trainer.shapes):
+        keys = path.split("/")
+        if keys[0] == "layers":
+            if int(keys[1]) >= n:
+                continue
+            keys = ["units", f"b{keys[1]}"] + keys[2:]
+            shape = (cfg.n_units, *shape)
+        node = info
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = (shape, t.element_size(), t.is_floating_point())
+    specs = T.param_specs(cfg)
+    zspecs = St.zero1_specs(specs, map_specs(lambda s, i: i[0], specs, info),
+                            rules)
+    m_size = torch.empty((), dtype=trainer.acfg.moment_dtype).element_size()
+
+    def count(spec, zspec, i):
+        shape, size, is_float = i
+        p = math.prod(NamedSharding(rules.mesh, rules.spec_for(
+            spec, shape)).shard_shape(shape)) * size
+        m = math.prod(NamedSharding(rules.mesh, rules.spec_for(
+            zspec, shape)).shard_shape(shape)) * 2 * m_size
+        return p, m if is_float else 0
+
+    def total(tree):
+        if isinstance(tree, dict):
+            return [sum(x) for x in zip(*(total(v) for v in tree.values()))]
+        return list(tree)
+
+    return tuple(total(map_specs(count, specs, zspecs, info)))
+
+
+def ckpt_leaves(step_dir, prefix=""):
+    """The leaves of a checkpoint on the host, path -> tensor, those under
+    ``prefix`` with it taken off."""
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    with np.load(step_dir / "shard_p0.npz") as data:
+        return {p[len(prefix):]: torch.from_numpy(data[f"leaf_{i:05d}"])
+                for i, p in enumerate(manifest["treedef"])
+                if p.startswith(prefix)}
+
+
+def equal_leaves(got, want):
+    """How many leaves of ``want`` (path -> tensor) ``got`` holds bit for
+    bit, and how many ``want`` has."""
+    return (sum(k in got and torch.equal(got[k].cpu(), want[k])
+                for k in want), len(want))
+
+
+def step_moves(before, after):
+    """The largest |after - before| of each float leaf: the smallest of
+    them is how far a leaf whose update was skipped would part."""
+    return [float((after[k] - before[k]).abs().max()) for k in after
+            if after[k].is_floating_point()]
+
+
+def collective_times(trainer, reps=3):
+    """Host-clock times of two of the step's collectives alone at its
+    sizes, median of ``reps``: the params gathered over ``model`` (the
+    step's first act) and the gradient mean's ``all_reduce`` over the DP
+    group (one float32 buffer of every float leaf)."""
+    from repro_torch.sharding import dp_axes
+    from repro_torch.sharding.collectives import gather_leaves, summed
+    from repro_torch.tree import leaves
+    params = leaves(trainer.params)
+    p_sh = leaves(trainer.shardings["params"])
+    floats = [s for s, t in zip(trainer.shapes, params)
+              if t.is_floating_point()]
+    group = trainer.mesh.group(dp_axes(trainer.mesh))
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    return {"gather_model": timed(lambda: gather_leaves(params, p_sh,
+                                                        trainer.shapes)),
+            "grad_mean": timed(lambda: summed(floats, lambda i, b: None,
+                                              group, trainer.device))}
+
+
+def max_diff(a, b):
+    """Largest |a - b| over two path -> tensor dicts (float leaves), on
+    the card."""
+    return max(float((a[k].cuda() - b[k].cuda()).abs().max())
+               for k in a if a[k].is_floating_point())
+
+
+def gloo_cuda_probe(device):
+    """Which collectives gloo runs on CUDA tensors here (the mesh path
+    takes all_reduce, broadcast and all_gather_into_tensor on them, and
+    sends the pipeline's ring shift through host copies)."""
+    import torch.distributed as dist
+    world, x = dist.get_world_size(), torch.ones(4, device=device)
+    out = {}
+    for name, call in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * world, device=device), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, device=device), x.repeat(world)))):
+        try:
+            call()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:70]}"
+    return out
+
+
+def compressed_sync_check(trainer):
+    """(c) ``make_compressed_grad_sync`` on mesh (2, 2) (pod, data) over a
+    gradient tree of smollm's shapes, each pod's drawn from its seed:
+    the mean within each leaf's int8 step of the exact pod mean, and the
+    residual equal to input - sent, bit for bit."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import (dequantize_int8, init_residuals,
+                                   make_compressed_grad_sync, quantize_int8)
+    from repro_torch.tree import flatten
+    mesh = make_mesh((2, 2), ("pod", "data"), trainer.device)
+    pod = mesh.coords["pod"]
+    shapes = {k: s for (k, t), s in zip(flatten(trainer.params),
+                                        trainer.shapes)
+              if t.is_floating_point()}
+    floats = list(shapes)
+
+    def grads_of(p):
+        gen = torch.Generator(device=trainer.device).manual_seed(1000 + p)
+        return {k: 1e-3 * torch.randn(shapes[k], generator=gen,
+                                      device=trainer.device) for k in floats}
+
+    mine, other = grads_of(pod), grads_of(1 - pod)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, resid = make_compressed_grad_sync(mesh, "pod")(
+        mine, init_residuals(mine, 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    worst, exact = 0.0, 0
+    for k in floats:
+        step = max(float(mine[k].abs().max()), float(other[k].abs().max()))
+        err = float((out[k] - (mine[k] + other[k]) / 2).abs().max()) / (
+            step / 127)
+        worst = max(worst, err)
+        sent = dequantize_int8(*quantize_int8(mine[k]))
+        exact += bool(torch.equal(resid[k][0], mine[k] - sent))
+    return {"leaves": len(floats), "worst_err_in_int8_steps": worst,
+            "resid_exact": exact, "ms": ms,
+            "numel": sum(mine[k].numel() for k in floats)}
+
+
+def pipeline_check(device):
+    """(c) ``pipeline_apply`` of 4 smollm decoder blocks at full width in
+    float32 on mesh (4,) (pipe), n_micro 4, batch 8 x 128, against the 4
+    blocks applied in sequence to each microbatch (the rows a GEMM takes
+    change its f32 rounding and so the k-WTA selections at near-ties; the
+    whole batch through the blocks is printed beside it)."""
+    from repro_torch.core.layers import drop_partition_major
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import bubble_fraction, pipeline_apply
+    from repro_torch.tree import map_tree
+    cfg, shape, _ = mesh_setup(MESH_DIR / "pipe")
+    mesh = make_mesh((4,), ("pipe",), device)
+    stage = mesh.coords["pipe"]
+    blocks = []
+    for s in range(4):      # the training layout, as loss_fn takes it
+        gen = torch.Generator(device=device).manual_seed(s)
+        blocks.append(drop_partition_major(T._block_init("attn", gen, cfg)))
+    gen = torch.Generator(device=device).manual_seed(99)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=device)
+
+    def stage_fn(p, h):
+        pos = torch.arange(h.shape[1], device=device).expand(h.shape[0], -1)
+        return T._block_apply("attn", p, h, cfg, pos)[0]
+
+    def in_sequence(h):
+        for p in blocks:
+            h = stage_fn(p, h)
+        return h
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = pipeline_apply(stage_fn, mesh, "pipe",
+                           map_tree(lambda p: p[None], blocks[stage]), x, 4)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        micro = torch.cat([in_sequence(m) for m in x.chunk(4)])
+        whole = in_sequence(x)
+    return {"max_abs_err": float((y - micro).abs().max()),
+            "whole_batch_err": float((y - whole).abs().max()),
+            "ref_max": float(micro.abs().max()), "ms": ms,
+            "bubble": bubble_fraction(4, 4)}
+
+
+def mesh_gloo(rank):
+    """(b) and (c) on one of four gloo ranks sharing the card: 6 steps on
+    mesh 2x2 keeping their k-WTA selections (its rows) for (a), the
+    step-5 checkpoint restored onto 4x1 for one more step holding them,
+    the int8 sync and GPipe."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    torch.use_deterministic_algorithms(True)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out = {"rank": rank}
+    cfg, shape, tcfg = mesh_setup(MESH_DIR / "b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, make_mesh((2, 2), ("data", "model"),
+                                           device), shape)
+    out["build_s"] = time.perf_counter() - t
+    out["bytes"] = state_bytes(trainer)
+    out["reckoned"] = reckoned_bytes(trainer)
+    rows = mesh_rows(trainer)
+    reset_counts()
+    losses, check = [], trainer.guard.check
+    trainer.guard.check = lambda loss: losses.append(loss) or check(loss)
+    t = time.perf_counter()
+    with kwta_selections() as flat:
+        # Trainer.run, which checkpoints the step-5 state at its end
+        trainer.run(MESH_STEPS, lambda s: batch_for_cfg(cfg, shape, s),
+                    log=lambda *a: None)
+        out["run_s"] = time.perf_counter() - t
+        out["launches"] = read_counts()
+        out["peak"] = torch.cuda.max_memory_allocated(device)
+        # the uninterrupted step 6
+        out["loss6"] = mesh_steps(trainer, MESH_STEPS + 1)[0]
+    trainer.guard.check = check
+    out["collectives_ms"] = collective_times(trainer)
+    out["losses"] = losses
+    out["step_ms"] = [e.duration * 1e3 for e in trainer.monitor.events]
+    if len(flat) != MESH_LAYERS * (MESH_STEPS + 1):
+        fail(f"mesh: {len(flat)} k-WTA selections in 6 steps")
+    masks = [[m.cpu() for m in flat[s * MESH_LAYERS:(s + 1) * MESH_LAYERS]]
+             for s in range(MESH_STEPS + 1)]
+    del flat
+    if trainer.mesh.coords["model"] == 0:
+        torch.save(masks, MESH_DIR / f"masks_{rows.start}.pt")
+    full6 = full_params(trainer)
+    if rank == 0:
+        torch.save(full6, MESH_DIR / "b_step6.pt")
+    del trainer
+    torch.cuda.empty_cache()
+    dist.barrier()          # masks, checkpoint and step 6 on disk: (a) may
+    if rank == 0:           # start beside the rest of (b) and (c)
+        (MESH_DIR / "ready").touch()
+    # the step-5 checkpoint restored onto (4, 1), one more step holding
+    # the selections of its rows
+    t = time.perf_counter()
+    wide = Trainer(cfg, tcfg, make_mesh((4, 1), ("data", "model"), device),
+                   shape)
+    out["resumed_4x1"] = wide.try_resume() and wide.step
+    out["restore_4x1_s"] = time.perf_counter() - t
+    # the restored params and moments, gathered whole, against the
+    # checkpoint's leaves
+    restored = wide.full_state()
+    if rank == 0:
+        out["restored_equal_4x1"] = equal_leaves(host_tree(restored),
+                                                 ckpt_leaves(
+            MESH_DIR / "b" / f"step_{MESH_STEPS:08d}"))
+    del restored
+    mine = mesh_rows(wide)
+    within = slice(mine.start - rows.start, mine.stop - rows.start)
+    with kwta_selections(mesh_held(masks, [MESH_STEPS], within, device)):
+        out["loss6_4x1"] = mesh_steps(wide, MESH_STEPS + 1)[0]
+    out["diff6_4x1"] = max_diff(full_params(wide), full6)
+    out["bytes_4x1"] = state_bytes(wide)
+    out["reckoned_4x1"] = reckoned_bytes(wide)
+    del wide, full6, masks
+    torch.cuda.empty_cache()
+    holder = Trainer(cfg, tcfg, make_mesh((2, 2), ("data", "model"), device),
+                     shape)
+    out["sync"] = compressed_sync_check(holder)
+    del holder
+    torch.cuda.empty_cache()
+    out["pipe"] = pipeline_check(device)
+    out["gloo_cuda"] = gloo_cuda_probe(device)
+    out["peak_all"] = torch.cuda.max_memory_allocated(device)
+    dist.barrier()
+    return out
+
+
+def batch_for_cfg(cfg, shape, step):
+    from repro_torch.data import batch_for
+    return batch_for(cfg, shape, step, seed=0)
+
+
+def mesh_single():
+    """(a) in a fresh process under ``use_deterministic_algorithms``,
+    holding (b)'s k-WTA selections: the single-device Trainer (no process
+    group) for 5 steps, (b)'s step-5 params against it; the Trainer on
+    mesh 1x1 over NCCL at world size 1 for 5 steps against it; (b)'s
+    checkpoint restored onto that 1x1 mesh for one more step against
+    (b)'s uninterrupted step 6.  Writes build/mesh/single.json."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    torch.use_deterministic_algorithms(True)
+    parts = [torch.load(MESH_DIR / f"masks_{r}.pt")
+             for r in range(0, TRAIN_BATCH, TRAIN_BATCH // 2)]
+    masks = [[torch.cat([p[s][j] for p in parts])
+              for j in range(MESH_LAYERS)] for s in range(MESH_STEPS + 1)]
+    every = slice(0, TRAIN_BATCH)
+    out = {}
+    cfg, shape, tcfg = mesh_setup(MESH_DIR / "single")
+    single = Trainer(cfg, tcfg, (1, 1), shape, device="cuda")
+    with kwta_selections(mesh_held(masks, range(MESH_STEPS), every,
+                                   single.device)):
+        out["single_losses"] = mesh_steps(single, MESH_STEPS - 1)
+        before = host_tree(single.params)
+        out["single_losses"] += mesh_steps(single, MESH_STEPS)
+    want = host_tree(single.params)
+    moves = step_moves(before, want)
+    out["step5_move"] = [min(moves), max(moves)]
+    del single, before
+    torch.cuda.empty_cache()
+    b5 = MESH_DIR / "b" / f"step_{MESH_STEPS:08d}"
+    got = ckpt_leaves(b5, "params/")
+    out["diff_b_a"] = max_diff(got, want)
+    del got
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR}/store1",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg, shape, tcfg = mesh_setup(MESH_DIR / "world1")
+        t = Trainer(cfg, tcfg, mesh, shape)
+        out["backend"] = dist.get_backend()
+        out["bytes"] = state_bytes(t)
+        reset_counts()
+        with kwta_selections(mesh_held(masks, range(MESH_STEPS), every,
+                                       t.device)):
+            out["losses"] = mesh_steps(t, MESH_STEPS)
+        out["launches"] = read_counts()
+        got = host_tree(t.params)
+        out["diff_single"] = max_diff(got, want)
+        out["equal_leaves"] = sum(torch.equal(got[k], want[k]) for k in got)
+        out["leaves"] = len(got)
+        del t, got, want
+        torch.cuda.empty_cache()
+        # (b)'s checkpoint onto 1x1, one more step
+        _, _, tcfg_b = mesh_setup(MESH_DIR / "b")
+        r = Trainer(cfg, tcfg_b, mesh, shape)
+        out["resumed_1x1"] = r.try_resume() and r.step
+        out["restored_equal_1x1"] = equal_leaves(
+            host_tree(r.state_tree()), ckpt_leaves(b5))
+        with kwta_selections(mesh_held(masks, [MESH_STEPS], every,
+                                       r.device)):
+            out["loss6_1x1"] = mesh_steps(r, MESH_STEPS + 1)[0]
+        out["diff6_1x1"] = max_diff(host_tree(r.params),
+                                    torch.load(MESH_DIR / "b_step6.pt"))
+    finally:
+        dist.destroy_process_group()
+    (MESH_DIR / "single.json").write_text(json.dumps(out))
+
+
+def phase_mesh():
+    """Phase 13: (b) and (c) on four gloo ranks sharing the card, and (a)
+    with the restore onto 1x1 in a fresh process at NCCL world size 1,
+    started beside the ranks once (b) has written its selections, its
+    checkpoint and its step 6 (the 4x1 restore's, the sync's and GPipe's
+    times share the card with it)."""
+    import os
+    import shutil
+    from repro_torch.launch.ranks import run_ranks
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in MESH_ENV}
+    os.environ.update(MESH_ENV)
+    done = {}
+
+    def gloo():
+        try:
+            done["ranks"] = run_ranks(mesh_gloo, 4, MESH_DIR / "ranks",
+                                      backend="gloo", timeout_s=600,
+                                      threads=2)
+        except BaseException as e:      # raised again below, in this thread
+            done["error"] = e
+        done["s"] = time.perf_counter() - t0
+
+    ranks_thread = threading.Thread(target=gloo)
+    ranks_thread.start()
+    try:
+        # (a) starts once (b) has written what it reads, and shares the
+        # card with the rest of (b) and (c)
+        while not (MESH_DIR / "ready").exists() and ranks_thread.is_alive():
+            time.sleep(0.5)
+        t = time.perf_counter()
+        if (MESH_DIR / "ready").exists():
+            run_fresh("mesh_single()", env=MESH_ENV)
+        t_a = time.perf_counter() - t
+    finally:
+        ranks_thread.join()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if "error" in done:
+        raise done["error"]
+    ranks, t_b = done["ranks"], done["s"]
+    a = r1 = json.loads((MESH_DIR / "single.json").read_text())
+    r0 = ranks[0]
+    tol = MESH_TOL
+    four = ("topk_gather", "packed_matmul", "grouped_cs_matmul", "kwta_hist")
+    failed = []
+
+    print(f"[mesh] smollm-360m at its shipped widths (32 layers, d_model "
+          f"960, d_ff 2560, vocab 49152), float32 masters and compute, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, ZeRO-1 on, {MESH_STEPS} "
+          f"steps, lr 1e-3 warmup 100, use_deterministic_algorithms; (a) "
+          f"and the restores hold (b)'s k-WTA selections")
+    single5 = a["single_losses"]
+    da = abs(np.array(a["losses"]) - np.array(single5)).max()
+    print(f"[mesh] (a) mesh 1x1 over {a['backend']} at world size 1 against "
+          f"the single-device Trainer: losses {a['losses']}; largest loss "
+          f"difference {da:.3e}, params {a['diff_single']:.3e} "
+          f"({a['equal_leaves']} of {a['leaves']} leaves bit-equal) "
+          f"tol={tol['world1']:.0e}; kernel launches "
+          f"{ {k: a['launches'][k] for k in four} }")
+    if not (da <= tol["world1"] and a["diff_single"] <= tol["world1"]):
+        failed.append("the 1x1 mesh step parts from the single-device step")
+
+    rel = [abs(x - y) / abs(y) for x, y in zip(r0["losses"], single5)]
+    print(f"[mesh] (b) mesh 2x2 (data x model), four gloo ranks sharing the "
+          f"card: losses {r0['losses']} (relative to (a) "
+          f"{', '.join(f'{x:.2e}' for x in rel)}; tol {tol['loss_rel']:.0e})"
+          f", every rank the same loss "
+          f"{all(r['losses'] == r0['losses'] for r in ranks)}; params after "
+          f"step {MESH_STEPS} against (a) {r1['diff_b_a']:.3e} "
+          f"(tol {tol['params']:.0e}; step {MESH_STEPS}'s update moves each "
+          f"leaf by {a['step5_move'][0]:.3e} to {a['step5_move'][1]:.3e} "
+          f"at most); kernel launches "
+          f"{ {k: r0['launches'][k] for k in four} }")
+    if not a["step5_move"][0] > tol["params"]:
+        failed.append("the params bound cannot see a skipped update")
+    if not (max(rel) <= tol["loss_rel"] and r1["diff_b_a"] <= tol["params"]
+            and all(r["losses"] == r0["losses"] for r in ranks)):
+        failed.append("the 2x2 steps part from the single-device ones")
+    if any(r["launches"][k] for r in ranks for k in four) or any(
+            a["launches"][k] for k in four):
+        failed.append("a kernel of the library ran in a training step")
+    one_p, one_m = a["bytes"]
+    for r in ranks:
+        print(f"[mesh] (b) rank {r['rank']}: param bytes {r['bytes'][0]} "
+              f"(1x1 {one_p}, reckoned from the rules {r['reckoned'][0]}), "
+              f"moment bytes {r['bytes'][1]} (1x1 {one_m}, reckoned "
+              f"{r['reckoned'][1]}); on 4x1 {r['bytes_4x1']} (reckoned "
+              f"{r['reckoned_4x1']}); peak max_memory_allocated "
+              f"{r['peak'] / 2**30:.2f} GiB in the steps, "
+              f"{r['peak_all'] / 2**30:.2f} GiB in the phase")
+        if tuple(r["bytes"]) != tuple(r["reckoned"]) or tuple(
+                r["bytes_4x1"]) != tuple(r["reckoned_4x1"]):
+            failed.append("a rank's bytes are not the reckoned shard's")
+    steps = r0["step_ms"][1:]
+    print(f"[mesh] (b) host-clock step (steps 2-{MESH_STEPS}, loss read "
+          f"back): median {np.median(steps):.1f} ms, min {min(steps):.1f}, "
+          f"max {max(steps):.1f}; first {r0['step_ms'][0]:.1f} ms; Trainer "
+          f"built in {r0['build_s']:.1f} s; run with its step-5 checkpoint "
+          f"{r0['run_s']:.1f} s; alone, the params' gather over model "
+          f"{r0['collectives_ms']['gather_model']:.1f} ms and the gradient "
+          f"mean over data {r0['collectives_ms']['grad_mean']:.1f} ms")
+    d1 = abs(r1["loss6_1x1"] - r0["loss6"]) / abs(r0["loss6"])
+    d4 = abs(r0["loss6_4x1"] - r0["loss6"]) / abs(r0["loss6"])
+    print(f"[mesh] (b) the step-5 checkpoint restored (resumed at "
+          f"{r1['resumed_1x1']} and {r0['resumed_4x1']}) and one more step: "
+          f"on 1x1 loss {r1['loss6_1x1']:.6f}, on 4x1 "
+          f"{r0['loss6_4x1']:.6f}, uninterrupted 2x2 {r0['loss6']:.6f} "
+          f"(relative {d1:.2e}, {d4:.2e}); params {r1['diff6_1x1']:.3e}, "
+          f"{r0['diff6_4x1']:.3e}; restored params and moments bit-equal to "
+          f"the checkpoint's: {r1['restored_equal_1x1']} and "
+          f"{r0['restored_equal_4x1']} (equal, leaves); 4x1 restore "
+          f"{r0['restore_4x1_s']:.1f} s")
+    if not (r1["resumed_1x1"] == r0["resumed_4x1"] == MESH_STEPS
+            and max(d1, d4) <= tol["loss_rel"]
+            and max(r1["diff6_1x1"], r0["diff6_4x1"]) <= tol["params"]
+            and all(e == n for e, n in (r1["restored_equal_1x1"],
+                                        r0["restored_equal_4x1"]))):
+        failed.append("a restore onto another mesh parts from the run")
+    syncs, pipes = [r["sync"] for r in ranks], [r["pipe"] for r in ranks]
+    worst = max(s["worst_err_in_int8_steps"] for s in syncs)
+    print(f"[mesh] (c) make_compressed_grad_sync on mesh 2x2 (pod x data), "
+          f"{syncs[0]['leaves']} leaves, {syncs[0]['numel']} values a pod: "
+          f"largest error {worst:.3f} int8 steps of the exact pod mean "
+          f"(tol 1); residual == input - sent on "
+          f"{min(s['resid_exact'] for s in syncs)} of {syncs[0]['leaves']} "
+          f"leaves; {syncs[0]['ms']:.1f} ms")
+    if not (worst <= 1.0 and all(s["resid_exact"] == s["leaves"]
+                                 for s in syncs)):
+        failed.append("the compressed sync parts from the pod mean")
+    perr = max(p["max_abs_err"] for p in pipes)
+    print(f"[mesh] (c) pipeline_apply of 4 smollm decoder blocks (f32, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}) on mesh 4 (pipe), n_micro 4, "
+          f"bubble {pipes[0]['bubble']:.3f}: largest |y - the blocks in "
+          f"sequence on each microbatch| {perr:.3e} (|y| up to "
+          f"{pipes[0]['ref_max']:.2f}; tol {tol['pipe']:.0e}); on the whole "
+          f"batch at once {max(p['whole_batch_err'] for p in pipes):.3e} "
+          f"(free k-WTA selections); {pipes[0]['ms']:.1f} ms")
+    if not perr <= tol["pipe"]:
+        failed.append("the pipeline parts from the blocks in sequence")
+    print(f"[mesh] gloo on CUDA tensors: {r0['gloo_cuda']}")
+    numbers = {
+        "step_ms_median": float(np.median(steps)),
+        "step_ms": r0["step_ms"], "losses_2x2": r0["losses"],
+        "losses_1x1": a["losses"], "param_bytes": [r["bytes"][0]
+                                                   for r in ranks],
+        "moment_bytes": [r["bytes"][1] for r in ranks],
+        "param_bytes_1x1": one_p, "moment_bytes_1x1": one_m,
+        "peak_gib": [r["peak"] / 2**30 for r in ranks],
+        "collectives_ms": r0["collectives_ms"],
+        "params_diff_2x2": r1["diff_b_a"], "step5_move": a["step5_move"],
+        "sync_ms": syncs[0]["ms"], "pipe_ms": pipes[0]["ms"],
+        "gloo_s": t_b, "single_s": t_a,
+        "phase_s": time.perf_counter() - t0}
+    print(f"[mesh] numbers {json.dumps(numbers)}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    if failed:
+        fail("mesh: " + "; ".join(failed))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3343,6 +4009,10 @@ def main():
     t = time.perf_counter()
     row.update(phase_hybrid())
     print(f"[hybrid] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase_mesh()
+    print(f"[mesh] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -19,12 +19,20 @@ Properties:
   * **Integrity**: per-leaf checksums (crc of raw bytes) in the manifest.
   * **Leaf order**: :func:`repro_torch.tree.flatten`'s (dict keys sorted,
     lists in order) stands in for the reference's treedef; the manifest
-    lists the leaf paths and restore checks them.
+    lists the leaf paths and restore checks them.  A checkpoint of the
+    reference (``treedef`` the string of a ``PyTreeDef``) is checked as
+    the reference's ``restore`` checks it: by leaf count and leaf shapes.
+  * **Sharded restore**: with ``shardings=`` (a tree of
+    :class:`repro_torch.sharding.NamedSharding`, matching ``like_tree``)
+    each process takes its own block of every full leaf, so a checkpoint
+    restores onto another mesh.  Saving on a mesh gathers the full tree
+    first and process 0 writes it (``Trainer.save``).
 
-numpy has no bfloat16: a bf16 leaf is stored as its 2-byte ``int16`` view
-with ``"dtype": "bfloat16"`` in the manifest, so a round trip is exact.
-Resharding restore waits for the distribution slice (ROADMAP Queue 1
-item 7): restore places every leaf on the device of its ``like`` leaf.
+numpy has no bfloat16: a bf16 leaf is stored as its 2 bytes in ``|V2``,
+as the reference's ``np.savez`` of a bfloat16 array stores them, with
+``"dtype": "bfloat16"`` in the manifest, so a round trip is exact and the
+reference's ``restore``, which cannot cast ``|V2``, fails loudly on one.
+``restore`` also reads the ``<i2`` view that older port checkpoints hold.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, leaves, unflatten
 
 _COMMIT = threading.Lock()
 
@@ -58,8 +66,9 @@ def _to_host(tree):
         t = t.detach().to("cpu", copy=True)
         dtypes[key] = _dtype_name(t)
         if t.dtype == torch.bfloat16:       # numpy has no bfloat16
-            t = t.view(torch.int16)
-        host[key] = t.numpy()
+            host[key] = t.view(torch.int16).numpy().view(np.dtype("V2"))
+        else:
+            host[key] = t.numpy()
     return [p for p, _ in flat], host, dtypes
 
 
@@ -144,20 +153,53 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, like_tree, process_index: int = 0,
-            strict_checksum: bool = True):
+def _check_structure(path, manifest, flat) -> None:
+    """The port's leaf-path list must equal ``like``'s; the reference's
+    string treedef is checked by leaf count (its shapes leaf by leaf)."""
+    saved = manifest["treedef"]
+    if isinstance(saved, str):
+        if len(manifest["leaves"]) != len(flat):
+            raise ValueError(f"{path}: checkpoint has "
+                             f"{len(manifest['leaves'])} leaves "
+                             f"({saved}), expected {len(flat)}")
+    elif saved != [p for p, _ in flat]:
+        raise ValueError(f"{path}: checkpoint leaves {saved} "
+                         f"!= expected {[p for p, _ in flat]}")
+
+
+def _as_tensor(arr: np.ndarray, dtype_name: str, key: str) -> torch.Tensor:
+    """The stored array as a tensor of the manifest's dtype: bfloat16 is
+    stored as ``|V2`` (or ``<i2`` by older port checkpoints)."""
+    if arr.dtype.kind == "V":
+        arr = arr.view(np.int16)
+    t = torch.from_numpy(arr)
+    saved = getattr(torch, dtype_name, None)
+    if not isinstance(saved, torch.dtype):
+        raise ValueError(f"{key}: unknown dtype {dtype_name!r}")
+    return t.view(saved) if saved != t.dtype else t
+
+
+def restore(directory: str, step: int, like_tree, shardings=None,
+            process_index: int = 0, strict_checksum: bool = True):
     """Restore into the structure of ``like_tree``: each leaf with its
-    ``like`` leaf's dtype, on its device.  Returns (tree, extra)."""
+    ``like`` leaf's dtype, on its device.  With ``shardings`` (a tree of
+    :class:`repro_torch.sharding.NamedSharding` or ``None`` leaves,
+    matching ``like_tree``) each leaf is this process's block of the full
+    stored leaf, which must have ``like``'s shape: the current mesh's
+    shardings reshard a checkpoint written on another mesh.
+    Returns (tree, extra)."""
     path = _step_dir(directory, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat = flatten(like_tree)
-    if manifest["treedef"] != [p for p, _ in flat]:
-        raise ValueError(f"{path}: checkpoint leaves {manifest['treedef']} "
-                         f"!= expected {[p for p, _ in flat]}")
+    _check_structure(path, manifest, flat)
+    shard = ([None] * len(flat) if shardings is None
+             else leaves(shardings))
+    if len(shard) != len(flat):
+        raise ValueError(f"{len(shard)} shardings for {len(flat)} leaves")
     out = []
     with np.load(os.path.join(path, f"shard_p{process_index}.npz")) as data:
-        for i, (_, like) in enumerate(flat):
+        for i, ((_, like), sh) in enumerate(zip(flat, shard)):
             key = f"leaf_{i:05d}"
             arr = data[key]
             meta = manifest["leaves"][key]
@@ -165,24 +207,22 @@ def restore(directory: str, step: int, like_tree, process_index: int = 0,
                 crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
                 if crc != meta["crc"]:
                     raise IOError(f"checksum mismatch for {key} in {path}")
-            if list(arr.shape) != list(like.shape):
-                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
-                                 f"expected {tuple(like.shape)}")
-            t = torch.from_numpy(arr)
-            saved = getattr(torch, meta["dtype"], None)
-            if not isinstance(saved, torch.dtype):
-                raise ValueError(f"{key}: unknown dtype {meta['dtype']!r}")
-            if saved != t.dtype:
-                t = t.view(saved)
+            t = _as_tensor(arr, meta["dtype"], key)
+            if sh is not None:
+                t = sh.take(t)
+            if list(t.shape) != list(like.shape):
+                raise ValueError(f"{key}: checkpoint shape "
+                                 f"{tuple(t.shape)} != expected "
+                                 f"{tuple(like.shape)}")
             out.append(t.to(device=like.device, dtype=like.dtype))
     return unflatten(like_tree, out), manifest["extra"]
 
 
-def restore_latest(directory: str, like_tree, **kw):
+def restore_latest(directory: str, like_tree, shardings=None, **kw):
     step = latest_step(directory)
     if step is None:
         return None, None, None
-    tree, extra = restore(directory, step, like_tree, **kw)
+    tree, extra = restore(directory, step, like_tree, shardings, **kw)
     return step, tree, extra
 
 

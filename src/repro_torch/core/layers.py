@@ -60,6 +60,25 @@ def _route_share(cfg: SparsityConfig, g: int) -> int:
 # Dense linear (baseline)
 # ---------------------------------------------------------------------------
 
+def linear_specs(bias: bool = True, out_axis: str = "mlp",
+                 in_axis=None):
+    """The reference's logical specs of :func:`linear_init`'s params."""
+    specs = {"w": (in_axis, out_axis)}
+    if bias:
+        specs["b"] = (out_axis,)
+    return specs
+
+
+def packed_linear_specs(bias: bool = True, out_axis: str = "mlp"):
+    """The reference's logical specs of :func:`packed_linear_init`'s
+    params: the groups axis shards, the route with it."""
+    specs = {"packed": (out_axis, None, None),
+             "route": (out_axis, None, None)}
+    if bias:
+        specs["b"] = (out_axis,)
+    return specs
+
+
 def linear_init(gen: torch.Generator, d_in: int, d_out: int,
                 bias: bool = True, dtype=torch.float32):
     params = {"w": _uniform(gen, (d_in, d_out), 1.0 / np.sqrt(d_in), dtype)}
@@ -279,6 +298,15 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
         [x[:, i:i + oh * stride:stride, j:j + ow * stride:stride, :]
          for i in range(kh) for j in range(kw)], dim=-2)
     return patches.reshape(b, oh, ow, kh * kw * c)
+
+
+def conv2d_specs(bias: bool = True):
+    """The reference's logical specs of :func:`conv2d_init`'s params
+    (:func:`packed_linear_specs` for :func:`packed_conv2d_init`)."""
+    specs = {"w": (None, None, None, "mlp")}
+    if bias:
+        specs["b"] = ("mlp",)
+    return specs
 
 
 def conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,

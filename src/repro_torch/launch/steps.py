@@ -7,21 +7,30 @@ use), ``torch.autograd.grad`` over every float leaf, then AdamW in place.
 No kernel of :mod:`repro_torch.kernels` runs in it: every projection of a
 training batch takes the Hadamard path, as in the reference.
 
-The roofline and dry-run tools (``abstract_params``, ``input_specs``,
-``zero1_specs``, the unit steps) wait for ROADMAP Queue 1 items 7-8.
+The spec helpers of the mesh step: :func:`batch_logical_specs` and
+:func:`zero1_specs`.  The roofline and dry-run tools
+(``abstract_params``, ``input_specs``, the unit steps) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.common import dtype_of
-from repro_torch.optim import AdamWConfig, apply_updates, warmup_cosine
-from repro_torch.tree import flatten, unflatten
+from repro_torch.optim import (AdamWConfig, apply_updates, global_norm,
+                               warmup_cosine)
+from repro_torch.sharding import (NamedSharding, Rules, UnitSpec, dp_axes,
+                                  make_rules, param_sharding, use_rules)
+from repro_torch.sharding.collectives import (gather_leaves, gather_pieces,
+                                             group_size, summed)
+from repro_torch.sharding.context import map_specs
+from repro_torch.tree import flatten, leaves, map_tree, unflatten
 
 
 def value_and_grad(fn: Callable, params, *args
@@ -43,21 +52,224 @@ def value_and_grad(fn: Callable, params, *args
                                   for v in views]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """Returns ``(train_step, acfg)``; ``train_step(params, opt_state,
-    batch)`` updates ``params`` and ``opt_state`` in place and returns
-    them with the step's metrics (loss, lm_loss, aux_loss, grad_norm)."""
-    acfg = AdamWConfig(lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
+def batch_logical_specs(batch) -> Dict[str, Tuple]:
+    """Every batch input shards its rows over ``batch``."""
+    return {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+
+
+def zero1_specs(param_specs, param_shapes, rules: Rules):
+    """Extend each moment leaf's spec with the DP axes on the first
+    shardable (currently replicated, divisible) dimension: optimizer-state
+    sharding (ZeRO-1).  ``param_shapes`` holds tensors or shape tuples at
+    the places of ``param_specs``' leaves; a :class:`UnitSpec` is extended
+    on its stacked shape, so the unit axis comes first.  A spec whose
+    length differs from the leaf's rank is left as it is."""
+    dp = dp_axes(rules.mesh)
+    if not dp:
+        return param_specs
+    dp_size = rules.axis_size(dp)
+
+    def extend(spec, leaf):
+        shape = tuple(getattr(leaf, "shape", leaf))
+        if isinstance(spec, UnitSpec):
+            return dataclasses.replace(spec, spec=extend(
+                spec.spec, (spec.n_units, *shape)))
+        if len(spec) != len(shape):
+            return spec
+        spec = list(spec)
+        for i, (ax, dim) in enumerate(zip(spec, shape)):
+            # eligible if the dim currently resolves to no mesh axes
+            resolved = rules.resolve(ax, dim) if isinstance(ax, str) else ax
+            if resolved in (None, ()) and dim % dp_size == 0 and dim > 0:
+                spec[i] = dp
+                break
+        return tuple(spec)
+
+    return map_specs(extend, param_specs, param_shapes)
+
+
+def adamw_config(tcfg: TrainConfig) -> AdamWConfig:
+    return AdamWConfig(lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
                        weight_decay=tcfg.weight_decay,
                        grad_clip=tcfg.grad_clip,
                        moment_dtype=dtype_of(tcfg.moment_dtype))
 
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """Returns ``(train_step, acfg)``; ``train_step(params, opt_state,
+    batch)`` updates ``params`` and ``opt_state`` (:func:`init_state`'s)
+    in place and returns them with the step's metrics (loss, lm_loss,
+    aux_loss, grad_norm).  It is :func:`make_sharded_train_step` on a
+    one-rank mesh of the params' device, where every leaf is its own
+    block and no collective runs: the step the Trainer runs."""
+    acfg = adamw_config(tcfg)
+    built = []
+
     def train_step(params, opt_state, batch):
-        (_, metrics), grads = value_and_grad(
-            lambda p: T.loss_fn(p, batch, cfg), params)
+        if not built:
+            mesh = Mesh((1, 1), ("data", "model"), leaves(params)[0].device)
+            rules = make_rules(mesh, "train")
+            built.append(make_sharded_train_step(
+                cfg, tcfg, rules, *train_shardings(params, cfg, tcfg,
+                                                   rules))[0])
+        return built[0](params, opt_state, batch)
+
+    return train_step, acfg
+
+
+def train_shardings(full_params, cfg: ModelConfig, tcfg: TrainConfig,
+                    rules: Rules):
+    """``(shardings, shapes)`` of the training state of ``full_params``
+    (the port's training layout): ``shardings`` = ``{"params", "opt"}``
+    holds a :class:`repro_torch.sharding.NamedSharding` a leaf of the
+    state tree (the params by the reference's specs under ``rules``, the
+    moments by :func:`zero1_specs` where ``tcfg.zero1``), ``shapes`` the
+    full params' shapes in :func:`repro_torch.tree.flatten`'s order."""
+    specs = T.layer_specs(T.param_specs(cfg), cfg)
+    zspecs = zero1_specs(specs, full_params, rules) if tcfg.zero1 else specs
+    p_shapes = [tuple(t.shape) for t in leaves(full_params)]
+    moments = param_sharding(zspecs, unflatten(full_params, [
+        s if t.is_floating_point() else ()
+        for s, t in zip(p_shapes, leaves(full_params))]), rules)
+    return {"params": param_sharding(specs, full_params, rules),
+            "opt": {"mu": moments, "nu": moments,
+                    "step": NamedSharding(rules.mesh, ())}}, p_shapes
+
+
+def shard_train_state(full_params, cfg: ModelConfig, tcfg: TrainConfig,
+                      rules: Rules):
+    """This rank's blocks of the training state, from the full params in
+    the port's training layout: ``(params, opt_state, shardings,
+    shapes)``, the last two :func:`train_shardings`'.  A moment block a
+    rank does not hold is an empty tensor."""
+    shardings, p_shapes = train_shardings(full_params, cfg, tcfg, rules)
+    params = map_tree(lambda t, sh: sh.take(t), full_params,
+                      shardings["params"])
+    moment_dtype = dtype_of(tcfg.moment_dtype)
+    device = leaves(full_params)[0].device
+
+    def zeros(t, shape, sh):
+        if not t.is_floating_point():
+            return torch.zeros((), dtype=torch.int32, device=device)
+        return torch.zeros(sh.local_shape(shape), dtype=moment_dtype,
+                           device=device)
+
+    mu = unflatten(full_params, [zeros(t, s, sh) for t, s, sh in zip(
+        leaves(full_params), p_shapes, leaves(shardings["opt"]["mu"]))])
+    opt = {"mu": mu, "nu": map_tree(torch.zeros_like, mu),
+           "step": torch.zeros((), dtype=torch.int32, device=device)}
+    return params, opt, shardings, p_shapes
+
+
+def gather_state(state, shardings, shapes):
+    """The full ``{"params", "opt"}`` tree of a sharded state
+    (:func:`shard_train_state`'s ``shardings`` and param ``shapes``):
+    every rank takes part and gets the whole."""
+    def full(tree, sh, shp):
+        return unflatten(tree, gather_leaves(leaves(tree), leaves(sh), shp))
+
+    params, opt = state["params"], state["opt"]
+    m_shapes = [s if t.is_floating_point() else ()
+                for s, t in zip(shapes, leaves(params))]
+    return {"params": full(params, shardings["params"], shapes),
+            "opt": {"mu": full(opt["mu"], shardings["opt"]["mu"], m_shapes),
+                    "nu": full(opt["nu"], shardings["opt"]["nu"], m_shapes),
+                    "step": opt["step"]}}
+
+
+def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                            rules: Rules, shardings, shapes):
+    """Returns ``(train_step, acfg)``: the training step on a mesh, where
+    each rank holds the blocks of the params and of the moments (ZeRO-1)
+    that ``shardings`` gives it (:func:`shard_train_state`), and its rows
+    of the batch.
+
+    ``train_step(params, opt_state, batch)``:
+      1. gathers the sharded params into full tensors (a leaf no axis of
+         more than one rank shards is its block, updated in place);
+      2. runs forward and backward on the rank's rows under ``rules``, so
+         the batch statistics are the global batch's
+         (:func:`repro_torch.sharding.collectives.batch_sum`);
+      3. takes the gradients' mean over the DP group, and their global
+         norm for the clip;
+      4. updates the slice of each leaf its moment block covers, as
+         :func:`repro_torch.optim.apply_updates` updates whole leaves;
+      5. puts the params back as blocks, gathering each DP group's
+         updated slices where ZeRO-1 split a block over the group.
+    At a one-rank mesh without a process group no collective runs
+    (:func:`make_train_step`)."""
+    acfg = adamw_config(tcfg)
+    mesh = rules.mesh
+    dp = dp_axes(mesh)
+    dp_group = mesh.group(dp) if dp else None
+    p_sh = leaves(shardings["params"])
+    m_sh = leaves(shardings["opt"]["mu"])
+
+    def mean_over_dp(grads, floats):
+        if dp_group is None:
+            return grads
+
+        def fill(j, buf):
+            if grads[floats[j]] is not None:
+                buf.copy_(grads[floats[j]])
+
+        bufs = summed([shapes[i] for i in floats], fill, dp_group,
+                      mesh.device)
+        out = list(grads)
+        n = group_size(dp_group)
+        for i, buf in zip(floats, bufs):
+            out[i] = (buf / n).to(grads[i].dtype if grads[i] is not None
+                                  else buf.dtype)
+        return out
+
+    def put_back(flat_p, full, floats):
+        """The updated params into the rank's blocks."""
+        by_key = {}
+        for i in floats:
+            extra = tuple(a for a in m_sh[i].axes if a not in p_sh[i].axes)
+            if extra:
+                by_key.setdefault((mesh.ordered(extra), flat_p[i].dtype),
+                                  []).append(i)
+            elif full[i] is not flat_p[i]:
+                flat_p[i].copy_(full[i][p_sh[i].block(shapes[i])])
+        for (axes, _), idx in by_key.items():
+            def place(j, coords, idx=idx):
+                # a member's slice of the rank's param block: the members
+                # differ on the moments' extra axes alone
+                i = idx[j]
+                m_blk = m_sh[i].block(shapes[i], coords)
+                if m_blk is None:
+                    return None
+                return tuple(slice(m.start - p.start, m.stop - p.start)
+                             for m, p in zip(m_blk,
+                                             p_sh[i].block(shapes[i])))
+
+            mine = [m_sh[i].block(shapes[i]) for i in idx]
+            gather_pieces(mesh, axes, [None if b is None else full[i][b]
+                                       for i, b in zip(idx, mine)],
+                          [flat_p[i] for i in idx], place)
+
+    def train_step(params, opt_state, batch):
+        flat_p = leaves(params)
+        full = gather_leaves(flat_p, p_sh, shapes)
+        with use_rules(rules):
+            (_, metrics), grads = value_and_grad(
+                lambda p: T.loss_fn(p, batch, cfg), unflatten(params, full))
+        floats = [i for i, t in enumerate(full) if t.is_floating_point()]
+        grads = mean_over_dp(grads, floats)
+        norm = global_norm(grads)
+        mu, nu = leaves(opt_state["mu"]), leaves(opt_state["nu"])
+        own = [i for i in floats if m_sh[i].block(shapes[i]) is not None]
+        blocks = {i: m_sh[i].block(shapes[i]) for i in own}
         lr_scale = warmup_cosine(opt_state["step"], tcfg.warmup_steps,
                                  tcfg.total_steps)
-        _, _, om = apply_updates(params, grads, opt_state, acfg, lr_scale)
+        _, _, om = apply_updates(
+            [full[i][blocks[i]] for i in own],
+            [None if grads[i] is None else grads[i][blocks[i]] for i in own],
+            {"mu": [mu[i] for i in own], "nu": [nu[i] for i in own],
+             "step": opt_state["step"]}, acfg, lr_scale, norm=norm)
+        with torch.no_grad():
+            put_back(flat_p, full, floats)
         metrics.update(om)
         return params, opt_state, metrics
 

@@ -1,24 +1,38 @@
 """End-to-end training loop with fault tolerance — the reference's
-``repro.launch.train`` on one device.
+``repro.launch.train``.
 
-Features (each one exercised by tests/test_torch_train.py):
+Features (each one exercised by tests/test_torch_train.py and
+tests/test_torch_distributed*.py):
   * auto-resume from the latest valid checkpoint (atomic + checksummed),
+    onto any mesh (a checkpoint holds the full tree),
   * periodic async checkpointing + pruning,
   * SIGTERM/SIGINT preemption handler -> final checkpoint -> clean exit,
   * StepMonitor straggler detection -> checkpoint hook,
   * LossGuard NaN/spike detection -> rollback to last checkpoint,
   * deterministic stateless data (resume reproduces the exact batch
-    sequence).
+    sequence),
+  * any (data, model) or (pod, data, model) mesh whose size is the world
+    size of the process group (one rank needs none).
 
 The step is eager (no ``torch.compile``, no autocast) on the training
 layout of the params (float32 masters, no ``packed_p``;
-:func:`repro_torch.models.transformer.serving_params` serves them).  One
-device only: ``--mesh 1x1``, where ZeRO-1 is a no-op as in the reference;
-meshes and the compressed gradient sync wait for ROADMAP Queue 1 item 7.
+:func:`repro_torch.models.transformer.serving_params` serves them).  On a
+mesh each rank stores the reference's per-device block of every param
+(``param_sharding`` of the ``train`` rules) and of every moment (ZeRO-1,
+``zero1_specs``), takes its rows of the batch, and steps through
+:func:`repro_torch.launch.steps.make_sharded_train_step`: the params are
+gathered whole, the gradients averaged over the DP axes, each rank updates
+the slices its moments cover, and the blocks are put back.  The int8
+error-feedback sync (``TrainConfig.grad_compression``) is not wired into
+the step, as in the reference.
 
-Usage:
+Usage (one device; ``--device cpu`` for the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 100 --batch 8 --seq 128 --mesh 1x1 [--resume] [--device cpu]
+On a mesh, one process a rank under torchrun (NCCL on the card; ``--backend
+gloo`` for gloo):
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch smollm-360m --mesh 2x2 --steps 100
 """
 
 from __future__ import annotations
@@ -28,66 +42,107 @@ import os
 import signal
 import tempfile
 import time
-from typing import Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import Prefetcher, batch_for
 from repro_torch.launch import steps as St
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import transformer as T
-from repro_torch.models.common import resolve_device
-from repro_torch.optim import init_state
 from repro_torch.runtime import LossGuard, StepMonitor
+from repro_torch.sharding import make_rules
+from repro_torch.sharding.collectives import all_reduce_, barrier
 
 
-def parse_mesh(mesh) -> Tuple[int, ...]:
-    """``"1x1"`` or ``(1, 1)``; any other mesh raises."""
+def parse_mesh(mesh, device=None) -> Mesh:
+    """``"2x2"``, ``(2, 2)`` or a :class:`Mesh`: (data, model) for two
+    dims, (pod, data, model) for three.  Raises where the mesh's size is
+    not the process group's world size, or where it has more than one rank
+    and no process group is up."""
+    if isinstance(mesh, Mesh):
+        if not mesh.live:
+            raise RuntimeError(f"mesh {mesh.dims} has no process group of "
+                               "its size")
+        return mesh
     dims = (tuple(int(x) for x in mesh.split("x")) if isinstance(mesh, str)
             else tuple(mesh))
-    if dims != (1, 1):
-        raise NotImplementedError(
-            f"mesh {dims}: the port trains on one device (mesh 1x1); "
-            "meshes wait for the distribution slice (ROADMAP Queue 1 "
-            "item 7)")
-    return dims
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
+    if axes is None:
+        raise ValueError(f"mesh {dims}: two dims (data, model) or three "
+                         "(pod, data, model)")
+    return make_mesh(dims, axes, device)
 
 
 class Trainer:
-    """Owns params/opt-state and the fault-tolerant step loop.  Runs on
-    ``cuda`` unless ``device`` says otherwise."""
+    """Owns params/opt-state (this rank's blocks), the mesh and the
+    fault-tolerant step loop.  Runs on ``cuda`` unless ``device`` (or the
+    given :class:`Mesh`'s device) says otherwise."""
 
     def __init__(self, cfg, tcfg: TrainConfig, mesh, shape: ShapeConfig,
                  device=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.shape = shape
-        self.mesh = parse_mesh(mesh)
-        self.device = resolve_device(device)
+        self.mesh = parse_mesh(mesh, device)
+        self.device = self.mesh.device
+        self.rules = make_rules(self.mesh, "train")
         self.monitor = StepMonitor()
         self.guard = LossGuard()
         self.step = 0
         self._preempted = False
-        #: the async checkpoint writer not yet joined
+        #: the async checkpoint writer not yet joined (process 0)
         self._writer = None
         self._build()
 
     # -- construction -----------------------------------------------------
 
     def _build(self):
-        self.params = T.init_train_params(self.cfg, seed=self.tcfg.seed,
-                                          device=self.device)
-        self._step_fn, self.acfg = St.make_train_step(self.cfg, self.tcfg)
-        self.opt = init_state(self.params, self.acfg)
+        full = T.init_train_params(self.cfg, seed=self.tcfg.seed,
+                                   device=self.device)
+        #: :meth:`state_tree`'s shardings, leaf for leaf, and the full
+        #: params' shapes
+        self.params, self.opt, self.shardings, self.shapes = \
+            St.shard_train_state(full, self.cfg, self.tcfg, self.rules)
+        del full
+        self._step_fn, self.acfg = St.make_sharded_train_step(
+            self.cfg, self.tcfg, self.rules, self.shardings, self.shapes)
+
+    def batch_shard(self, batch):
+        """This rank's rows of a global batch (every input shards its rows
+        over the DP axes, replicated where they do not divide)."""
+        return {k: self.rules.sharding_for(spec, v.shape).take(v)
+                for (k, v), spec in zip(
+                    batch.items(), St.batch_logical_specs(batch).values())}
+
+    def train_step(self, batch):
+        """One step on a global batch (tensors on this rank's device):
+        each rank takes its rows.  Returns the step's metrics."""
+        self.params, self.opt, metrics = self._step_fn(
+            self.params, self.opt, self.batch_shard(batch))
+        return metrics
 
     # -- checkpoint/restore ------------------------------------------------
 
     def state_tree(self):
+        """This rank's blocks of the params and the optimizer state."""
         return {"params": self.params, "opt": self.opt}
 
+    def full_state(self):
+        """The full tree, gathered from every rank's blocks (every rank
+        takes part; each gets the whole)."""
+        return St.gather_state(self.state_tree(), self.shardings,
+                               self.shapes)
+
     def save(self, async_: bool = True):
+        """Every rank gathers the full tree; process 0 writes it."""
         self.wait_for_save()
-        tree = self.state_tree()
+        tree = self.full_state()
+        if self.mesh.rank != 0:
+            return None
         extra = {"step": self.step, "arch": self.cfg.name}
         if async_:
             self._writer = ckpt.save_async(self.tcfg.ckpt_dir, self.step,
@@ -98,15 +153,20 @@ class Trainer:
     def wait_for_save(self):
         """Join the async writer of the last ``save``, if one is running:
         until it has committed, the directory may lack its step, and its
-        commit would replace a later save of the same step."""
+        commit would replace a later save of the same step.  On a process
+        group, every rank waits for process 0's writer."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self.mesh.distributed:
+            barrier(self.mesh)
 
     def try_resume(self) -> bool:
+        """Restore the latest checkpoint, whatever mesh wrote it: each
+        rank takes its blocks of the full leaves."""
         self.wait_for_save()
-        step, tree, extra = ckpt.restore_latest(self.tcfg.ckpt_dir,
-                                                self.state_tree())
+        step, tree, extra = ckpt.restore_latest(
+            self.tcfg.ckpt_dir, self.state_tree(), self.shardings)
         if step is None:
             return False
         self.params, self.opt = tree["params"], tree["opt"]
@@ -129,16 +189,26 @@ class Trainer:
         signal.signal(signal.SIGTERM, handler)
         signal.signal(signal.SIGINT, handler)
 
+    def _agree(self, *flags: bool):
+        """Decisions every rank must take together (each a collective
+        save): true where any rank's flag is."""
+        if not self.mesh.distributed:
+            return flags
+        t = torch.tensor([float(f) for f in flags], device=self.device)
+        all_reduce_(t, self.mesh.group(self.mesh.axis_names))
+        return tuple(bool(x > 0) for x in t.tolist())
+
     def run(self, total_steps: int, batch_fn, log=print):
+        """Train to ``total_steps``; ``batch_fn(step)`` gives the global
+        batch (numpy), of which each rank takes its rows."""
         tcfg = self.tcfg
+        log = log if self.mesh.rank == 0 else (lambda *a: None)
         pre = Prefetcher(batch_fn, self.step, depth=2, device=self.device)
         try:
             while self.step < total_steps and not self._preempted:
                 _, batch = pre.get(expected_step=self.step)
                 self.monitor.start()
-                self.params, self.opt, metrics = self._step_fn(
-                    self.params, self.opt, batch)
-                loss = float(metrics["loss"])
+                loss = float(self.train_step(batch)["loss"])
                 ev = self.monitor.stop(self.step)
                 if not self.guard.check(loss):
                     log(f"[guard] step {self.step}: loss {loss} unhealthy; "
@@ -148,7 +218,9 @@ class Trainer:
                             f"loss diverged at step {self.step} with no "
                             f"checkpoint to roll back to")
                     continue
-                if self.monitor.should_reshard:
+                reshard, self._preempted = self._agree(
+                    self.monitor.should_reshard, self._preempted)
+                if reshard:
                     log(f"[monitor] sustained stragglers at step "
                         f"{self.step}; checkpointing")
                     self.save(async_=False)
@@ -158,7 +230,8 @@ class Trainer:
                 self.step += 1
                 if self.step % tcfg.checkpoint_every == 0:
                     self.save()
-                    ckpt.prune(tcfg.ckpt_dir, keep=3)
+                    if self.mesh.rank == 0:
+                        ckpt.prune(tcfg.ckpt_dir, keep=3)
             if self._preempted:
                 log(f"[preempt] signal received; checkpointing at step "
                     f"{self.step}")
@@ -167,8 +240,27 @@ class Trainer:
                 self.save(async_=False)
         finally:
             pre.close()
-            self.wait_for_save()
+            if self._writer is not None:
+                self._writer.join()
+                self._writer = None
         return self.step
+
+
+def join_process_group(backend: str, device=None) -> str:
+    """Join the process group that torchrun's environment variables
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) describe.
+    Returns this rank's device: ``cuda:<LOCAL_RANK mod cards>`` unless
+    ``device`` says otherwise (gloo ranks may share a card; NCCL needs a
+    card a rank)."""
+    if device in (None, "cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "--device cpu (with --backend gloo)")
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="env://")
+    return device
 
 
 def main(argv=None):
@@ -177,7 +269,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL or PODxDATAxMODEL; its size is the "
+                         "world size (torchrun's WORLD_SIZE)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process group backend under torchrun")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--resume", action="store_true")
@@ -195,18 +291,27 @@ def main(argv=None):
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        ckpt_dir=args.ckpt_dir,
                        checkpoint_every=max(10, args.steps // 5))
-    trainer = Trainer(cfg, tcfg, args.mesh, shape, device=args.device)
-    trainer.install_preemption_handler()
-    if args.resume and trainer.try_resume():
-        print(f"resumed from step {trainer.step}")
+    device = args.device
+    if "WORLD_SIZE" in os.environ:
+        device = join_process_group(args.backend, device)
+    try:
+        trainer = Trainer(cfg, tcfg, args.mesh, shape, device=device)
+        say = print if trainer.mesh.rank == 0 else (lambda *a: None)
+        trainer.install_preemption_handler()
+        if args.resume and trainer.try_resume():
+            say(f"resumed from step {trainer.step}")
 
-    def batch_fn(step):
-        return batch_for(cfg, shape, step, seed=tcfg.seed)
+        def batch_fn(step):
+            return batch_for(cfg, shape, step, seed=tcfg.seed)
 
-    t0 = time.time()
-    final = trainer.run(args.steps, batch_fn)
-    print(f"finished at step {final} in {time.time()-t0:.1f}s on "
-          f"{trainer.device}; monitor: {trainer.monitor.summary()}")
+        t0 = time.time()
+        final = trainer.run(args.steps, batch_fn)
+        say(f"finished at step {final} in {time.time()-t0:.1f}s on "
+            f"{trainer.device}, mesh {'x'.join(map(str, trainer.mesh.dims))}"
+            f"; monitor: {trainer.monitor.summary()}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

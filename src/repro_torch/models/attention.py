@@ -24,7 +24,8 @@ import torch.nn.functional as tF
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
-                                     packed_linear_apply, packed_linear_init)
+                                     linear_specs, packed_linear_apply,
+                                     packed_linear_init, packed_linear_specs)
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
                                                 paged_write_rows)
@@ -37,6 +38,12 @@ def _proj_init(gen, d_in, d_out, sp: SparsityConfig, name_seed):
         return packed_linear_init(gen, d_in, d_out, sp, bias=False,
                                   seed=name_seed)
     return linear_init(gen, d_in, d_out, bias=False)
+
+
+def _proj_specs(d_in, d_out, sp: SparsityConfig, out_axis):
+    if sp.weight_sparse and d_in % sp.n == 0 and d_out % sp.n == 0:
+        return packed_linear_specs(bias=False, out_axis=out_axis)
+    return linear_specs(bias=False, out_axis=out_axis)
 
 
 def _proj_apply(params, x, sp: SparsityConfig, x_is_sparse=False,
@@ -73,6 +80,16 @@ def gqa_init(gen: torch.Generator, cfg):
             "v": _proj_init(gen, d, hkv * dh, sp, 13),
             # o-proj rows for padded dummy heads exist but only see zeros
             "o": _proj_init(gen, hp * dh, d, sp, 14)}
+
+
+def gqa_specs(cfg):
+    """The reference's logical specs of :func:`gqa_init`'s params."""
+    h, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    sp = cfg.proj_sparsity
+    return {"q": _proj_specs(d, h * dh, sp, "heads"),
+            "k": _proj_specs(d, hkv * dh, sp, "kv"),
+            "v": _proj_specs(d, hkv * dh, sp, "kv"),
+            "o": _proj_specs(cfg.padded_heads * dh, d, sp, "embed")}
 
 
 def _split_heads(x, n, dh):
@@ -219,6 +236,16 @@ def gqa_prefill(params, x, cfg, positions, max_seq: int):
                    "k_scale": _pad_seq(ks, max_seq),
                    "v_scale": _pad_seq(vs, max_seq)}
     return y, {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}
+
+
+def gqa_cache_specs(cfg=None):
+    """The reference's logical specs of :func:`gqa_cache_init`'s leaves."""
+    specs = {"k": ("batch", "kvseq", "kv", None),
+             "v": ("batch", "kvseq", "kv", None)}
+    if cfg is not None and getattr(cfg, "kv_cache_dtype", "") == "int8":
+        specs["k_scale"] = ("batch", "kvseq", "kv")
+        specs["v_scale"] = ("batch", "kvseq", "kv")
+    return specs
 
 
 def gqa_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
@@ -435,6 +462,13 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
 # MLA (DeepSeek-V2): latent KV compression
 # ---------------------------------------------------------------------------
 
+def mla_specs(cfg=None):
+    """The reference's logical specs of :func:`mla_init`'s params."""
+    return {"q": (None, "heads"), "dkv": (None, None), "kpe": (None, None),
+            "uk": (None, "heads"), "uv": (None, "heads"),
+            "o": ("heads", None)}
+
+
 def mla_init(gen: torch.Generator, cfg):
     """Bare dense weights, normal(0.02), the reference's leaves: ``q``
     (d, h·(dh+dr)), ``dkv`` (d, r), ``kpe`` (d, dr), ``uk``/``uv``
@@ -451,23 +485,26 @@ def mla_init(gen: torch.Generator, cfg):
 
 def _mla_qkv(params, x, cfg, positions):
     """Queries (nope and roped parts), the latent ``c_kv`` (B, S, r) and
-    the roped shared key ``k_pe`` (B, S, dr).  The weights are already in
-    the compute dtype (:func:`repro_torch.models.transformer.
-    prepare_params`), where the reference casts them at each use."""
+    the roped shared key ``k_pe`` (B, S, dr).  Each weight is cast to the
+    compute dtype at its use, as the reference casts it (a no-op on
+    serving params, which :func:`repro_torch.models.transformer.
+    prepare_params` cast once; the training layout's masters are float32)."""
     h, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ params["q"]).reshape(*x.shape[:-1], h, -1)
+    q = (x @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], h, -1)
     q_nope, q_pe = q[..., :dh], q[..., dh:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
-    c_kv = x @ params["dkv"]
-    k_pe = apply_rope(x @ params["kpe"], positions, cfg.rope_theta)
+    c_kv = x @ params["dkv"].to(x.dtype)
+    k_pe = apply_rope(x @ params["kpe"].to(x.dtype), positions,
+                      cfg.rope_theta)
     return q_nope, q_pe, c_kv, k_pe
 
 
 def _mla_expand(params, c_kv, cfg):
     """Per-head keys (nope part) and values from the latent rows."""
     h, dh = cfg.n_heads, cfg.head_dim
-    k_nope = (c_kv @ params["uk"]).reshape(*c_kv.shape[:-1], h, dh)
-    v = (c_kv @ params["uv"]).reshape(*c_kv.shape[:-1], h, dh)
+    ct = c_kv.dtype
+    k_nope = (c_kv @ params["uk"].to(ct)).reshape(*c_kv.shape[:-1], h, dh)
+    v = (c_kv @ params["uv"].to(ct)).reshape(*c_kv.shape[:-1], h, dh)
     return k_nope, v
 
 
@@ -492,12 +529,16 @@ def _mla_forward(params, x, cfg, positions):
         out = _flash_attn(q, k, v, scale, cfg.flash_block)
     else:
         out = _causal_attn(q, k, v, scale)
-    y = out.reshape(*x.shape[:-1], h * dh) @ params["o"]
+    y = out.reshape(*x.shape[:-1], h * dh) @ params["o"].to(x.dtype)
     return y, c_kv, k_pe
 
 
 def mla_apply(params, x, cfg, positions):
     return _mla_forward(params, x, cfg, positions)[0]
+
+
+def mla_cache_specs():
+    return {"ckv": ("batch", "kvseq", None), "kpe": ("batch", "kvseq", None)}
 
 
 def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
@@ -528,7 +569,7 @@ def _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg):
     scores = torch.where(valid[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(*x.shape[:-1], h * dh) @ params["o"]
+    return out.reshape(*x.shape[:-1], h * dh) @ params["o"].to(x.dtype)
 
 
 def mla_decode(params, x, cfg, cache, pos, pages=None):

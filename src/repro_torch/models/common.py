@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
@@ -41,6 +43,10 @@ def normal_init(gen: torch.Generator, shape, std, dtype=torch.float32):
 
 def rmsnorm_init(d: int, device=None):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_specs():
+    return {"scale": (None,)}
 
 
 def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-5):
@@ -94,6 +100,10 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int):
     return {"table": normal_init(gen, (vocab, d), 0.02)}
 
 
+def embedding_specs():
+    return {"table": ("vocab", "embed")}
+
+
 def embedding_apply(params, tokens: torch.Tensor, compute_dtype):
     return params["table"].to(compute_dtype)[tokens]
 
@@ -110,12 +120,18 @@ def lm_head_apply(params, x: torch.Tensor, compute_dtype):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy in fp32; with ``mask``, the mean over the
-    masked-in tokens."""
+    masked-in tokens.  Under rules with a DP group the mean is the global
+    batch's: numerator and count are summed over the group."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
+    group = dp_group()
     if mask is not None:
         m = mask.float()
-        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
-    return torch.mean(nll)
+        return batch_sum(torch.sum(nll * m), group) / torch.clamp(
+            batch_sum(torch.sum(m), group), min=1.0)
+    if group is None:
+        return torch.mean(nll)
+    return batch_sum(torch.sum(nll), group) / (nll.numel()
+                                               * group_size(group))

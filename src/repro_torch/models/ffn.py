@@ -24,7 +24,8 @@ import torch.nn.functional as tF
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
-                                     packed_linear_apply, packed_linear_init)
+                                     linear_specs, packed_linear_apply,
+                                     packed_linear_init, packed_linear_specs)
 from repro_torch.obs.sparsity import observe_site
 
 
@@ -53,6 +54,24 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
         params["gate"] = mk(d_model, d_ff, 22)
     params["down"] = mk(d_ff, d_model, 23)
     return params
+
+
+def ffn_specs(d_model: int, d_ff: int, cfg_sp: SparsityConfig,
+              act: str = "silu"):
+    """The reference's logical specs of :func:`ffn_init`'s params: up and
+    gate shard their outputs (``mlp``), down its rows' groups (``embed``,
+    replicated)."""
+    def mk(d_in, d_out, out_axis):
+        if cfg_sp.weight_sparse and d_in % cfg_sp.n == 0 \
+                and d_out % cfg_sp.n == 0:
+            return packed_linear_specs(bias=False, out_axis=out_axis)
+        return linear_specs(bias=False, out_axis=out_axis)
+
+    specs = {"up": mk(d_model, d_ff, "mlp")}
+    if act == "silu":
+        specs["gate"] = mk(d_model, d_ff, "mlp")
+    specs["down"] = mk(d_ff, d_model, "embed")
+    return specs
 
 
 def _apply_one(p, x, sp: SparsityConfig, x_is_sparse=False, support=None):

@@ -33,10 +33,11 @@ import torch
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.kwta import kwta, kwta_channel, kwta_hist
 from repro_torch.core.layers import (conv2d_apply, conv2d_init,
-                                     drop_partition_major, linear_apply,
-                                     linear_init, maxpool2d,
-                                     packed_conv2d_apply, packed_conv2d_init,
-                                     packed_linear_apply, packed_linear_init)
+                                     conv2d_specs, drop_partition_major,
+                                     linear_apply, linear_init, linear_specs,
+                                     maxpool2d, packed_conv2d_apply,
+                                     packed_conv2d_init, packed_linear_apply,
+                                     packed_linear_init, packed_linear_specs)
 from repro_torch.core.masks import pad_to_multiple
 from .common import resolve_device
 
@@ -68,6 +69,16 @@ class GSCConfig:
     @property
     def hidden_padded(self) -> int:
         return pad_to_multiple(self.hidden, self.linear_n)
+
+
+def param_specs(cfg: GSCConfig) -> Dict:
+    """The logical-spec tree of the reference's ``init_model(key,
+    cfg)[1]``."""
+    if cfg.weight_sparse:
+        return {"conv1": packed_linear_specs(), "conv2": packed_linear_specs(),
+                "linear": packed_linear_specs(), "out": linear_specs()}
+    return {"conv1": conv2d_specs(), "conv2": conv2d_specs(),
+            "linear": linear_specs(), "out": linear_specs()}
 
 
 def init_model(cfg: GSCConfig, seed: int = 0, device=None) -> Dict:

@@ -34,8 +34,29 @@ from repro_torch.core import functional as F
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.layers import _uniform, apply_kwta
 from repro_torch.core.masks import CSLayout, make_routes
+from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
 from .common import normal_init
-from .ffn import ffn_apply, ffn_init
+from .ffn import ffn_apply, ffn_init, ffn_specs
+
+
+def moe_specs(d_model: int, d_ff: int, n_shared: int, act: str,
+              cfg_sp: SparsityConfig):
+    """The reference's logical specs of :func:`moe_init`'s params: experts
+    shard over ``experts``, a packed expert's groups over ``mlp``."""
+    def mk(d_in, d_out):
+        if cfg_sp.weight_sparse and d_in % cfg_sp.n == 0 \
+                and d_out % cfg_sp.n == 0:
+            return {"packed": ("experts", "mlp", None, None),
+                    "route": ("mlp", None, None)}
+        return {"w": ("experts", None, "mlp" if d_out == d_ff else None)}
+
+    specs = {"router": (None, "experts"), "up": mk(d_model, d_ff)}
+    if act == "silu":
+        specs["gate"] = mk(d_model, d_ff)
+    specs["down"] = mk(d_ff, d_model)
+    if n_shared:
+        specs["shared"] = ffn_specs(d_model, n_shared * d_ff, cfg_sp, act)
+    return specs
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -167,11 +188,18 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
     top_p, top_e = router_top_k(probs, k)                 # (G, Tg, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balancing auxiliary loss (Switch-style, global)
-    me = probs.mean(dim=(0, 1))                           # (E,)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+    # load-balancing auxiliary loss (Switch-style, global: over the DP
+    # group's tokens where the rules in force shard the batch)
+    group = dp_group()
+    t_all = t * group_size(group)
+    if group is None:
+        me = probs.mean(dim=(0, 1))                       # (E,)
+    else:
+        me = batch_sum(probs.sum(dim=(0, 1)), group) / t_all
+    ce = batch_sum(torch.zeros(
+        (e,), dtype=torch.float32, device=x.device).index_add_(
         0, top_e.reshape(-1),
-        torch.full((t * k,), 1.0 / (t * k), device=x.device))
+        torch.full((t * k,), 1.0 / (t_all * k), device=x.device)), group)
     aux = e * torch.sum(me * ce)
 
     cap = int(np.ceil(tg * k / e * cfg.capacity_factor))

@@ -30,6 +30,7 @@ from typing import Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as tF
+from torch.utils.checkpoint import checkpoint
 
 from .common import normal_init, rmsnorm_apply, rmsnorm_init
 
@@ -48,37 +49,49 @@ def _zeros(shape, device, dtype=torch.float32):
 # Chunked SSD scan
 # ---------------------------------------------------------------------------
 
+def _ssd_chunk(S, qb, kb, vb, la, causal):
+    """One chunk of :func:`ssd_scan`: (y (B, L, H, Dv) f32, S_next)."""
+    cum = torch.cumsum(la, dim=1)                         # (B, L, H)
+    # intra-chunk
+    scores = torch.einsum("bihd,bjhd->bhij", qb, kb)
+    decay = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
+    dmask = torch.where(causal, torch.exp(decay), 0.0)    # (B, H, L, L)
+    y_intra = torch.einsum("bhij,bjhd->bihd", scores * dmask, vb)
+    # inter-chunk
+    qdec = qb * torch.exp(cum)[..., None]
+    y_inter = torch.einsum("bihd,bhde->bihe", qdec, S)
+    # state update
+    tot = cum[:, -1:, :]                                  # (B, 1, H)
+    kdec = kb * torch.exp(tot - cum)[..., None]
+    S = (torch.exp(tot[:, 0, :, None, None]) * S
+         + torch.einsum("bjhd,bjhe->bhde", kdec, vb))
+    return y_intra + y_inter, S
+
+
 def ssd_scan(q, k, v, log_a, chunk: int):
     """q,k: (B, T, H, Dk); v: (B, T, H, Dv); log_a: (B, T, H) (<= 0).
 
     Returns y: (B, T, H, Dv) in v's dtype, final state (B, H, Dk, Dv) f32.
+    Where autograd records, each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``@jax.checkpoint``): its
+    (B, H, L, L) scores are recomputed in the backward pass, not kept.
     """
     b, t, h, dk = q.shape
-    dv = v.shape[-1]
     L = min(chunk, t)
     if t % L:
         raise ValueError(f"T={t} not divisible by chunk={L}")
     causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    S = _zeros((b, h, dk, dv), q.device)
+    S = _zeros((b, h, dk, v.shape[-1]), q.device)
     ys = []
     for c in range(t // L):
         rows = slice(c * L, (c + 1) * L)
-        qb, kb, vb = (z[:, rows].float() for z in (q, k, v))  # (B, L, H, *)
-        cum = torch.cumsum(log_a[:, rows], dim=1)             # (B, L, H)
-        # intra-chunk
-        scores = torch.einsum("bihd,bjhd->bhij", qb, kb)
-        decay = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
-        dmask = torch.where(causal, torch.exp(decay), 0.0)    # (B, H, L, L)
-        y_intra = torch.einsum("bhij,bjhd->bihd", scores * dmask, vb)
-        # inter-chunk
-        qdec = qb * torch.exp(cum)[..., None]
-        y_inter = torch.einsum("bihd,bhde->bihe", qdec, S)
-        # state update
-        tot = cum[:, -1:, :]                                  # (B, 1, H)
-        kdec = kb * torch.exp(tot - cum)[..., None]
-        S = (torch.exp(tot[:, 0, :, None, None]) * S
-             + torch.einsum("bjhd,bjhe->bhde", kdec, vb))
-        ys.append((y_intra + y_inter).to(v.dtype))
+        xs = [z[:, rows].float() for z in (q, k, v)]      # (B, L, H, *)
+        if torch.is_grad_enabled():
+            y, S = checkpoint(_ssd_chunk, S, *xs, log_a[:, rows], causal,
+                              use_reentrant=False)
+        else:
+            y, S = _ssd_chunk(S, *xs, log_a[:, rows], causal)
+        ys.append(y.to(v.dtype))
     return torch.cat(ys, dim=1), S
 
 
@@ -99,6 +112,19 @@ def _mamba2_dims(cfg):
     """(d_inner, n_heads, state) of the mixer."""
     d_inner = cfg.ssm_expand * cfg.d_model
     return d_inner, d_inner // cfg.ssm_head_dim, cfg.ssm_state
+
+
+def mamba2_specs(cfg=None) -> Dict:
+    """The reference's logical specs of :func:`mamba2_init`'s params."""
+    return {"in_proj": (None, "mlp"), "conv_w": (None, "mlp"),
+            "conv_b": ("mlp",), "A_log": ("mlp",), "dt_bias": ("mlp",),
+            "D": ("mlp",), "out_proj": ("mlp", None),
+            "norm": {"scale": (None,)}}
+
+
+def mamba2_cache_specs():
+    return {"S": ("batch", "mlp", None, None),
+            "conv": ("batch", None, "mlp")}
 
 
 def mamba2_init(gen: torch.Generator, cfg) -> Dict:
@@ -206,6 +232,17 @@ def mamba2_decode(params, x, cfg, cache, pos):
 # mLSTM block (xLSTM)
 # ---------------------------------------------------------------------------
 
+def mlstm_specs(cfg=None) -> Dict:
+    """The reference's logical specs of :func:`mlstm_init`'s params."""
+    return {"qkv": (None, "heads"), "gates": (None, "heads"),
+            "gate_b": ("heads",), "out_proj": ("heads", None),
+            "norm": {"scale": (None,)}, "skip": ("heads",)}
+
+
+def mlstm_cache_specs():
+    return {"S": ("batch", "heads", None, None)}
+
+
 def mlstm_init(gen: torch.Generator, cfg) -> Dict:
     d, h = cfg.d_model, cfg.n_heads
     dev = gen.device
@@ -275,6 +312,17 @@ def mlstm_decode(params, x, cfg, cache, pos):
 # sLSTM block (xLSTM): strictly sequential scalar-memory recurrence
 # ---------------------------------------------------------------------------
 
+def slstm_specs(cfg=None) -> Dict:
+    """The reference's logical specs of :func:`slstm_init`'s params."""
+    return {"wx": (None, "heads"), "r": ("heads", None, None),
+            "b": ("heads",), "out_proj": (None, None),
+            "norm": {"scale": (None,)}}
+
+
+def slstm_cache_specs():
+    return {"h": ("batch", None), "c": ("batch", None), "n": ("batch", None)}
+
+
 def slstm_init(gen: torch.Generator, cfg) -> Dict:
     d, h = cfg.d_model, cfg.n_heads
     dh = d // h
@@ -342,12 +390,16 @@ class Mixer(NamedTuple):
     apply: Callable
     decode: Callable
     cache_init: Callable
+    specs: Callable
+    cache_specs: Callable
 
 
 #: block kind -> its mixer's functions
 MIXERS = {
     "mamba2": Mixer(mamba2_init, mamba2_apply, mamba2_decode,
-                    mamba2_cache_init),
-    "mlstm": Mixer(mlstm_init, mlstm_apply, mlstm_decode, mlstm_cache_init),
-    "slstm": Mixer(slstm_init, slstm_apply, slstm_decode, slstm_cache_init),
+                    mamba2_cache_init, mamba2_specs, mamba2_cache_specs),
+    "mlstm": Mixer(mlstm_init, mlstm_apply, mlstm_decode, mlstm_cache_init,
+                   mlstm_specs, mlstm_cache_specs),
+    "slstm": Mixer(slstm_init, slstm_apply, slstm_decode, slstm_cache_init,
+                   slstm_specs, slstm_cache_specs),
 }

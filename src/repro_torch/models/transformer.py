@@ -50,11 +50,13 @@ from repro_torch.runtime.kvcache.layout import copy_page
 from repro_torch.tree import map_tree
 from . import attention as A
 from . import ssm as S
+from repro_torch.sharding.context import UnitSpec, map_specs
 from .common import (cross_entropy, dtype_of, embedding_apply,
-                     embedding_init, lm_head_apply, normal_init,
-                     resolve_device, rmsnorm_apply, rmsnorm_init)
-from .ffn import ffn_apply, ffn_init
-from .moe import moe_apply, moe_init
+                     embedding_init, embedding_specs, lm_head_apply,
+                     normal_init, resolve_device, rmsnorm_apply,
+                     rmsnorm_init, rmsnorm_specs)
+from .ffn import ffn_apply, ffn_init, ffn_specs
+from .moe import moe_apply, moe_init, moe_specs
 
 #: leaves that every use casts to the compute dtype: the linear and packed
 #: layers', the tables, MLA's bare weights and the MoE router (the SSM
@@ -119,6 +121,71 @@ def _block_init(kind: str, gen: torch.Generator, cfg):
         p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_sparsity,
                             cfg.act)
     return p
+
+
+def _block_specs(kind: str, cfg):
+    """The reference's logical specs of :func:`_block_init`'s params."""
+    if kind not in ATTN_KINDS:
+        return {"norm": rmsnorm_specs(), "mixer": S.MIXERS[kind].specs(cfg)}
+    s = {"norm1": rmsnorm_specs(),
+         "mixer": A.mla_specs(cfg) if cfg.use_mla else A.gqa_specs(cfg),
+         "norm2": rmsnorm_specs()}
+    if cfg.is_moe and kind == "attn":
+        s["moe"] = moe_specs(cfg.d_model, cfg.d_ff, cfg.n_shared_experts,
+                             cfg.act, cfg.ffn_sparsity)
+    elif cfg.d_ff > 0:
+        s["ffn"] = ffn_specs(cfg.d_model, cfg.d_ff, cfg.ffn_sparsity, cfg.act)
+    return s
+
+
+def _stacked(unit_specs):
+    """Specs of a stacked unit tree: the (never sharded) unit axis first."""
+    return map_specs(lambda sp: (None,) + tuple(sp), unit_specs)
+
+
+def param_specs(cfg) -> Dict:
+    """The logical-spec tree of the reference's ``init_model(key,
+    cfg)[1]``, leaf for leaf: the reference's layout, whose ``units``
+    stack the layers of every block ``b{i}`` on a leading unit axis
+    (:func:`layer_specs` gives the port's per-layer layout)."""
+    check_supported(cfg)
+    specs = {"embed": embedding_specs()}
+    if "shared_attn" in cfg.block_pattern:
+        specs["shared"] = _block_specs("shared_attn", cfg)
+    specs["units"] = _stacked({
+        f"b{i}": _block_specs(kind, cfg)
+        for i, kind in enumerate(cfg.block_pattern) if kind != "shared_attn"})
+    specs["final_norm"] = rmsnorm_specs()
+    if not cfg.tie_embeddings:
+        specs["head"] = {"table": ("vocab", "embed")}
+    return specs
+
+
+def layer_specs(specs: Dict, cfg) -> Dict:
+    """A tree of the reference's layout (:func:`param_specs`, or specs
+    made from it such as ZeRO-1's) in the port's training layout: layer
+    ``u·L + i`` holds ``units["b{i}"]``'s specs as
+    :class:`repro_torch.sharding.UnitSpec` of unit u; a ``shared_attn``
+    layer is an empty dict."""
+    n, units = len(cfg.block_pattern), specs["units"]
+    layers = [{} if kind == "shared_attn" else
+              map_specs(lambda sp, u=j // n: UnitSpec(sp, u, cfg.n_units),
+                        units[f"b{j % n}"])
+              for j, kind in enumerate(layer_kinds(cfg))]
+    out = {k: v for k, v in specs.items() if k != "units"}
+    out["layers"] = layers
+    return out
+
+
+def cache_specs(cfg) -> Dict:
+    """The logical-spec tree of the reference's ``init_cache(cfg, batch,
+    max_seq)[1]`` (the unit axis first)."""
+    def block(kind):
+        if kind not in ATTN_KINDS:
+            return S.MIXERS[kind].cache_specs()
+        return A.mla_cache_specs() if cfg.use_mla else A.gqa_cache_specs(cfg)
+    return _stacked({f"b{i}": block(kind)
+                     for i, kind in enumerate(cfg.block_pattern)})
 
 
 def _ffn_residual(params, x, cfg):

@@ -74,20 +74,25 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig,
-                  lr_scale=1.0) -> Tuple[Dict, Dict, Dict]:
+                  lr_scale=1.0, norm=None) -> Tuple[Dict, Dict, Dict]:
     """One AdamW step, in place on ``params`` and ``state``.
 
     ``grads`` is a tree of ``params``' structure, or a list of one grad a
     leaf in :func:`repro_torch.tree.flatten`'s order; a ``None`` grad (an
     int leaf, or a param the loss does not reach) counts as zero, as
-    ``jax.grad`` gives it.  Returns ``(params, state, {"grad_norm"})``
-    with the same ``params`` and ``state`` objects, updated."""
+    ``jax.grad`` gives it.  ``norm`` is the gradients' global norm where
+    ``params`` and ``grads`` are slices of the leaves (ZeRO-1: the slices
+    a rank's moment shards cover, updated element by element as whole
+    leaves are); without it the norm is ``grads``'.
+    Returns ``(params, state, {"grad_norm"})`` with the same ``params``
+    and ``state`` objects, updated."""
     flat_p, flat_g = leaves(params), leaves(grads)
     if len(flat_g) != len(flat_p):
         raise ValueError(f"{len(flat_g)} grads for {len(flat_p)} params")
     flat_g = [torch.zeros_like(p) if g is None and is_float(p) else g
               for p, g in zip(flat_p, flat_g)]
-    norm = global_norm(flat_g)
+    if norm is None:
+        norm = global_norm(flat_g)
     clip = _clip_scale(norm, cfg.grad_clip)
     state["step"] += 1
     t = state["step"].float()

@@ -1,0 +1,173 @@
+"""Rank functions of the port's distributed tests: each runs in a fresh
+process that ``repro_torch.launch.ranks.run_ranks`` spawned and joined to
+a gloo process group on the CPU.  This module imports neither JAX nor the
+reference package: the tests hand it numpy arrays."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.bridge import train_params_from_jax
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import steps as St
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.train import Trainer, parse_mesh
+from repro_torch.models import transformer as T
+from repro_torch.optim.compression import (_ef_psum_leaf,
+                                           make_compressed_grad_sync)
+from repro_torch.runtime import pipeline_apply
+from repro_torch.sharding import NamedSharding, make_rules, use_rules
+from repro_torch.sharding.collectives import dp_group, gather_leaves, \
+    group_size, summed
+from repro_torch.tree import flatten, leaves, unflatten
+
+TRAIN_SHAPE = ShapeConfig("t", 32, 4, "train")
+
+
+def _np(tree):
+    return {k: v.detach().numpy().copy() for k, v in flatten(tree)}
+
+
+def sharded_step(rank, cases, kwta_impl):
+    """Test 5 and 4: for each (arch, cfg kwargs, tcfg kwargs, reference
+    params as numpy, global batch) one sharded step on mesh (2, 2).
+    Returns, per case: the loss and grad norm, the DP-mean gradients and
+    the full params after the step (rank 0), and every rank's local
+    param and moment shapes."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = make_rules(mesh, "train")
+    out = []
+    for arch, kw, tkw, np_params, batch in cases:
+        cfg = get_config(arch).reduced(**kw)
+        cfg = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+            cfg.ffn_sparsity, kwta_impl=kwta_impl))
+        tcfg = TrainConfig(**tkw)
+        full = train_params_from_jax(np_params, cfg, device="cpu")
+        params, opt, shardings, shapes = St.shard_train_state(
+            full, cfg, tcfg, rules)
+        step, _ = St.make_sharded_train_step(cfg, tcfg, rules, shardings,
+                                             shapes)
+        rows = {k: rules.sharding_for(("batch", None), v.shape).take(
+            torch.from_numpy(v)) for k, v in batch.items()}
+        # the gradients the step averages (for the first-update bound)
+        whole = gather_leaves(leaves(params), leaves(shardings["params"]),
+                              shapes)
+        with use_rules(rules):
+            _, grads = St.value_and_grad(
+                lambda p: T.loss_fn(p, rows, cfg), unflatten(params, whole))
+            group = dp_group()
+        floats = [i for i, g in enumerate(grads) if g is not None]
+        mean = summed([shapes[i] for i in floats],
+                      lambda j, buf: buf.copy_(grads[floats[j]]), group,
+                      "cpu")
+        local = {"params": {k: tuple(v.shape) for k, v in flatten(params)}}
+        params, opt, m = step(params, opt, rows)
+        # the float leaves' moments (an int leaf's is a scalar placeholder,
+        # one a stacked leaf in the reference, one a layer here)
+        local["mu"] = {k: tuple(v.shape) for (k, v), p in zip(
+            flatten(opt["mu"]), leaves(params)) if p.is_floating_point()}
+        state = St.gather_state({"params": params, "opt": opt}, shardings,
+                                shapes)
+        keys = [k for k, _ in flatten(params)]
+        out.append({
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "aux": float(m["aux_loss"]), "local": local, "rows": {
+                k: tuple(v.shape) for k, v in rows.items()},
+            "grads": {keys[i]: (g / group_size(group)).numpy()
+                      for i, g in zip(floats, mean)} if rank == 0 else None,
+            "params": _np(state["params"]) if rank == 0 else None,
+            "step": int(opt["step"])})
+    return out
+
+
+def mesh_refusals(rank):
+    """Test 9 on a process group of four: every mesh whose size is not
+    the world size raises."""
+    msgs = []
+    for call in (lambda: make_mesh((2, 1), ("data", "model"), "cpu"),
+                 lambda: parse_mesh("1x1", "cpu"),
+                 lambda: parse_mesh("2x2x2", "cpu")):
+        try:
+            call()
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+def compressed_sync(rank, g_pods, extra):
+    """Test 6 on mesh (2, 4) (pod, data): each pod's grads are row ``pod``
+    of ``g_pods``; returns the sync's and ``_ef_psum_leaf``'s outputs and
+    residuals, and the pod."""
+    mesh = make_mesh((2, 4), ("pod", "data"), "cpu")
+    pod = mesh.coords["pod"]
+    sync = make_compressed_grad_sync(mesh, "pod")
+    grads = {"w": torch.from_numpy(g_pods[pod]),
+             "m": torch.from_numpy(extra[pod]),
+             "i": torch.arange(3, dtype=torch.int32)}
+    resids = {"w": torch.zeros((1, *g_pods.shape[1:])),
+              "m": torch.zeros((1, *extra.shape[1:])),
+              "i": torch.zeros((1,), dtype=torch.int32)}
+    out, new = sync(grads, resids)
+    leaf, leaf_r = _ef_psum_leaf(grads["w"], resids["w"][0],
+                                 mesh.group("pod"), 2)
+    return {"pod": pod, "out": _np(out), "resid": _np(new),
+            "leaf": leaf.numpy(), "leaf_resid": leaf_r.numpy()}
+
+
+def _tanh_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def pipeline(rank, ws, x):
+    """Test 7 on mesh (4,) (pipe): the rank's stage is row ``pipe`` of
+    ``ws``; then test 9's refusals on the same group."""
+    mesh = make_mesh((4,), ("pipe",), "cpu")
+    stage = mesh.coords["pipe"]
+    y = pipeline_apply(_tanh_stage, mesh, "pipe",
+                       torch.from_numpy(ws[stage:stage + 1]),
+                       torch.from_numpy(x), n_micro=4)
+    return y.numpy(), mesh_refusals(rank)
+
+
+def resume_on_mesh(rank, ckpt_dir, cfg_kw, tcfg_kw, to_step):
+    """Test 8: a Trainer on mesh (2, 2) resumes the (1, 1) run's
+    checkpoint and runs to ``to_step``; returns the resumed step, each
+    step's loss, the local shapes of the state and the full params at
+    the end (rank 0)."""
+    cfg = get_config("smollm-360m").reduced(**cfg_kw)
+    tcfg = TrainConfig(ckpt_dir=ckpt_dir, **tcfg_kw)
+    t = Trainer(cfg, tcfg, (2, 2), TRAIN_SHAPE, device="cpu")
+    resumed = t.try_resume() and t.step
+    losses = []
+    check = t.guard.check
+    t.guard.check = lambda loss: losses.append(loss) or check(loss)
+    from repro_torch.data import batch_for
+    t.run(to_step, lambda s: batch_for(cfg, TRAIN_SHAPE, s, seed=0),
+          log=lambda *a: None)
+    state = t.full_state()
+    return {"resumed": resumed, "losses": losses, "step": t.step,
+            "params": _np(state["params"]) if rank == 0 else None}
+
+
+def reshard_restore(rank, directory):
+    """``ckpt.restore(..., shardings=)`` onto another spec: process 0
+    saves an (8, 8) leaf; every rank of mesh (2, 2) restores its block
+    of it under (None, "model") and under ("data", "model")."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    x = torch.arange(64.0).reshape(8, 8)
+    if rank == 0:
+        ckpt.save(directory, 1, {"w": x})
+    from repro_torch.sharding.collectives import barrier
+    barrier(mesh)
+    out = {}
+    for spec in ((None, "model"), ("data", "model")):
+        sh = NamedSharding(mesh, spec)
+        _, tree, _ = ckpt.restore_latest(
+            directory, {"w": torch.zeros(sh.local_shape((8, 8)))},
+            {"w": sh})
+        out[spec] = (tree["w"].numpy(), sh.block((8, 8)))
+    return mesh.coords, out, np.asarray(x)

@@ -200,3 +200,52 @@ def test_monitors_match_reference_on_one_stream():
         assert g.ema == jg.ema
     assert m.summary() == jm.summary()
     assert reg.snapshot() == jreg.snapshot()
+
+
+def test_checkpoints_cross_between_packages(tmp_path):
+    """Both directions on a dict of f32 (2, 3), bf16 (4,) and int8 (3,)
+    leaves: the port restores the reference's leaves (its string treedef
+    checked by leaf count and shapes, its ``|V2`` bf16 viewed as bf16);
+    the reference restores the port's f32 and int8 leaves and fails
+    loudly on a bf16 one, as on its own; the port's older checkpoints
+    (bf16 as ``<i2``) still restore."""
+    import jax.numpy as jnp
+    f32 = np.arange(6, dtype=np.float32).reshape(2, 3) / 7
+    bf = np.array([0, 0.334, 0.668, 1.0], np.float32)
+    i8 = np.array([-3, 0, 7], np.int8)
+    like = {"a": torch.zeros(2, 3), "b": torch.zeros(4, dtype=torch.bfloat16),
+            "c": torch.zeros(3, dtype=torch.int8)}
+    want = {"a": torch.from_numpy(f32),
+            "b": torch.from_numpy(bf).to(torch.bfloat16),
+            "c": torch.from_numpy(i8)}
+
+    ref_dir = str(tmp_path / "ref")
+    jckpt.save(ref_dir, 1, {"a": jnp.asarray(f32),
+                            "b": jnp.asarray(bf, jnp.bfloat16),
+                            "c": jnp.asarray(i8)})
+    step, got, _ = ckpt.restore_latest(ref_dir, like)
+    assert step == 1
+    _assert_equal(got, want)
+    with pytest.raises(ValueError, match="3 leaves"):
+        ckpt.restore(ref_dir, 1, {"a": like["a"]})
+
+    port_dir = str(tmp_path / "port")
+    path = ckpt.save(port_dir, 1, want)
+    with np.load(os.path.join(path, "shard_p0.npz")) as data:
+        assert data["leaf_00001"].dtype == np.dtype("V2")
+    with pytest.raises((TypeError, ValueError)):
+        jckpt.restore(port_dir, 1, {"a": jnp.zeros((2, 3)),
+                                    "b": jnp.zeros((4,), jnp.bfloat16),
+                                    "c": jnp.zeros((3,), jnp.int8)})
+    ckpt.save(port_dir, 2, {"a": want["a"], "c": want["c"]})
+    tree, _ = jckpt.restore(port_dir, 2, {"a": jnp.zeros((2, 3)),
+                                          "c": jnp.zeros((3,), jnp.int8)})
+    np.testing.assert_array_equal(np.asarray(tree["a"]), f32)
+    np.testing.assert_array_equal(np.asarray(tree["c"]), i8)
+
+    # an older port checkpoint: the bf16 leaf as its int16 view
+    shard = os.path.join(path, "shard_p0.npz")
+    data = dict(np.load(shard))
+    data["leaf_00001"] = data["leaf_00001"].view(np.int16)
+    np.savez(shard, **data)
+    _assert_equal(ckpt.restore(port_dir, 1, like)[0], want)

@@ -17,6 +17,7 @@ from repro_torch.bridge import (gsc_params_from_jax, params_from_jax,
                                 train_params_from_jax)
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import single_device_mesh
 from repro_torch.launch.serve import Engine
 from repro_torch.launch.train import Trainer, main as train_main
 from repro_torch.models import gsc_cnn as G
@@ -50,6 +51,11 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
             "repro_torch.models.gsc_cnn", "repro_torch.optim.adamw",
             "repro_torch.optim.compression", "repro_torch.optim.schedule",
             "repro_torch.runtime.monitor", "repro_torch.tree"} <= set(mods)
+    assert {"repro_torch.sharding", "repro_torch.sharding.axes",
+            "repro_torch.sharding.collectives",
+            "repro_torch.sharding.context", "repro_torch.launch.mesh",
+            "repro_torch.launch.ranks",
+            "repro_torch.runtime.pipeline_parallel"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -123,8 +129,17 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda):
 
 
 def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda,
-                                                          tmp_path):
+                                                          tmp_path,
+                                                          monkeypatch):
     cfg = get_config("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        single_device_mesh()
+    # under torchrun, before any process group is joined
+    with monkeypatch.context() as env:
+        env.setenv("WORLD_SIZE", "4")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_main(["--arch", "smollm-360m", "--mesh", "2x2",
+                        "--ckpt-dir", str(tmp_path)])
     shape = ShapeConfig("t", 8, 2, "train")
     tcfg = TrainConfig(ckpt_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -198,3 +198,58 @@ def test_paged_engine_mla_cache_variant():
     out_p, stats = eng_p.serve(_mixed_requests(cfg, plens, gens))
     assert out_p == out_c
     assert stats["prefill_chunks"] == sum(-(-n // 8) for n in plens)
+
+
+def test_mla_trains_from_float32_masters_in_bf16():
+    """The training layout keeps float32 masters and casts each MLA weight
+    to the compute dtype at its use, as the reference does (the port once
+    multiplied bf16 activations by the f32 masters and raised).
+
+    deepseek-v2-lite reduced as shipped, in bf16 from the reference's
+    weights: the loss within 3e-3 relative of the reference's (measured
+    6.9e-4) and finite gradients; its MoE router and k-WTA choices flip
+    under bf16 rounding, so its gradients part by up to 46% of a leaf's
+    norm.  With no experts and a dense FFN no choice flips: the loss
+    within 3e-4 relative (measured 6.6e-5) and every gradient leaf within
+    6e-2 of the reference's bf16 gradient in relative L2 norm (measured
+    1.8e-2).  Dropping the rope of q and k, zeroing the shared rope key,
+    or taking the values from the key weight each put a leaf's gradient
+    0.5 to 460 off (and the last the loss 1e-3)."""
+    from repro.configs.base import DENSE as JDENSE
+    from repro.data import batch_for as j_batch_for
+    from repro_torch.bridge import train_params_from_jax
+    from repro_torch.configs.base import DENSE
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.tree import flatten
+
+    class shape:
+        seq_len, global_batch = 16, 2
+
+    for kw, jkw, loss_tol in (({}, {}, 3e-3),
+                              (dict(DENSE_MLA, ffn_sparsity=DENSE),
+                               dict(DENSE_MLA, ffn_sparsity=JDENSE), 3e-4)):
+        jcfg = jget_config("deepseek-v2-lite-16b").reduced(head_pad=0, **jkw)
+        cfg = get_config("deepseek-v2-lite-16b").reduced(head_pad=0, **kw)
+        assert cfg.compute_dtype == "bfloat16" and cfg.use_mla
+        jparams, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
+        batch = j_batch_for(jcfg, shape, step=0)
+        (jloss, _), jgrads = jax.value_and_grad(
+            lambda p: JT.loss_fn(p, {k: jnp.asarray(v)
+                                     for k, v in batch.items()}, jcfg),
+            has_aux=True, allow_int=True)(jparams)
+        params = train_params_from_jax(jax.tree.map(np.asarray, jparams),
+                                       cfg, device="cpu")
+        (loss, _), grads = value_and_grad(
+            lambda p: T.loss_fn(p, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()}, cfg), params)
+        assert abs(float(loss) - float(jloss)) <= loss_tol * abs(float(jloss))
+        assert all(torch.isfinite(g).all() for g in grads if g is not None)
+        if not kw:
+            continue
+        want = flatten(train_params_from_jax(
+            jax.tree.map(lambda g: np.asarray(g, np.float32), jgrads), cfg,
+            device="cpu"))
+        assert len(want) == len(grads)
+        for (path, w), g in zip(want, grads):
+            assert float((g.float() - w).norm()) <= 6e-2 * float(
+                w.norm()), path

@@ -226,3 +226,47 @@ def test_mixer_decode_continues_apply(kind):
                                                 i)
         rows.append(y)
     _close(torch.cat(rows, dim=1), full.numpy(), atol=1e-4)
+
+
+def test_ssd_scan_checkpoints_each_chunk_without_changing_values(
+        monkeypatch):
+    """Each chunk of ``ssd_scan`` runs under ``torch.utils.checkpoint``
+    where autograd records (the reference's ``@jax.checkpoint``): the
+    chunk is computed again in the backward pass, and values and
+    gradients equal a run without it."""
+    rng = np.random.default_rng(5)
+    b, t, h, dk, dv = 2, 32, 3, 4, 5
+    arrays = [rng.normal(size=(b, t, h, d)).astype(np.float32)
+              for d in (dk, dk, dv)]
+    log_a = -np.abs(rng.normal(size=(b, t, h))).astype(np.float32)
+    calls = {"n": 0}
+    chunk = S._ssd_chunk
+
+    def counted(*a):
+        calls["n"] += 1
+        return chunk(*a)
+
+    monkeypatch.setattr(S, "_ssd_chunk", counted)
+
+    def run():
+        xs = [torch.tensor(a, requires_grad=True) for a in arrays]
+        la = torch.tensor(log_a, requires_grad=True)
+        y, state = S.ssd_scan(*xs, la, chunk=8)
+        (y.square().sum() + state.sum()).backward()
+        return [y.detach(), state.detach()] + [x.grad for x in xs + [la]]
+
+    calls["n"] = 0
+    remat = run()
+    assert calls["n"] == 2 * (t // 8)       # forward, then again backward
+    monkeypatch.setattr(S, "checkpoint",
+                        lambda fn, *a, use_reentrant: fn(*a))
+    calls["n"] = 0
+    plain = run()
+    assert calls["n"] == t // 8
+    for a, p in zip(remat, plain):
+        assert torch.equal(a, p)
+    with torch.no_grad():
+        calls["n"] = 0
+        S.ssd_scan(*[torch.from_numpy(a) for a in arrays],
+                   torch.from_numpy(log_a), chunk=8)
+    assert calls["n"] == t // 8
