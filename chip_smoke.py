@@ -192,6 +192,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    partitionings differ in f32 order, and a bisect threshold within an
    ulp of a unit flips it.  ``[mesh]`` lines and a ``[mesh] numbers
    {...}`` JSON line.
+14. mesh-serve — ``Engine(mesh=...)``: smollm-360m at full width, random
+   weights from seed 0, max_seq 48 (the contiguous cache's rows shard:
+   12 a rank on 1x4, 24 on 2x2), on four gloo ranks sharing the card
+   (a fresh process each), on meshes 1x4 and 2x2 (data x model), both
+   layouts, against the single-device engine on the card: (a) in
+   float32, four prompts prefilled and 4 decode steps fed the same tokens
+   holding the single-device engine's k-WTA selections, logits within
+   1e-3; (b) in bf16 phase 4's workload (1x4 contiguous, 2x2 both
+   layouts; the pools replicate on both): tokens equal on every rank and
+   equal to the single-device engine's but where they part between its
+   top two, closer than twice the bf16 forced-logits difference (phase
+   7's rule); (c) 32 ``topk_gather`` launches a decode step on every
+   rank, none in a prefill; (d) each rank's param and cache bytes equal
+   to its block reckoned from the specs (``shard_shape``), beside the
+   single device's; (e) no tensor handed to a collective is (or views) a
+   param or cache block, and the largest a decode step moves is the (4,
+   vocab) logits: the count and bytes of a step's collectives; (f) mesh
+   1x1 over NCCL at world size 1 in a process of its own: tokens and
+   forced logits bit-equal to the engine without a mesh.  Then each
+   mesh's tok/s and host-clock decode step beside the single device's
+   (no limit, no claim).  ``[mesh-serve]`` lines and a ``[mesh-serve]
+   numbers {...}`` JSON line.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -1063,17 +1085,20 @@ def phase_ops(cfg):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def kwta_selections(held=None):
+def kwta_selections(held=None, rows=None):
     """Record the kept set of every bisect k-WTA call made inside, in call
     order, as boolean masks; with ``held`` (an iterator of masks, one a
-    call) keep those sets instead of selecting.  The serving FFN selects
-    with ``repro_torch.core.layers.kwta_bisect``."""
+    call) keep those sets instead of selecting (``rows`` of a held mask
+    whose batch is larger than the call's: a rank's block of slots).  The
+    serving FFN selects with ``repro_torch.core.layers.kwta_bisect``."""
     layers = importlib.import_module("repro_torch.core.layers")
     select, masks = layers.kwta_bisect, []
 
     def spy(x, k):
         if held is not None:
             keep = next(held)
+            if rows is not None and keep.shape[0] != x.shape[0]:
+                keep = keep[rows]
         else:
             keep = select(x, k) != 0
         masks.append(keep)
@@ -3938,6 +3963,460 @@ def phase_mesh():
         fail("mesh: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: serving on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_DIR = ROOT / "build" / "mesh_serve"
+#: max_seq of phase 14: the contiguous cache's rows shard, 12 a rank on
+#: (1, 4) and 24 on (2, 2)
+MESH_SERVE_SEQ = 48
+MESH_SERVE_MESHES = ((1, 4), (2, 2))
+#: the layouts each mesh serves phase 4's workload on (checks (b)-(e));
+#: (a) runs both on both.  The page pools replicate on either mesh (5 kv
+#: heads), so a paged serve on 1x4 would repeat 2x2's but for the gather
+#: width, at a second a decode step of gloo collectives
+MESH_SERVE_LAYOUTS = {(1, 4): ("contiguous",),
+                      (2, 2): ("contiguous", "paged")}
+#: decode steps of check (a), after the four prompts' prefills
+MESH_SERVE_FORCED = 4
+MESH_SERVE_TOL = 1e-3
+LAYOUTS = ("contiguous", "paged")
+
+
+def mesh_serve_kw(layout):
+    return ({} if layout == "contiguous" else
+            dict(kv_layout="paged", page_size=16, prefill_chunk=16))
+
+
+def forced_logits(engine, prompts, forced):
+    """Four prompts prefilled into slots 0-3, then ``forced`` decode steps
+    fed those tokens ((steps, 4)), on either layout (one page chain a
+    slot), on the engine's mesh: the prefills' last rows and each step's
+    logits, (4, vocab) float32 host arrays.  Teacher forcing gives two
+    engines the same inputs however their tokens would part."""
+    n = engine.n_slots
+    first, tables = [], None
+    with torch.no_grad(), engine.on_mesh():
+        if engine.kv_layout == "paged":
+            cache = engine.new_paged_cache()
+            blocks = engine.kv_geo.blocks_per_slot
+            tables = np.arange(1, n * blocks + 1).reshape(n, blocks)
+            chunk = engine.prefill_chunk
+            for slot, p in enumerate(prompts):
+                for start in range(0, len(p), chunk):
+                    row = engine._prefill_chunk(cache, p[start:start + chunk],
+                                                tables[slot:slot + 1], start)
+                first.append(row.float().cpu().numpy())
+        else:
+            cache = engine.new_cache(n)
+            for slot, p in enumerate(prompts):
+                row, frag = engine._prefill(p)
+                engine._insert(cache, frag, slot)
+                first.append(row)
+        rows = [np.stack(first)]
+        pos = np.array([len(p) for p in prompts])
+        for toks in forced:
+            logits, _ = engine._decode_step(cache, toks[:, None], pos, tables)
+            rows.append(logits)
+            pos = pos + 1
+    return rows
+
+
+def rows_err(a, b):
+    return float(max(np.abs(x - y).max() for x, y in zip(a, b, strict=True)))
+
+
+def fingerprint(params):
+    """Sums of a few leaves: two processes drew the same weights."""
+    return [float(params["embed"]["table"].double().sum()),
+            float(params["layers"][-1]["ffn"]["down"]["packed"].double()
+                  .sum()),
+            float(params["layers"][0]["mixer"]["q"]["w"].double().sum())]
+
+
+def serving_bytes(engine):
+    """The engine's bytes on this rank: the reference's param leaves, the
+    partition-major copies and a new cache of its layout."""
+    from repro_torch.core.layers import drop_partition_major
+    from repro_torch.tree import leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+    ref = nbytes(drop_partition_major(engine.params))
+    cache = (engine.new_paged_cache() if engine.kv_layout == "paged"
+             else engine.new_cache(engine.n_slots))
+    return ref, nbytes(engine.params) - ref, nbytes(cache)
+
+
+def reckoned_serving_bytes(engine, whole):
+    """The reference's per-device bytes of ``whole``'s params and the
+    engine's cache, reckoned from the specs under the engine's rules
+    (``shard_shape`` of each leaf, the units stacked)."""
+    from repro_torch.core.layers import drop_partition_major
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.context import param_sharding
+    from repro_torch.tree import leaves
+    cfg, rules = engine.cfg, engine.rules
+
+    def total(specs, tree):
+        out = 0
+        for sh, t in zip(leaves(param_sharding(specs, tree, rules)),
+                         leaves(tree), strict=True):
+            shape = tuple(t.shape)
+            block = (sh.shard_shape((sh.unit[1], *shape))[1:] if sh.unit
+                     else sh.shard_shape(shape))
+            out += math.prod(block) * t.element_size()
+        return out
+
+    paged = engine.kv_layout == "paged"
+    meta = (T.init_paged_cache(cfg, engine.kv_geo.n_pages,
+                               engine.kv_geo.page_size, "meta") if paged
+            else T.init_cache(cfg, engine.n_slots, engine.max_seq, "meta"))
+    return (total(T.layer_specs(T.param_specs(cfg), cfg),
+                  drop_partition_major(whole)),
+            total(T.layer_cache_specs(cfg, paged), meta))
+
+
+class CollectiveLog:
+    """The collectives an engine runs: whether a decode step ran them, the
+    bytes of the largest tensor of each (a gather's received buffer) and
+    whether a tensor handed over is (or views) a param or a cache block,
+    by storage, while both are alive."""
+
+    def __init__(self, engine):
+        from repro_torch.tree import leaves
+        self.leaves = leaves
+        self.calls, self.caches, self.in_step = [], [], False
+        self.held = self._storages(engine.params)
+        for name in ("new_cache", "new_paged_cache"):
+            make = getattr(engine, name)
+            setattr(engine, name, lambda *a, make=make: self._keep(make(*a)))
+        step = engine._decode_step
+
+        def decode_step(*a, **kw):
+            self.in_step = True
+            try:
+                return step(*a, **kw)
+            finally:
+                self.in_step = False
+        engine._decode_step = decode_step
+
+    def _storages(self, tree):
+        return {t.untyped_storage().data_ptr() for t in self.leaves(tree)}
+
+    def _keep(self, cache):
+        self.caches.append(cache)
+        self.held |= self._storages(cache)
+        return cache
+
+    def __call__(self, op, tensors):
+        big = max(tensors, key=lambda t: t.numel())
+        self.calls.append((self.in_step, op,
+                           big.numel() * big.element_size(),
+                           sum(t.untyped_storage().data_ptr() in self.held
+                               for t in tensors)))
+
+    def summary(self, steps):
+        step = [c for c in self.calls if c[0]]
+        largest = max(step, key=lambda c: c[2])
+        return {"per_step": len(step) / steps,
+                "bytes_per_step": sum(c[2] for c in step) / steps,
+                "largest": [largest[1], largest[2]],
+                "ops": dict(collections.Counter(c[1] for c in step)),
+                "weights_handed": sum(c[3] for c in self.calls)}
+
+
+def prefill_launches(engine):
+    """A box counting ``topk_gather`` launches inside the engine's
+    prefills (fused or chunked)."""
+    from repro_torch.kernels import topk_gather
+    box = [0]
+    for name in ("_prefill", "_prefill_chunk"):
+        fn = getattr(engine, name)
+
+        def counted(*a, fn=fn, **kw):
+            before = topk_gather.launches
+            try:
+                return fn(*a, **kw)
+            finally:
+                box[0] += topk_gather.launches - before
+        setattr(engine, name, counted)
+    return box
+
+
+def mesh_serve_rank(rank):
+    """Phase 14 on one of four gloo ranks sharing the card, for each mesh
+    of MESH_SERVE_MESHES: the f32 forced logits holding the single-device
+    engine's k-WTA selections, then the bf16 forced logits with free
+    selections and the bf16 engine on phase 4's workload on both layouts
+    (tokens, launches, collectives, bytes, times; after a one-step
+    warm-up) on the mesh's MESH_SERVE_LAYOUTS."""
+    import pickle
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.collectives import observe_collectives
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    single = pickle.loads((MESH_SERVE_DIR / "single.pkl").read_bytes())
+    cfg = get_config("smollm-360m")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    reqs = phase4_requests(cfg.vocab_size)
+    prompts = [r.prompt for r in reqs[:4]]
+    out = {"rank": rank}
+    warm = dataclasses.replace(reqs[0], max_new_tokens=2)
+    for dims in MESH_SERVE_MESHES:
+        mesh = make_mesh(dims, ("data", "model"), device)
+        res = {"coords": mesh.coords, "f32_err": {}}
+        whole = T.init_model(cfg32, seed=SEED, device=device)
+        for layout in LAYOUTS:
+            eng = Engine(cfg32, MESH_SERVE_SEQ, 4, params=whole,
+                         device=device, mesh=mesh, **mesh_serve_kw(layout))
+            held = iter([m.to(device) for m in single["masks"][layout]])
+            with kwta_selections(held, rows=eng.shards.batch_rows(4)):
+                rows = forced_logits(eng, prompts, single["forced"])
+            if next(held, None) is not None:
+                fail("mesh_serve: k-WTA selections left over")
+            res["f32_err"][layout] = rows_err(rows, single["f32_rows"][layout])
+            del eng
+        del whole
+        torch.cuda.empty_cache()
+        whole = T.init_model(cfg, seed=SEED, device=device)
+        res["same_weights"] = fingerprint(whole) == single["fingerprint"]
+        eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=whole, device=device,
+                     mesh=mesh)
+        res["bf16_move"] = rows_err(
+            forced_logits(eng, prompts, single["forced"]),
+            single["bf16_rows"])
+        for layout in MESH_SERVE_LAYOUTS[dims]:
+            eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=whole, device=device,
+                         mesh=mesh, **mesh_serve_kw(layout))
+            eng.serve([warm])
+            eng.prefill_calls = 0
+            log, pre = CollectiveLog(eng), prefill_launches(eng)
+            reset_counts()
+            with observe_collectives(log):
+                toks, stats = eng.serve(reqs)
+            steps = stats["decode_steps"]
+            res[layout] = {
+                "tokens": toks, "steps": steps, "tok_s": stats["tok_s"],
+                "step_ms": stats["decode_s"] / steps * 1e3,
+                "launches": read_counts()["topk_gather"],
+                "prefill_launches": pre[0],
+                "collectives": log.summary(steps),
+                "bytes": serving_bytes(eng),
+                "reckoned": reckoned_serving_bytes(eng, whole)}
+            del eng, log
+        del whole
+        torch.cuda.empty_cache()
+        out[dims] = res
+    return out
+
+
+def mesh_serve_nccl(rank):
+    """(f) in a process of its own: the engine on mesh 1x1 over NCCL at
+    world size 1 against the engine without a mesh, phase 4's workload
+    (bf16) and the forced logits, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-360m")
+    reqs = phase4_requests(cfg.vocab_size)
+    forced = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, (MESH_SERVE_FORCED, 4))
+    params = T.init_model(cfg, seed=SEED, device=device)
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    toks, rows = [], []
+    for m in (None, mesh):
+        eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=params, device=device,
+                     mesh=m)
+        toks.append(eng.serve(reqs)[0])
+        rows.append(forced_logits(eng, [r.prompt for r in reqs[:4]], forced))
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "distributed": mesh.distributed,
+            "tokens_equal": toks[0] == toks[1],
+            "logits_equal": all(np.array_equal(a, b)
+                                for a, b in zip(*rows, strict=True))}
+
+
+def phase_mesh_serve():
+    """Phase 14: the single-device references on the card, then four gloo
+    ranks sharing the card on meshes (1, 4) and (2, 2), then one NCCL rank
+    at world size 1."""
+    import pickle
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
+    MESH_SERVE_DIR.mkdir(parents=True)
+    cfg = get_config("smollm-360m")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    reqs = phase4_requests(cfg.vocab_size)
+    prompts = [r.prompt for r in reqs[:4]]
+    forced = np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, (MESH_SERVE_FORCED, 4))
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    one = {}
+    for layout in LAYOUTS:
+        eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=params, device="cuda",
+                     **mesh_serve_kw(layout))
+        eng.serve([dataclasses.replace(reqs[0], max_new_tokens=2)])
+        toks, stats = eng.serve(reqs)
+        one[layout] = {"tokens": toks, "tok_s": stats["tok_s"],
+                       "step_ms": stats["decode_s"] / stats["decode_steps"]
+                       * 1e3, "bytes": serving_bytes(eng)}
+    single = {"forced": forced, "fingerprint": fingerprint(params),
+              "bf16_rows": forced_logits(
+                  Engine(cfg, MESH_SERVE_SEQ, 4, params=params,
+                         device="cuda"), prompts, forced),
+              "f32_rows": {}, "masks": {}}
+    params32 = T.init_model(cfg32, seed=SEED, device="cuda")
+    for layout in LAYOUTS:
+        eng = Engine(cfg32, MESH_SERVE_SEQ, 4, params=params32,
+                     device="cuda", **mesh_serve_kw(layout))
+        with kwta_selections() as masks:
+            single["f32_rows"][layout] = forced_logits(eng, prompts, forced)
+        single["masks"][layout] = [m.cpu() for m in masks]
+    del params32, eng
+    torch.cuda.empty_cache()
+    (MESH_SERVE_DIR / "single.pkl").write_bytes(pickle.dumps(single))
+    t_single = time.perf_counter() - t0
+    # (f) in its own process beside the gloo ranks, which start with
+    # their untimed f32 checks
+    done = {}
+
+    def nccl_rank():
+        t = time.perf_counter()
+        try:
+            done["nccl"] = run_ranks(mesh_serve_nccl, 1,
+                                     MESH_SERVE_DIR / "nccl",
+                                     backend="nccl", timeout_s=600)[0]
+        except BaseException as e:      # raised again below, in this thread
+            done["error"] = e
+        done["s"] = time.perf_counter() - t
+
+    side = threading.Thread(target=nccl_rank)
+    side.start()
+    t = time.perf_counter()
+    try:
+        ranks = run_ranks(mesh_serve_rank, 4, MESH_SERVE_DIR / "ranks",
+                          backend="gloo", timeout_s=600, threads=2)
+    finally:
+        side.join()
+    t_gloo = time.perf_counter() - t
+    if "error" in done:
+        raise done["error"]
+    nccl, t_nccl = done["nccl"], done["s"]
+    failed = []
+    logits_bytes = 4 * cfg.padded_vocab * 2
+    print(f"[mesh-serve] smollm-360m at full width (32 layers, d_model 960, "
+          f"15 heads on 5 kv heads, d_ff 2560, vocab {cfg.vocab_size}), "
+          f"random weights from seed {SEED}, phase 4's workload (8 requests "
+          f"on 4 slots, prompt 16, gen 16), max_seq {MESH_SERVE_SEQ}; four "
+          f"gloo ranks sharing the card: {device_line()}")
+    numbers = {"single": {k: {"tok_s": v["tok_s"], "step_ms": v["step_ms"],
+                              "bytes": v["bytes"]} for k, v in one.items()}}
+    for dims in MESH_SERVE_MESHES:
+        name = "x".join(map(str, dims))
+        rs = [r[dims] for r in ranks]
+        if not all(r["same_weights"] for r in rs):
+            failed.append(f"{name}: a rank drew other weights")
+        errs = {lay: max(r["f32_err"][lay] for r in rs) for lay in LAYOUTS}
+        print(f"[mesh-serve] {name} (a) f32, prefills and "
+              f"{MESH_SERVE_FORCED} forced decode steps holding the "
+              f"single-device k-WTA selections: largest |logits - single| "
+              f"contiguous {errs['contiguous']:.3e}, paged "
+              f"{errs['paged']:.3e} (tol {MESH_SERVE_TOL:.0e})")
+        if not max(errs.values()) <= MESH_SERVE_TOL:
+            failed.append(f"{name}: f32 logits part from the single device")
+        move = max(r["bf16_move"] for r in rs)
+        margin = max(TIE_MARGIN, 2 * move)
+        numbers[name] = {"f32_err": errs, "bf16_move": move}
+        for layout in MESH_SERVE_LAYOUTS[dims]:
+            got = [r[layout] for r in rs]
+            if any(g["tokens"] != got[0]["tokens"] for g in got):
+                failed.append(f"{name} {layout}: ranks sampled other tokens")
+            parted = same_tokens(cfg, params, reqs, one[layout]["tokens"],
+                                 got[0]["tokens"], f"{name} {layout}",
+                                 phase="mesh-serve", margin=margin)
+            print(f"[mesh-serve] {name} {layout} (b) bf16 tokens against the "
+                  f"single-device engine: {len(reqs) - parted} requests "
+                  f"identical, {parted} parted at a tie of the top two "
+                  f"(bound {margin:.3e}: twice the largest bf16 forced-logits "
+                  f"difference {move:.3e}, at least {TIE_MARGIN:.0e}); every "
+                  f"rank the same tokens "
+                  f"{all(g['tokens'] == got[0]['tokens'] for g in got)}")
+            per_step = [g["launches"] / g["steps"] for g in got]
+            print(f"[mesh-serve] {name} {layout} (c) topk_gather launches a "
+                  f"decode step on each rank {per_step}, in the prefills "
+                  f"{[g['prefill_launches'] for g in got]}")
+            if any(p != cfg.n_layers for p in per_step) or any(
+                    g["prefill_launches"] for g in got):
+                failed.append(f"{name} {layout}: topk_gather launches")
+            for r, g in zip(rs, got):
+                print(f"[mesh-serve] {name} {layout} (d) rank {r['coords']}: "
+                      f"param bytes {g['bytes'][0]} (reckoned from the specs "
+                      f"{g['reckoned'][0]}; single device "
+                      f"{one[layout]['bytes'][0]}), partition-major copies "
+                      f"{g['bytes'][1]} (single {one[layout]['bytes'][1]}), "
+                      f"cache bytes {g['bytes'][2]} (reckoned "
+                      f"{g['reckoned'][1]}; single {one[layout]['bytes'][2]})")
+                if (g["bytes"][0], g["bytes"][2]) != tuple(g["reckoned"]):
+                    failed.append(f"{name} {layout}: a rank's bytes are not "
+                                  "its reckoned block's")
+            c = got[0]["collectives"]
+            print(f"[mesh-serve] {name} {layout} (e) a decode step's "
+                  f"collectives: {c['per_step']:.1f} ({c['ops']} in all "
+                  f"steps), {c['bytes_per_step'] / 1e3:.1f} kB, the largest "
+                  f"{c['largest'][0]} of {c['largest'][1]} B (the (4, "
+                  f"{cfg.padded_vocab}) bf16 logits are {logits_bytes} B); "
+                  f"tensors handed over that are a param or cache block: "
+                  f"{[g['collectives']['weights_handed'] for g in got]}")
+            if any(g["collectives"]["weights_handed"] for g in got) or any(
+                    g["collectives"]["largest"] != ["all_gather",
+                                                    logits_bytes]
+                    for g in got):
+                failed.append(f"{name} {layout}: a collective moved a "
+                              "weight or more than the logits")
+            print(f"[mesh-serve] {name} {layout} host clock: "
+                  f"{got[0]['tok_s']:.2f} tok/s, decode step "
+                  f"{got[0]['step_ms']:.2f} ms (single device "
+                  f"{one[layout]['tok_s']:.2f} tok/s, "
+                  f"{one[layout]['step_ms']:.2f} ms)")
+            numbers[name][layout] = {
+                "tok_s": got[0]["tok_s"], "step_ms": got[0]["step_ms"],
+                "parted": parted, "launches_per_step": per_step[0],
+                "collectives": c, "bytes": [g["bytes"] for g in got]}
+    print(f"[mesh-serve] (f) mesh 1x1 over {nccl['backend']} at world size "
+          f"{nccl['world']} (process group up: {nccl['distributed']}) against "
+          f"the engine without a mesh: tokens bit-equal "
+          f"{nccl['tokens_equal']}, forced logits bit-equal "
+          f"{nccl['logits_equal']}")
+    if not (nccl["tokens_equal"] and nccl["logits_equal"]
+            and nccl["distributed"]):
+        failed.append("the 1x1 mesh over NCCL parts from the plain engine")
+    numbers.update(single_s=t_single, gloo_s=t_gloo, nccl_s=t_nccl,
+                   phase_s=time.perf_counter() - t0)
+    print(f"[mesh-serve] numbers {json.dumps(numbers)}")
+    shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
+    if failed:
+        fail("mesh-serve: " + "; ".join(failed))
+    return {"launches_mesh_per_decode_step": numbers["2x2"]["contiguous"][
+        "launches_per_step"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -4013,6 +4492,10 @@ def main():
     t = time.perf_counter()
     phase_mesh()
     print(f"[mesh] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_mesh_serve())
+    print(f"[mesh-serve] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

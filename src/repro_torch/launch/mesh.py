@@ -11,7 +11,9 @@ Constructing a mesh never starts a process group: the caller does
 (``torchrun`` and ``torch.distributed.init_process_group``).  A mesh whose
 size differs from the world size raises; a mesh of more than one rank
 with no process group up raises; a one-rank mesh with none runs without
-collectives.  :func:`make_production_mesh` is the exception: it describes
+collectives.  :func:`parse_mesh` reads a mesh from the command line, and
+:func:`join_process_group` joins the group torchrun describes.
+:func:`make_production_mesh` is the exception: it describes
 the production shape for rule tables and specs, and holds process groups
 only when a process group of that size is up.
 """
@@ -22,6 +24,7 @@ import collections
 import dataclasses
 import itertools
 import math
+import os
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -156,3 +159,39 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 def single_device_mesh(device=None) -> Mesh:
     return make_mesh((1, 1), ("data", "model"), device)
+
+
+def parse_mesh(mesh, device=None) -> Mesh:
+    """``"2x2"``, ``(2, 2)`` or a :class:`Mesh`: (data, model) for two
+    dims, (pod, data, model) for three.  Raises where the mesh's size is
+    not the process group's world size, or where it has more than one rank
+    and no process group is up."""
+    if isinstance(mesh, Mesh):
+        if not mesh.live:
+            raise RuntimeError(f"mesh {mesh.dims} has no process group of "
+                               "its size")
+        return mesh
+    dims = (tuple(int(x) for x in mesh.split("x")) if isinstance(mesh, str)
+            else tuple(mesh))
+    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
+    if axes is None:
+        raise ValueError(f"mesh {dims}: two dims (data, model) or three "
+                         "(pod, data, model)")
+    return make_mesh(dims, axes, device)
+
+
+def join_process_group(backend: str, device=None) -> str:
+    """Join the process group that torchrun's environment variables
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) describe.
+    Returns this rank's device: ``cuda:<LOCAL_RANK mod cards>`` unless
+    ``device`` says otherwise (gloo ranks may share a card; NCCL needs a
+    card a rank)."""
+    if device in (None, "cuda"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "--device cpu (with --backend gloo)")
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="env://")
+    return device

@@ -49,6 +49,18 @@ either layout.  The cache's leaves (bf16 or int8 rows and scales, MLA's
 latent and rope-key rows) go through the insert, the page pools and
 copy-on-write alike.
 
+On a mesh (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh` of
+(data, model), one process a rank) every rank holds exactly the
+reference's per-device blocks of the weights and the cache under
+``make_rules(mesh, "decode")`` (:mod:`repro_torch.sharding.serving` lists
+them), runs the same scheduler on the same logits and so samples the
+same tokens; a decode step moves activations between ranks, never a
+weight.  The contiguous cache's slots shard over ``data`` where they
+divide; the page pools hold every page on every rank, so a paged step
+computes every slot.  A one-rank mesh is the engine without one.  The
+GQA family is served on a mesh of more than one rank; MLA, MoE, the
+SSM/hybrid patterns and the frontends raise there.
+
 Telemetry: pass ``telemetry=repro_torch.obs.Telemetry.on(...)`` and the
 engine traces host-clock spans around every stage (``schedule.admit`` /
 ``prefill`` / ``insert`` / ``decode.step`` / ``sample``, and on the paged
@@ -69,6 +81,8 @@ Usage:
       --slots 4 --requests 8 --prompt-len 16 --gen 32 [--full] [--device cpu]
       [--kv-layout paged --page-size 8 --n-pages 13]
       [--telemetry] [--telemetry-jsonl PATH]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch smollm-360m --mesh 2x2 --backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -87,6 +101,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.api import observe_dispatch
+from repro_torch.launch.mesh import join_process_group, parse_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import DispatchStats, SparsityStats, Telemetry
@@ -96,6 +111,7 @@ from repro_torch.runtime.kvcache import (NULL_PAGE, BlockAllocator, PagedKV,
 from repro_torch.runtime.scheduler import (Request, RequestRecord,
                                            SamplingParams, Scheduler,
                                            sample_token)
+from repro_torch.sharding.serving import Shards, use_serving
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -113,7 +129,7 @@ def _host_row(logits: torch.Tensor) -> np.ndarray:
 
 
 class Engine:
-    """Continuous-batching server for one model on one device.
+    """Continuous-batching server for one model on one device or a mesh.
 
     ``use_pallas`` overrides the kernel-executor flag on both sparsity
     families (cfg.ffn_sparsity / cfg.proj_sparsity): 'auto' or 'force'
@@ -128,7 +144,12 @@ class Engine:
     default four pages), under ``kv_policy`` "grow" or "reserve".
 
     ``telemetry`` (a :class:`repro_torch.obs.Telemetry`; default off)
-    receives the engine's metrics, spans and sparsity probes."""
+    receives the engine's metrics, spans and sparsity probes.
+
+    ``mesh`` (default none: one device) serves on a (data, model) mesh:
+    ``params``, when given, are whole (as :func:`repro_torch.bridge.
+    params_from_jax` makes them) and each rank keeps its blocks; the
+    engine runs on the mesh's device unless ``device`` says otherwise."""
 
     def __init__(self, cfg, max_seq: int, n_slots: int = 4, params=None,
                  use_pallas: Optional[str] = None, device=None,
@@ -136,14 +157,18 @@ class Engine:
                  kv_layout: str = "contiguous", page_size: int = 16,
                  n_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 kv_policy: str = "grow"):
+                 kv_policy: str = "grow", mesh=None):
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
         if kv_policy not in ("reserve", "grow"):
             raise ValueError(f"kv_policy must be 'reserve' or 'grow', "
                              f"got {kv_policy!r}")
-        self.device = resolve_device(device)
+        if mesh is not None and not mesh.live:
+            raise RuntimeError(f"mesh {mesh.dims} has no process group of "
+                               "its size: it cannot run collectives")
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         if use_pallas is not None:
             cfg = dataclasses.replace(
                 cfg,
@@ -154,8 +179,22 @@ class Engine:
         self.cfg = cfg
         self.max_seq = max_seq
         self.n_slots = n_slots
+        self.mesh = mesh
+        #: the rank's place on a mesh of more than one rank, else None
+        self.shards = Shards.of(mesh, max_seq)
+        self.rules = None if self.shards is None else self.shards.rules
+        if self.shards is not None and (
+                cfg.use_mla or cfg.is_moe or cfg.frontend != "none"
+                or any(k != "attn" for k in cfg.block_pattern)):
+            raise NotImplementedError(
+                f"{cfg.name} on mesh {mesh.dims}: only the GQA family "
+                "serves on a mesh of more than one rank (ROADMAP Queue 1 "
+                "item 5: MLA, MoE, SSM/hybrid and frontend serving on a "
+                "mesh)")
         self.params = (params if params is not None
                        else T.init_model(cfg, seed=0, device=self.device))
+        if self.shards is not None:     # each rank keeps its blocks
+            self.params = T.param_blocks(self.params, cfg, self.rules)
         self.prefill_calls = 0  # one per admitted prompt (tests assert)
         #: per-request lifecycle records of the last ``serve`` call
         self.records: Dict[int, RequestRecord] = {}
@@ -178,24 +217,39 @@ class Engine:
         self._dispatch = DispatchStats()
 
     def new_cache(self, batch: int):
-        return T.init_cache(self.cfg, batch, self.max_seq, self.device)
+        """The contiguous cache of ``batch`` slots (the rank's blocks on a
+        mesh)."""
+        return T.init_cache(self.cfg, batch, self.max_seq, self.device,
+                            self.rules)
 
     def new_paged_cache(self):
         """The page pools (``kv_layout='paged'``): one dict per layer of
         leaves shaped (n_pages, page_size, ...), addressed through per-slot
-        page tables instead of batch rows."""
+        page tables instead of batch rows (the rank's blocks on a
+        mesh)."""
         geo = self.kv_geo
         return T.init_paged_cache(self.cfg, geo.n_pages, geo.page_size,
-                                  self.device)
+                                  self.device, self.rules)
+
+    def on_mesh(self):
+        """The context the model calls run in: the rank's place on the
+        mesh (nothing without one)."""
+        return use_serving(self.shards)
 
     def _to_device(self, a) -> torch.Tensor:
         """Token ids, positions or page tables as int64 on the device."""
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
-    @staticmethod
-    def _insert(cache, frag, slot: int):
+    def _insert(self, cache, frag, slot: int):
         """Copy a (1, max_seq, ...) prefill fragment into batch row
-        ``slot`` of the live cache, in place."""
+        ``slot`` of the live cache, in place.  On a mesh whose cache holds
+        a block of slots only the rank holding ``slot`` copies (the
+        fragment is already the rank's block of rows or heads)."""
+        rows = self.shards and self.shards.batch_rows(self.n_slots)
+        if rows:
+            if not rows.start <= slot < rows.stop:
+                return cache
+            slot -= rows.start
         for c, f in zip(cache, frag, strict=True):
             for name, leaf in c.items():
                 leaf[slot].copy_(f[name][0])
@@ -272,6 +326,11 @@ class Engine:
         no fused prefill and raise: serve them with
         :meth:`generate_static`.
         """
+        with self.on_mesh():
+            return self._serve(requests)
+
+    def _serve(self, requests: Sequence[Request]):
+        """The body of :meth:`serve`."""
         if not T.supports_fused_prefill(self.cfg):
             raise NotImplementedError(
                 f"{self.cfg.name}: block pattern {self.cfg.block_pattern} "
@@ -715,6 +774,11 @@ class Engine:
         but slow — the correctness oracle for the continuous engine, and
         the serving path of the SSM/hybrid patterns, whose cache
         (:meth:`new_cache`) holds their recurrent state."""
+        with self.on_mesh():
+            return self._generate_static(prompts, gen_len)
+
+    def _generate_static(self, prompts: np.ndarray, gen_len: int):
+        """The body of :meth:`generate_static`."""
         b, p_len = prompts.shape
         cache = self.new_cache(b)
         prompts = self._to_device(prompts)
@@ -778,21 +842,39 @@ def main(argv=None):
     ap.add_argument("--telemetry-jsonl", default=None, metavar="PATH",
                     help="stream telemetry events to PATH as JSON lines "
                     "(implies --telemetry)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL: serve on a mesh of that many ranks, "
+                    "one process a rank under torchrun (its size is "
+                    "torchrun's WORLD_SIZE)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process group backend under torchrun")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
+    device = args.device
+    if "WORLD_SIZE" in os.environ:
+        device = join_process_group(args.backend, device)
+    try:
+        _serve_cli(args, cfg, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _serve_cli(args, cfg, device):
+    mesh = None if args.mesh is None else parse_mesh(args.mesh, device)
     telemetry = None
     if args.telemetry or args.telemetry_jsonl:
         telemetry = Telemetry.on(jsonl_path=args.telemetry_jsonl)
     engine = Engine(cfg, max_seq=args.prompt_len + args.gen + 1,
                     n_slots=args.slots, use_pallas=args.use_pallas,
-                    device=args.device, telemetry=telemetry,
+                    device=device, telemetry=telemetry,
                     kv_layout=args.kv_layout,
                     page_size=args.page_size, n_pages=args.n_pages,
                     prefill_chunk=args.prefill_chunk,
-                    kv_policy=args.kv_policy)
+                    kv_policy=args.kv_policy, mesh=mesh)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
@@ -802,7 +884,10 @@ def main(argv=None):
                                             top_k=args.top_k, seed=i))
             for i in range(args.requests)]
     out, stats = engine.serve(reqs)
-    line = (f"served {len(out)} requests on {engine.device}, "
+    if mesh is not None and mesh.rank:
+        return              # every rank served the same tokens: rank 0 says
+    where = "" if mesh is None else f" mesh {'x'.join(map(str, mesh.dims))}"
+    line = (f"served {len(out)} requests on {engine.device}{where}, "
             f"{stats['decode_steps']} decode steps, {stats['prefill_calls']} "
             f"prefill calls, {stats['tok_s']:.1f} tok/s")
     if engine.kv_layout == "paged":

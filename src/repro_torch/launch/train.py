@@ -51,30 +51,11 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import Prefetcher, batch_for
 from repro_torch.launch import steps as St
-from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.mesh import join_process_group, parse_mesh
 from repro_torch.models import transformer as T
 from repro_torch.runtime import LossGuard, StepMonitor
 from repro_torch.sharding import make_rules
 from repro_torch.sharding.collectives import all_reduce_, barrier
-
-
-def parse_mesh(mesh, device=None) -> Mesh:
-    """``"2x2"``, ``(2, 2)`` or a :class:`Mesh`: (data, model) for two
-    dims, (pod, data, model) for three.  Raises where the mesh's size is
-    not the process group's world size, or where it has more than one rank
-    and no process group is up."""
-    if isinstance(mesh, Mesh):
-        if not mesh.live:
-            raise RuntimeError(f"mesh {mesh.dims} has no process group of "
-                               "its size")
-        return mesh
-    dims = (tuple(int(x) for x in mesh.split("x")) if isinstance(mesh, str)
-            else tuple(mesh))
-    axes = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
-    if axes is None:
-        raise ValueError(f"mesh {dims}: two dims (data, model) or three "
-                         "(pod, data, model)")
-    return make_mesh(dims, axes, device)
 
 
 class Trainer:
@@ -244,23 +225,6 @@ class Trainer:
                 self._writer.join()
                 self._writer = None
         return self.step
-
-
-def join_process_group(backend: str, device=None) -> str:
-    """Join the process group that torchrun's environment variables
-    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) describe.
-    Returns this rank's device: ``cuda:<LOCAL_RANK mod cards>`` unless
-    ``device`` says otherwise (gloo ranks may share a card; NCCL needs a
-    card a rank)."""
-    if device in (None, "cuda"):
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "--device cpu (with --backend gloo)")
-        local = int(os.environ.get("LOCAL_RANK", 0))
-        device = f"cuda:{local % torch.cuda.device_count()}"
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method="env://")
-    return device
 
 
 def main(argv=None):

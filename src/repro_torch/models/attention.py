@@ -13,6 +13,16 @@ Conventions (the reference's):
              per-slot page tables (:mod:`repro_torch.runtime.kvcache.layout`).
   Projections may be complementary-sparse (cfg.proj_sparsity); MLA's are
   bare dense weights, cast to the compute dtype once at init.
+
+On a serving mesh (:func:`repro_torch.sharding.serving.serving`) the GQA
+functions run on the rank's blocks: q, k and v come out as blocks of
+columns and are gathered over ``model`` before the heads are split (a
+block need not be whole heads); a contiguous cache that holds a block of
+rows is written by the rank that owns ``pos`` and attended through the
+sharded softmax (each rank's maximum, sum of exponentials and weighted
+values over its rows, combined over ``model`` in float32); a cache that
+holds a block of kv heads is attended for those heads' queries, the head
+outputs gathered before ``o``, which every rank runs whole.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
                                                 paged_write_rows)
+from repro_torch.sharding.serving import serving
 from .common import apply_rope, normal_init
 
 
@@ -122,6 +133,26 @@ def _mask_dummy_heads(out, cfg):
     return out * mask[:, None]
 
 
+def _qkv(params, x, cfg, positions):
+    """Roped queries (B, S, H, Dh) and keys (B, S, Hkv, Dh), and values.
+    On a serving mesh a projection whose weight is a block of columns is
+    gathered over ``model`` first, all of them in one collective."""
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp = cfg.proj_sparsity
+    outs = [_proj_apply(params[n], x, sp) for n in ("q", "k", "v")]
+    sh = serving()
+    if sh is not None:
+        part = [i for i, n in enumerate((h, hkv, hkv))
+                if outs[i].shape[-1] < n * dh]
+        if part:
+            for i, t in zip(part, sh.gather_last(*(outs[i] for i in part))):
+                outs[i] = t
+    q, k, v = (_split_heads(t, n, dh) for t, n in zip(outs, (h, hkv, hkv)))
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
 def _causal_attn(q, k, v, scale):
     """Materialized causal attention (short seq). q/k/v: (B, S, H, Dh)."""
     s_q, s_k = q.shape[1], k.shape[1]
@@ -178,11 +209,7 @@ def _gqa_forward(params, x, cfg, positions, quantize_kv: bool = False):
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hp = cfg.padded_heads
     sp = cfg.proj_sparsity
-    q = _split_heads(_proj_apply(params["q"], x, sp), h, dh)
-    k = _split_heads(_proj_apply(params["k"], x, sp), hkv, dh)
-    v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(params, x, cfg, positions)
     k_rows, v_rows = k, v
     if quantize_kv:
         k = _dequant(*_quant_rows(k), x.dtype)
@@ -225,17 +252,25 @@ def gqa_prefill(params, x, cfg, positions, max_seq: int):
     prompt); decode overwrites row ``pos`` before its validity mask reads
     it.  With an int8 cache, attention reads the quantized representation
     (``_gqa_forward(quantize_kv=True)``), so the fused path stays a
-    token-exact oracle for chunked paged prefill.  Returns (y, cache) with
-    the same cache dict as gqa_cache_init."""
+    token-exact oracle for chunked paged prefill.  On a serving mesh every
+    rank attends over the whole prompt and keeps its block of the cache
+    (its rows or kv heads, as the cache's spec gives it).  Returns (y,
+    cache) with the same cache dict as gqa_cache_init."""
     int8 = _int8_cache(cfg)
     y, k, v = _gqa_forward(params, x, cfg, positions, quantize_kv=int8)
     if int8:
         kq, ks = _quant_rows(k)
         vq, vs = _quant_rows(v)
-        return y, {"k": _pad_seq(kq, max_seq), "v": _pad_seq(vq, max_seq),
-                   "k_scale": _pad_seq(ks, max_seq),
-                   "v_scale": _pad_seq(vs, max_seq)}
-    return y, {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq)}
+        cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        cache = {"k": k, "v": v}
+    cache = {n: _pad_seq(t, max_seq) for n, t in cache.items()}
+    sh = serving()
+    if sh is not None:
+        specs = gqa_cache_specs(cfg)
+        cache = {n: sh.rules.sharding_for(specs[n], t.shape).take(t)
+                 for n, t in cache.items()}
+    return y, cache
 
 
 def gqa_cache_specs(cfg=None):
@@ -358,22 +393,90 @@ def _kv_update(cache, k, v, pos, pos_b=None, pages=None):
     return cache, view(cache["k"]), view(cache["v"])
 
 
+def _scores(q, kf, valid, dh):
+    """Masked float32 scores (B, H, S_q, V) of queries over keys."""
+    scale = 1.0 / np.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() * scale
+    return torch.where(valid[:, None], scores, -1e30)
+
+
+def _attend(q, kf, vf, valid, dh, dtype):
+    """Softmax attention (B, S_q, H, Dh) of queries over whole keys and
+    values (as many heads as the queries)."""
+    probs = torch.softmax(_scores(q, kf, valid, dh), dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+
+
+def softmax_max(scores):
+    """A block of keys' term of the sharded softmax: its row maxima."""
+    return scores.amax(dim=-1)
+
+
+def softmax_terms(scores, v, m):
+    """A block of keys' sums of exponentials (B, H, S_q) and weighted
+    values (B, H, S_q, Dh) under the maxima ``m`` of every block, float32;
+    summed over the blocks they give :func:`softmax_finish` the whole."""
+    p = torch.exp(scores - m[..., None])
+    return p.sum(dim=-1), torch.einsum("bhqk,bkhd->bhqd", p, v.float())
+
+
+def softmax_finish(l, acc):
+    """Softmax attention (B, S_q, H, Dh) from the summed terms."""
+    return (acc / torch.clamp(l[..., None], min=1e-30)).transpose(1, 2)
+
+
+def _o_of_heads(params, x, out, cfg):
+    """The o projection of the (B, S_q, Hp, Dh) head outputs."""
+    return _o_proj(params["o"], out.reshape(*x.shape[:-1],
+                                            cfg.padded_heads * cfg.head_dim),
+                   cfg.proj_sparsity)
+
+
 def _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg):
     """Attention of (B, S_q, H, Dh) queries over a full-length cache view
     with a broadcastable validity mask ``valid`` (B|1, S_q|1, V)."""
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    hp = cfg.padded_heads
+    h, hkv, hp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_heads
     q = _pad_heads(q, hp)
     kf = _pad_heads(_repeat_kv(k_view, h // hkv), hp)
     vf = _pad_heads(_repeat_kv(v_view, h // hkv), hp)
-    scale = 1.0 / np.sqrt(dh)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() * scale
-    scores = torch.where(valid[:, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
-    out = _mask_dummy_heads(out, cfg)
-    return _o_proj(params["o"], out.reshape(*x.shape[:-1], hp * dh),
-                   cfg.proj_sparsity)
+    out = _attend(q, kf, vf, valid, cfg.head_dim, x.dtype)
+    return _o_of_heads(params, x, _mask_dummy_heads(out, cfg), cfg)
+
+
+def _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh):
+    """:func:`_gqa_cache_attn` where the cache view is this rank's block
+    of rows: the sharded softmax, combined over ``model``, for the true
+    heads (the padded heads' outputs are zeros)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    scores = _scores(q, _repeat_kv(k_view, rep), valid, cfg.head_dim)
+    m = sh.reduce_model(softmax_max(scores), "max")
+    l, acc = softmax_terms(scores, _repeat_kv(v_view, rep), m)
+    terms = sh.reduce_model(torch.cat([l[..., None], acc], dim=-1))
+    out = softmax_finish(terms[..., 0], terms[..., 1:]).to(x.dtype)
+    return _o_of_heads(params, x, _pad_heads(out, cfg.padded_heads), cfg)
+
+
+def _heads_attn(params, x, q, k_view, v_view, valid, cfg, sh, heads):
+    """:func:`_gqa_cache_attn` where the cache view holds this rank's kv
+    heads [h0, h1): their queries attend, the head outputs are gathered
+    over ``model``."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    h0, h1 = heads
+    out = _attend(q[..., h0 * rep:h1 * rep, :], _repeat_kv(k_view, rep),
+                  _repeat_kv(v_view, rep), valid, cfg.head_dim, x.dtype)
+    out = _pad_heads(sh.gather(out, {-2: "model"}), cfg.padded_heads)
+    return _o_of_heads(params, x, out, cfg)
+
+
+def _cache_split(cfg, paged: bool):
+    """(serving shards, what the rank's cache block holds: "rows",
+    "heads" or None, and that block [lo, hi))."""
+    sh = serving()
+    split = None if sh is None else sh.kv_split(paged, cfg.n_kv_heads)
+    if split is None:
+        return sh, None, None
+    n = sh.max_seq if split == "rows" else cfg.n_kv_heads
+    return sh, split, sh.block("model", n)
 
 
 def gqa_decode(params, x, cfg, cache, pos, pages=None):
@@ -390,24 +493,30 @@ def gqa_decode(params, x, cfg, cache, pos, pages=None):
     into each slot's own page chain and attention runs over the gathered
     per-slot view — same math, same mask, decoupled memory.
     """
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    sp = cfg.proj_sparsity
     b = x.shape[0]
     if isinstance(pos, torch.Tensor):
         pos_b = pos.to(device=x.device, dtype=torch.int64).expand(b)
     else:
         pos_b = torch.full((b,), int(pos), dtype=torch.int64,
                            device=x.device)
-    positions = pos_b[:, None]
-    q = _split_heads(_proj_apply(params["q"], x, sp), h, dh)
-    k = _split_heads(_proj_apply(params["k"], x, sp), hkv, dh)
-    v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    cache, k_view, v_view = _kv_update(cache, k, v, pos, pos_b, pages)
-    valid = (torch.arange(k_view.shape[1], device=x.device)[None, None, :]
-             <= pos_b[:, None, None])
-    y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
+    q, k, v = _qkv(params, x, cfg, pos_b[:, None])
+    sh, split, block = _cache_split(cfg, pages is not None)
+    lo = block[0] if split == "rows" else 0
+    if split == "heads":
+        k, v = k[..., block[0]:block[1], :], v[..., block[0]:block[1], :]
+    # a block of rows [lo, ...): only the rank that owns ``pos`` writes it
+    cache, k_view, v_view = _kv_update(cache, k, v, pos - lo if lo else pos,
+                                       pos_b, pages)
+    cols = torch.arange(k_view.shape[1], device=x.device)
+    if lo:
+        cols = cols + lo
+    valid = cols[None, None, :] <= pos_b[:, None, None]
+    if split == "rows":
+        y = _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh)
+    elif split == "heads":
+        y = _heads_attn(params, x, q, k_view, v_view, valid, cfg, sh, block)
+    else:
+        y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
     return y, cache
 
 
@@ -423,16 +532,12 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
 
     x: (1, C, D); pages: (1, n_blocks) int64; pos_start/chunk_len: ints.
     Returns (y (1, C, D), cache)."""
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    sp = cfg.proj_sparsity
     b, c, _ = x.shape
     offs = int(pos_start) + torch.arange(c, device=x.device)
-    positions = offs.expand(b, c)
-    q = _split_heads(_proj_apply(params["q"], x, sp), h, dh)
-    k = _split_heads(_proj_apply(params["k"], x, sp), hkv, dh)
-    v = _split_heads(_proj_apply(params["v"], x, sp), hkv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(params, x, cfg, offs.expand(b, c))
+    sh, split, heads = _cache_split(cfg, paged=True)
+    if split == "heads":
+        k, v = k[..., heads[0]:heads[1], :], v[..., heads[0]:heads[1], :]
 
     def write(leaf, rows):
         paged_write_chunk(leaf, rows[0], pages[0], pos_start, chunk_len)
@@ -454,7 +559,10 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
     # causal in slot-logical coordinates: chunk row j sees cols <= pos0+j
     valid = (torch.arange(k_view.shape[1], device=x.device)[None, None, :]
              <= offs[None, :, None])
-    y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
+    if split == "heads":
+        y = _heads_attn(params, x, q, k_view, v_view, valid, cfg, sh, heads)
+    else:
+        y = _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg)
     return y, cache
 
 

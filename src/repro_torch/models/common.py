@@ -108,6 +108,18 @@ def embedding_apply(params, tokens: torch.Tensor, compute_dtype):
     return params["table"].to(compute_dtype)[tokens]
 
 
+def embedding_block_apply(table: torch.Tensor, tokens: torch.Tensor,
+                          compute_dtype, start: int):
+    """One rank's term of the vocab-parallel lookup: the rows of
+    ``tokens`` that the block of vocabulary rows [start, start +
+    len(table)) holds, zeros for the rest.  The sum of every block's term
+    is the lookup, exactly: one term of each row is not zero."""
+    local = tokens - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table.to(compute_dtype)[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+
 def lm_head_apply(params, x: torch.Tensor, compute_dtype):
     """Project to vocab logits; table may be tied (vocab, d)."""
     return x @ params["table"].to(compute_dtype).T

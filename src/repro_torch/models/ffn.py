@@ -14,6 +14,12 @@ Sparse-sparse FFN dataflow (paper Fig. 8a at layer granularity):
                                            Multiply-Route-Sum — the topk
                                            path when B·K < d_ff, which
                                            launches the topk_gather kernel)
+
+On a serving mesh (:mod:`repro_torch.sharding.serving`) up and gate are
+the rank's block of output groups, so ``h`` comes out as a block of
+columns: it is gathered over ``model`` before the k-WTA, which picks K of
+the whole row, and the down projection (whole on every rank) runs as on
+one device.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
                                      linear_specs, packed_linear_apply,
                                      packed_linear_init, packed_linear_specs)
 from repro_torch.obs.sparsity import observe_site
+from repro_torch.sharding.serving import serving
 
 
 def _act(name: str):
@@ -81,6 +88,13 @@ def _apply_one(p, x, sp: SparsityConfig, x_is_sparse=False, support=None):
     return linear_apply(p, x)
 
 
+def _d_in(p) -> int:
+    """The input width of a linear layer (a packed one's padded width)."""
+    if "packed" in p:
+        return p["packed"].shape[1] * p["packed"].shape[2]
+    return p["w"].shape[0]
+
+
 def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
               act: str = "silu"):
     a = _act(act)
@@ -91,6 +105,9 @@ def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
             h = a(_apply_one(params["gate"], x, cfg_sp)) * up
     else:
         h = a(up)
+    sh = serving()
+    if sh is not None and h.shape[-1] < _d_in(params["down"]):
+        h = sh.gather(h, {-1: "model"})
     # Select (k-WTA) — identity when disabled. The winner support is handed
     # to the down projection so the sparse-sparse path never re-derives it.
     with named_scope("ffn_kwta"), observe_site("ffn"):

@@ -34,6 +34,14 @@ Entry points:
   with ``pages=`` + :func:`copy_cache_page` — the paged KV layout
   (attention-only patterns): page pools, page-aligned chunked prefill,
   decode through page tables and the device half of copy-on-write.
+
+On a serving mesh (:mod:`repro_torch.sharding.serving`, installed by the
+engine) the serving entry points run on the rank's blocks:
+:func:`param_blocks` cuts whole params to them, ``init_cache`` and
+``init_paged_cache`` with ``rules`` make the rank's cache blocks; the
+lookup is vocab-parallel, a decode step on the contiguous cache computes
+the rank's slots (where they shard over ``data``), and the logits come
+back whole on every rank.
 """
 
 from __future__ import annotations
@@ -45,14 +53,17 @@ import torch
 
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import add_partition_major, drop_partition_major
+from repro_torch.sharding.context import (UnitSpec, map_specs,
+                                          param_sharding)
+from repro_torch.sharding.serving import serving
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import copy_page
 from repro_torch.tree import map_tree
 from . import attention as A
 from . import ssm as S
-from repro_torch.sharding.context import UnitSpec, map_specs
 from .common import (cross_entropy, dtype_of, embedding_apply,
-                     embedding_init, embedding_specs, lm_head_apply,
+                     embedding_block_apply, embedding_init,
+                     embedding_specs, lm_head_apply,
                      normal_init, resolve_device, rmsnorm_apply,
                      rmsnorm_init, rmsnorm_specs)
 from .ffn import ffn_apply, ffn_init, ffn_specs
@@ -177,15 +188,75 @@ def layer_specs(specs: Dict, cfg) -> Dict:
     return out
 
 
-def cache_specs(cfg) -> Dict:
+def cache_specs(cfg, paged: bool = False) -> Dict:
     """The logical-spec tree of the reference's ``init_cache(cfg, batch,
-    max_seq)[1]`` (the unit axis first)."""
+    max_seq)[1]`` (the unit axis first); with ``paged``, of its
+    ``init_paged_cache``, whose pool axes replicate (page ids stay
+    global)."""
     def block(kind):
         if kind not in ATTN_KINDS:
             return S.MIXERS[kind].cache_specs()
         return A.mla_cache_specs() if cfg.use_mla else A.gqa_cache_specs(cfg)
-    return _stacked({f"b{i}": block(kind)
-                     for i, kind in enumerate(cfg.block_pattern)})
+    blocks = {f"b{i}": block(kind) for i, kind in enumerate(cfg.block_pattern)}
+    if paged:
+        blocks = map_specs(lambda sp: (None, None) + tuple(sp)[2:], blocks)
+    return _stacked(blocks)
+
+
+def layer_cache_specs(cfg, paged: bool = False) -> List:
+    """:func:`cache_specs` in the port's per-layer cache layout (every
+    ``shared_attn`` invocation has its own cache)."""
+    units, n = cache_specs(cfg, paged), len(cfg.block_pattern)
+    return [map_specs(lambda sp, u=j // n: UnitSpec(sp, u, cfg.n_units),
+                      units[f"b{j % n}"]) for j in range(cfg.n_layers)]
+
+
+def _check_blocks(blocks, whole):
+    """A packed layer cut to a block of groups runs as a layer of its own
+    only where its route is one table (shared by every group) or is cut
+    with the groups, and a bias is cut at the same columns."""
+    if isinstance(blocks, list):
+        for b, w in zip(blocks, whole):
+            _check_blocks(b, w)
+        return
+    if not isinstance(blocks, dict):
+        return
+    if "packed" in blocks and blocks["packed"].ndim == 3 and \
+            blocks["packed"].shape[0] < whole["packed"].shape[0]:
+        g, gr = whole["packed"].shape[0], whole["route"].shape[0]
+        if gr > 1 and blocks["route"].shape[0] == gr:
+            raise NotImplementedError(
+                f"a route of {gr} tables kept whole beside a block of "
+                f"{blocks['packed'].shape[0]} of {g} packed groups")
+        n = whole["packed"].shape[2]
+        if "b" in whole and whole["b"].shape[0] != g * n:
+            raise NotImplementedError("a padded packed layer's bias cut "
+                                      "beside its groups")
+    for k, v in blocks.items():
+        if isinstance(v, (dict, list)):
+            _check_blocks(v, whole[k])
+
+
+@torch.no_grad()
+def param_blocks(params: Dict, cfg, rules) -> Dict:
+    """This rank's blocks of whole serving params under ``rules``: every
+    leaf of the reference's layout cut by its spec (:func:`param_specs`),
+    each packed layer's ``packed_p`` made anew from its block."""
+    whole = drop_partition_major(params)
+    shardings = param_sharding(layer_specs(param_specs(cfg), cfg), whole,
+                               rules)
+    blocks = map_tree(lambda sh, t: sh.take(t), shardings, whole)
+    _check_blocks(blocks, whole)
+    return add_partition_major(blocks)
+
+
+def _cache_blocks(full: List[Dict], cfg, rules, paged: bool, device):
+    """Zeros of this rank's blocks of a cache whose leaves are ``full``'s
+    (shapes only: meta tensors)."""
+    shardings = param_sharding(layer_cache_specs(cfg, paged), full, rules)
+    return map_tree(lambda sh, t: torch.zeros(sh.local_shape(t.shape),
+                                              dtype=t.dtype, device=device),
+                    shardings, full)
 
 
 def _ffn_residual(params, x, cfg):
@@ -350,10 +421,17 @@ def param_count(params) -> int:
 
 def _embed(params, batch, cfg, ct):
     """Token or frontend embedding of a decode or chunk batch: precomputed
-    ``embeds`` for the ``embed`` frontend, else the tokens' rows."""
+    ``embeds`` for the ``embed`` frontend, else the tokens' rows (on a
+    serving mesh from the rank's block of the vocabulary, summed over
+    ``model``)."""
     if cfg.frontend == "embed":
         return batch["embeds"].to(ct)
-    return embedding_apply(params["embed"], batch["tokens"], ct)
+    table, sh = params["embed"]["table"], serving()
+    if sh is None or table.shape[0] == cfg.padded_vocab:
+        return embedding_apply(params["embed"], batch["tokens"], ct)
+    start = sh.block("model", cfg.padded_vocab)[0]
+    return sh.reduce_model(embedding_block_apply(table, batch["tokens"], ct,
+                                                 start))
 
 
 def _embed_inputs(params, batch, cfg, ct):
@@ -365,10 +443,21 @@ def _embed_inputs(params, batch, cfg, ct):
     return x
 
 
-def _logits(params, x, cfg, ct):
+def _logits(params, x, cfg, ct, rows_split: bool = False):
+    """The logits of ``x``; on a serving mesh gathered whole from the
+    head's vocabulary blocks (over ``model``) and, with ``rows_split``,
+    from the rank's rows of the batch (over ``data``), in one
+    collective."""
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return lm_head_apply(head, x, ct)
+    logits = lm_head_apply(head, x, ct)
+    sh = serving()
+    if sh is None:
+        return logits
+    dims = {0: "data"} if rows_split else {}
+    if head["table"].shape[0] < cfg.padded_vocab:
+        dims[-1] = "model"
+    return sh.gather(logits, dims)
 
 
 def forward(params, batch, cfg):
@@ -403,12 +492,17 @@ def loss_fn(params, batch, cfg):
     return loss, {"loss": loss, "lm_loss": lm, "aux_loss": aux}
 
 
-def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
+def init_cache(cfg, batch: int, max_seq: int, device=None,
+               rules=None) -> List[Dict]:
     """One contiguous cache per layer: K/V rows in the compute dtype (int8
     rows and f32 scales with ``kv_cache_dtype="int8"``) or MLA's latent
     and rope-key rows for attention (every ``shared_attn`` invocation has
-    its own); the recurrent state for an SSM layer."""
+    its own); the recurrent state for an SSM layer.  With ``rules``, this
+    rank's blocks of it (:func:`cache_specs`)."""
     check_supported(cfg)
+    if rules is not None:
+        return _cache_blocks(init_cache(cfg, batch, max_seq, "meta"), cfg,
+                             rules, False, device)
     ct = dtype_of(cfg.compute_dtype)
     attn = A.mla_cache_init if cfg.use_mla else A.gqa_cache_init
     return [attn(cfg, batch, max_seq, ct, device) if kind in ATTN_KINDS
@@ -416,19 +510,24 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> List[Dict]:
             for kind in layer_kinds(cfg)]
 
 
-def init_paged_cache(cfg, n_pages: int, page_size: int,
-                     device=None) -> List[Dict]:
+def init_paged_cache(cfg, n_pages: int, page_size: int, device=None,
+                     rules=None) -> List[Dict]:
     """One PAGED cache per layer: every attention leaf is a page pool
     ``(n_pages, page_size, ...)`` addressed through the per-slot page
     tables that :func:`serve_step` / :func:`prefill_chunk` take as
     ``pages`` (see :mod:`repro_torch.runtime.kvcache`).
 
     Attention-only block patterns: the paged layout pages per-position
-    KV rows, and SSM decode state is O(1) with nothing to page."""
+    KV rows, and SSM decode state is O(1) with nothing to page.  With
+    ``rules``, this rank's blocks (every page, its block of kv heads where
+    they divide)."""
     if not supports_fused_prefill(cfg):
         raise NotImplementedError(
             "paged KV layout requires an attention-only block pattern, "
             f"got {cfg.block_pattern}")
+    if rules is not None:
+        return _cache_blocks(init_cache(cfg, n_pages, page_size, "meta"),
+                             cfg, rules, True, device)
     return init_cache(cfg, n_pages, page_size, device)
 
 
@@ -495,14 +594,26 @@ def serve_step(params, cache, batch, pos, cfg, pages=None):
     k-WTA output (or support) goes straight to the down projection, which
     contracts the whole decode batch in one ``topk_gather`` launch when
     the executor (``cfg.ffn_sparsity.use_pallas``) engages the kernel.
+
+    On a serving mesh whose contiguous cache holds the rank's block of
+    slots, the step computes those slots' rows of ``batch`` and ``pos``
+    (the page pools hold every slot: a paged step computes them all).
     """
     ct = dtype_of(cfg.compute_dtype)
+    sh = serving()
+    rows = None
+    if sh is not None and pages is None:
+        rows = sh.batch_rows(next(iter(batch.values())).shape[0])
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            pos = pos[rows]
     x = _embed(params, batch, cfg, ct)
     for j, ((kind, layer), c) in enumerate(zip(_layers(params, cfg), cache,
                                                strict=True)):
         with _block_scope(cfg, j):
             x = _block_decode(kind, layer, x, cfg, c, pos, pages)
-    return _logits(params, x, cfg, ct)[:, 0], cache
+    return _logits(params, x, cfg, ct, rows is not None)[:, 0], cache
 
 
 def prefill_chunk(params, cache, batch, pos_start: int, chunk_len: int, cfg,

@@ -17,13 +17,23 @@ NCCL takes CUDA tensors for all three, gloo CPU tensors.  Gloo also runs
 memory itself); its point-to-point sends are given host tensors, so a
 CUDA tensor is sent through a host copy.
 
+The serving engine on a mesh (:mod:`repro_torch.sharding.serving`) runs
+two more: :func:`all_gather` (every member's block stacked into one
+preallocated buffer: the q/k/v columns, the FFN hidden, the head outputs,
+the logits) and :func:`all_reduce_` with ``MAX`` and ``SUM`` (the
+vocab-parallel embedding and the sharded softmax).
+
 Without a process group (a one-rank mesh) every collective is the
 identity and none is called.  A collective that fails raises; nothing is
-retried on another device or backend.
+retried on another device or backend.  :func:`observe_collectives` hands
+an observer every tensor given to :func:`all_gather`, :func:`all_reduce_`
+and :func:`gather_pieces` (the serving tests check that none is a
+weight).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -39,11 +49,54 @@ from .context import get_rules
 Place = Callable[[int, Dict[str, int]], Optional[Tuple[slice, ...]]]
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum over ``group`` (no-op for None)."""
+_OBSERVERS: List[Callable] = []
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+@contextlib.contextmanager
+def observe_collectives(fn: Callable):
+    """Inside, ``fn(op, tensors)`` sees every collective this module runs
+    (``op`` its name, ``tensors`` what it was handed and what it
+    fills)."""
+    _OBSERVERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _OBSERVERS.remove(fn)
+
+
+def _notify(op: str, *tensors: torch.Tensor) -> None:
+    for fn in _OBSERVERS:
+        fn(op, tensors)
+
+
+def all_reduce_(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """In place: the sum (``op="sum"``) or the maximum (``"max"``) over
+    ``group`` (no-op for None)."""
     if group is not None:
-        dist.all_reduce(t, group=group)
+        _notify(f"all_reduce_{op}", t)
+        dist.all_reduce(t, op=_OPS[op], group=group)
     return t
+
+
+def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    with warnings.catch_warnings():
+        # newer torch marks it deprecated for a successor older torch lacks
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every member's ``x`` (one shape on all) stacked in group-rank order
+    into one new buffer, ``(members, *x.shape)``; ``x[None]`` for None."""
+    if group is None:
+        return x[None]
+    x = x.contiguous()
+    n = dist.get_world_size(group)
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    _notify("all_gather", x, out)
+    _gather_into(out, x.view(-1), group)
+    return out.view(n, *x.shape)
 
 
 def summed(shapes: Sequence[Sequence[int]],
@@ -86,10 +139,8 @@ def gather_pieces(mesh, axes, pieces: Sequence[Optional[torch.Tensor]],
             send[off:off + p.numel()] = p.reshape(-1)
             off += p.numel()
     recv = torch.empty(len(members) * n, dtype=dtype, device=device)
-    with warnings.catch_warnings():
-        # newer torch marks it deprecated for a successor older torch lacks
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(recv, send, group=mesh.group(axes))
+    _notify("all_gather", send, recv)
+    _gather_into(recv, send, mesh.group(axes))
     for g, c in enumerate(members):
         off = g * n
         for i, out in enumerate(outs):

@@ -1,0 +1,139 @@
+"""The rank's place on a serving mesh: what the port runs where the
+reference's decode rules (``make_rules(mesh, "decode")``) shard a serving
+step and GSPMD partitions it.
+
+Under those rules each rank holds (the reference's specs, leaf for leaf):
+
+* the embedding and head tables: a block of vocabulary rows (``model``);
+* q, k and v: a block of output columns (``model``); o and the FFN's down
+  projection: whole; the FFN's up and gate: a block of output groups
+  (``model``), their route with them where it divides, else whole;
+* the contiguous cache: a block of slots (``data``) and a block of rows
+  (``kvseq`` -> ``model``), or of kv heads where the rows do not divide;
+  the page pools: every page, and a block of kv heads (``model``) where
+  they divide.
+
+A step then moves activations and never a weight: the vocab-parallel
+lookup sums one non-zero term over ``model``; the q/k/v columns, the FFN
+hidden (before its k-WTA, which picks from the whole row) and head outputs
+are gathered over ``model``; a sequence-sharded cache's softmax combines
+each rank's maximum, sum of exponentials and weighted values over
+``model``; the logits are gathered over ``data`` and ``model``.
+
+:class:`Shards` answers the model code's questions (which rows of the
+batch, which block of an axis) and runs those collectives.  The engine
+installs it with :func:`use_serving` around its model calls; outside,
+:func:`serving` is None and every model function runs on whole tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .axes import make_rules
+from .collectives import all_gather, all_reduce_
+from .context import Rules
+
+_STATE = threading.local()
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """One rank of a serving mesh of more than one rank, with the decode
+    rules and the engine's ``max_seq`` (the contiguous cache's rows)."""
+    rules: Rules
+    max_seq: int
+
+    @classmethod
+    def of(cls, mesh, max_seq: int) -> Optional["Shards"]:
+        """None for a one-rank mesh (the engine then runs unsharded)."""
+        if mesh is None or mesh.size == 1:
+            return None
+        return cls(make_rules(mesh, "decode"), max_seq)
+
+    @property
+    def mesh(self):
+        return self.rules.mesh
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape.get(axis, 1)
+
+    def block(self, axis: str, n: int) -> Tuple[int, int]:
+        """This rank's block [lo, hi) of ``n`` split evenly over ``axis``."""
+        k = n // self.size(axis)
+        lo = self.mesh.coords.get(axis, 0) * k
+        return lo, lo + k
+
+    def batch_rows(self, b: int) -> Optional[slice]:
+        """The rank's slots of a batch of ``b`` where the batch shards over
+        ``data`` (``b`` divides), else None (every rank holds them all)."""
+        if self.size("data") == 1 or b % self.size("data"):
+            return None
+        return slice(*self.block("data", b))
+
+    def kv_split(self, paged: bool, n_kv_heads: int) -> Optional[str]:
+        """What the cache's ``model`` block holds: ``"rows"`` (the
+        contiguous cache's sequence), ``"heads"`` (kv heads) or None
+        (all of it), as the cache's spec resolves."""
+        if self.size("model") == 1:
+            return None
+        logical = (None, None, "kv", None) if paged else \
+            ("batch", "kvseq", "kv", None)
+        spec = self.rules.spec_for(logical, (1, self.max_seq, n_kv_heads, 1))
+        if spec[1] == "model":
+            return "rows"
+        return "heads" if spec[2] == "model" else None
+
+    # -- collectives ----------------------------------------------------------
+    def reduce_model(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """In place: ``x`` summed (or maximised) over ``model``."""
+        return all_reduce_(x, self.mesh.group("model"), op)
+
+    def gather(self, x: torch.Tensor, dims: Dict[int, str]) -> torch.Tensor:
+        """The whole tensor from every member's block, in one all_gather:
+        ``dims`` maps each dimension of ``x`` that is a block to the mesh
+        axis it is split over (axes of one rank are skipped)."""
+        on = {d % x.ndim: a for d, a in dims.items() if self.size(a) > 1}
+        axes = self.mesh.ordered(set(on.values()))
+        if not axes:
+            return x
+        stacked = all_gather(x, self.mesh.group(axes)).view(
+            *(self.size(a) for a in axes), *x.shape)
+        perm, shape = [], []
+        for j, n in enumerate(x.shape):
+            if j in on:
+                perm.append(axes.index(on[j]))
+                n *= self.size(on[j])
+            perm.append(len(axes) + j)
+            shape.append(n)
+        return stacked.permute(perm).reshape(shape)
+
+    def gather_last(self, *xs: torch.Tensor):
+        """Tensors whose last dimension is a ``model`` block, each made
+        whole, through one all_gather of their concatenation."""
+        widths = [x.shape[-1] for x in xs]
+        stacked = all_gather(torch.cat(xs, dim=-1), self.mesh.group("model"))
+        out = []
+        for part, w in zip(stacked.split(widths, dim=-1), widths):
+            part = part.movedim(0, -2)
+            out.append(part.reshape(*part.shape[:-2], -1))
+        return out
+
+
+def serving() -> Optional[Shards]:
+    return getattr(_STATE, "shards", None)
+
+
+@contextlib.contextmanager
+def use_serving(shards: Optional[Shards]):
+    prev = serving()
+    _STATE.shards = shards
+    try:
+        yield shards
+    finally:
+        _STATE.shards = prev

@@ -1,0 +1,117 @@
+"""Rank functions of the port's mesh serving tests
+(tests/test_torch_mesh_serve.py): each runs in a fresh process that
+``repro_torch.launch.ranks.run_ranks`` spawned and joined to a gloo
+process group on the CPU.  No JAX: the tests hand it numpy arrays."""
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_config
+from repro_torch.core.layers import drop_partition_major, partition_major
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.serve import Engine
+from repro_torch.runtime.scheduler import Request, SamplingParams
+from repro_torch.sharding.collectives import observe_collectives
+from repro_torch.tree import flatten, leaves
+
+SAMPLED = dict(temperature=0.8, top_k=5)
+
+
+def _np(tree):
+    return {k: v.numpy().copy() for k, v in flatten(tree)}
+
+
+def requests(spec, sampled):
+    return [Request(uid=i, prompt=p, max_new_tokens=g,
+                    sampling=SamplingParams(**SAMPLED, seed=i) if sampled
+                    else SamplingParams())
+            for i, (p, g) in enumerate(spec)]
+
+
+def _storages(tree):
+    return {t.untyped_storage().data_ptr() for t in leaves(tree)}
+
+
+class Recorder:
+    """Every collective an engine runs: whether a decode step ran it, the
+    sizes of its tensors and whether one of them is (or views) a param or
+    a cache block, by storage, while both are alive."""
+
+    def __init__(self, engine):
+        self.calls, self.caches, self.in_step = [], [], False
+        self.held = _storages(engine.params)
+        for name in ("new_cache", "new_paged_cache"):
+            make = getattr(engine, name)
+            setattr(engine, name, lambda *a, make=make: self._keep(make(*a)))
+        step = engine._decode_step
+
+        def decode_step(*a, **kw):
+            self.in_step = True
+            try:
+                return step(*a, **kw)
+            finally:
+                self.in_step = False
+        engine._decode_step = decode_step
+
+    def _keep(self, cache):
+        self.caches.append(cache)       # alive while the recorder is
+        self.held |= _storages(cache)
+        return cache
+
+    def __call__(self, op, tensors):
+        self.calls.append((self.in_step, op, [t.numel() for t in tensors],
+                           sum(t.untyped_storage().data_ptr() in self.held
+                               for t in tensors)))
+
+    def summary(self, n_steps):
+        """The collectives of the decode steps, and how many tensors
+        handed to any collective were a param or cache block."""
+        step = [c for c in self.calls if c[0]]
+        return {"weights_moved": sum(c[3] for c in self.calls),
+                "per_step": len(step) / max(n_steps, 1),
+                "largest": max((max(c[2]), c[1]) for c in step),
+                "ops": sorted({c[1] for c in self.calls})}
+
+
+def mesh_serve(rank, dims, np_params, cfg_kw, spec, layouts, static):
+    """One mesh: for each layout, greedy and sampled tokens of ``spec``
+    (every collective recorded), the rank's param and fresh cache blocks;
+    on the contiguous layout the cache blocks and logits after four
+    prefills, their inserts and one decode step, and
+    ``generate_static``'s tokens of ``static`` (a batch of prompts, new
+    tokens)."""
+    cfg = get_config("smollm-360m").reduced(**cfg_kw)
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    params = params_from_jax(np_params, cfg, device="cpu")
+    out = {"coords": mesh.coords}
+    for layout, kw in layouts.items():
+        eng = Engine(cfg, max_seq=32, n_slots=4, params=params,
+                     device="cpu", mesh=mesh, **kw)
+        rec = Recorder(eng)
+        res = {}
+        with observe_collectives(rec):
+            for mode in ("greedy", "sampled"):
+                toks, stats = eng.serve(requests(spec, mode == "sampled"))
+                res[mode] = {u: list(v) for u, v in toks.items()}
+        res["collectives"] = rec.summary(2 * stats["decode_steps"])
+        res["params"] = _np(drop_partition_major(eng.params))
+        res["packed_p"] = all(
+            torch.equal(p["packed_p"], partition_major(p["packed"]))
+            for layer in eng.params["layers"] for p in layer["ffn"].values())
+        fresh = (eng.new_paged_cache() if layout == "paged"
+                 else eng.new_cache(4))
+        res["cache"] = _np(fresh)
+        if layout == "contiguous":
+            with eng.on_mesh():
+                for slot, (prompt, _) in enumerate(spec[:4]):
+                    _, frag = eng._prefill(prompt)
+                    eng._insert(fresh, frag, slot)
+                toks = np.array([[p[-1]] for p, _ in spec[:4]])
+                pos = np.array([len(p) for p, _ in spec[:4]])
+                logits, _ = eng._decode_step(fresh, toks, pos)
+            res["written"] = _np(fresh)
+            res["step_logits"] = logits
+            res["static"] = eng.generate_static(*static)
+        out[layout] = res
+    return out

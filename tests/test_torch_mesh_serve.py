@@ -1,0 +1,149 @@
+"""The port's ``Engine`` on mesh (1, 2) over gloo on the CPU against the
+JAX ``Engine`` on the same mesh: the checks of tests/_mesh_serve_cases.py
+(on (1, 2) the contiguous cache shards its rows and the page pools their
+kv heads).  tests/test_torch_mesh_serve_2x2.py and
+tests/test_torch_mesh_serve_1x4.py run them on (2, 2) and (1, 4).
+
+And, with no ranks: the sharded softmax's combine and the vocab-parallel
+lookup against their unsharded functions over a list of per-rank
+partials; a packed layer on a block of output groups against the whole
+layer's columns (a route of one table kept whole, a route of G tables cut
+with the groups, a bias cut with them); a one-rank mesh's engine bit for
+bit the engine without one; a mesh of more than one rank with no process
+group refused."""
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_serve_ranks as ranks
+from _mesh_serve_cases import (  # noqa: F401  (fixtures and tests)
+    model, runs, test_cache_blocks_equal_the_reference_shards,
+    test_decode_collectives_move_no_weight,
+    test_generate_static_matches_the_jax_engine_on_the_mesh,
+    test_param_blocks_equal_the_reference_shards,
+    test_tokens_match_the_jax_engine_on_the_mesh)
+from _mesh_serve_cases import CFG_KW, MODES, _spec
+from repro_torch.configs import get_config
+from repro_torch.core import SparsityConfig
+from repro_torch.core import functional as F
+from repro_torch.core.layers import packed_linear_apply, packed_linear_init
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.serve import Engine
+from repro_torch.models import attention as A
+from repro_torch.models.common import embedding_apply, embedding_block_apply
+
+
+@pytest.fixture(scope="module")
+def dims():
+    return (1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the pieces, with no ranks
+# ---------------------------------------------------------------------------
+
+def test_sharded_softmax_combine_equals_softmax():
+    gen = torch.Generator().manual_seed(0)
+    b, h, q, k, d, m = 3, 4, 2, 24, 8, 4
+    scores = torch.randn((b, h, q, k), generator=gen) * 4
+    valid = torch.rand((b, 1, k), generator=gen) > 0.3
+    valid[..., 0] = True
+    scores = torch.where(valid[:, None], scores, -1e30)
+    v = torch.randn((b, k, h, d), generator=gen)
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+    blocks = list(zip(scores.chunk(m, -1), v.chunk(m, 1)))
+    mx = torch.stack([A.softmax_max(s) for s, _ in blocks]).amax(0)
+    terms = [A.softmax_terms(s, vb, mx) for s, vb in blocks]
+    got = A.softmax_finish(sum(t[0] for t in terms), sum(t[1] for t in terms))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_vocab_parallel_lookup_equals_the_lookup():
+    gen = torch.Generator().manual_seed(1)
+    table = torch.randn((256, 16), generator=gen)
+    tokens = torch.randint(0, 256, (3, 5), generator=gen)
+    want = embedding_apply({"table": table}, tokens, torch.float32)
+    for m in (2, 4):
+        w = 256 // m
+        parts = [embedding_block_apply(table[i * w:(i + 1) * w], tokens,
+                                       torch.float32, i * w)
+                 for i in range(m)]
+        assert torch.equal(sum(parts), want)
+
+
+@pytest.mark.parametrize("route_share", [0, 1])
+def test_packed_layer_on_a_block_of_groups(route_share):
+    """A block of groups [g0, g1) computes columns [g0·N, g1·N) of the
+    whole layer (``decompress`` puts group g, slot s at column g·N + s);
+    a route of one table stays whole, a route of G tables is cut with the
+    groups, the bias with them."""
+    sp = SparsityConfig(n=4, route_share=route_share)
+    gen = torch.Generator().manual_seed(2)
+    p = packed_linear_init(gen, 32, 64, sp, bias=True, seed=3)
+    p["b"] = torch.randn(64, generator=gen)
+    x = torch.randn((5, 32), generator=gen)
+    g, n = p["packed"].shape[0], p["packed"].shape[2]
+    whole = packed_linear_apply(p, x, sp)
+    dense = x @ F.decompress(p["packed"], p["route"]) + p["b"]
+    torch.testing.assert_close(whole, dense)
+    for m in (2, 4):
+        w = g // m
+        for i in range(m):
+            sl = slice(i * w, (i + 1) * w)
+            blk = {"packed": p["packed"][sl], "b": p["b"][sl.start * n:
+                                                          sl.stop * n],
+                   "route": p["route"] if p["route"].shape[0] == 1
+                   else p["route"][sl]}
+            blk["packed_p"] = blk["packed"].transpose(0, 1).contiguous()
+            got = packed_linear_apply(blk, x, sp)
+            torch.testing.assert_close(got, whole[:, sl.start * n:
+                                                  sl.stop * n])
+
+
+def test_one_rank_mesh_is_the_engine_bit_for_bit():
+    cfg = get_config("smollm-360m").reduced(**CFG_KW)
+    plain = Engine(cfg, max_seq=32, n_slots=4, device="cpu")
+    one = Engine(cfg, max_seq=32, n_slots=4, device="cpu",
+                 mesh=make_mesh((1, 1), ("data", "model"), "cpu"))
+    spec = _spec(cfg.vocab_size)
+    for mode in MODES:
+        assert one.serve(ranks.requests(spec, mode == "sampled"))[0] == \
+            plain.serve(ranks.requests(spec, mode == "sampled"))[0]
+    rows = []
+    for eng in (plain, one):
+        cache = eng.new_cache(4)
+        with eng.on_mesh():
+            for slot, (prompt, _) in enumerate(spec[:4]):
+                row, frag = eng._prefill(prompt)
+                eng._insert(cache, frag, slot)
+                rows.append(row)
+            logits, _ = eng._decode_step(
+                cache, np.array([[p[-1]] for p, _ in spec[:4]]),
+                np.array([len(p) for p, _ in spec[:4]]))
+        rows.append(logits)
+    half = len(rows) // 2
+    assert all(np.array_equal(a, b) for a, b in zip(rows[:half],
+                                                    rows[half:]))
+
+
+def test_a_mesh_without_a_process_group_is_refused():
+    cfg = get_config("smollm-360m").reduced(**CFG_KW)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 2), ("data", "model"), "cpu")
+    lone = Mesh((1, 2), ("data", "model"), torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="process group"):
+        Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=lone)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-1.2b",
+                                  "musicgen-large"])
+def test_other_families_raise_on_a_mesh(arch):
+    """MLA and MoE, the SSM/hybrid patterns and the frontends are not
+    served on a mesh of more than one rank yet (a mesh whose groups are
+    stand-ins: the engine refuses before any collective)."""
+    cfg = get_config(arch).reduced()
+    mesh = Mesh((1, 2), ("data", "model"), torch.device("cpu"),
+                groups={("model",): None})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)

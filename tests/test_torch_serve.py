@@ -213,3 +213,64 @@ def test_cli_runs_reduced_on_cpu(capsys):
                 "2", "--gen", "3", "--prompt-len", "5"])
     line = capsys.readouterr().out
     assert "served 2 requests on cpu" in line and "2 prefill calls" in line
+
+
+# ---------------------------------------------------------------------------
+# the rest of the GQA family, and sampling, against the JAX engine
+# ---------------------------------------------------------------------------
+
+PAGED = dict(kv_layout="paged", page_size=8, prefill_chunk=8)
+
+
+def _both_engines(jcfg, cfg, reqs, jreqs, **kw):
+    """Tokens of the JAX engine and of the port's on its bridged weights,
+    on one layout."""
+    jeng = JEngine(jcfg, make_mesh((1, 1), ("data", "model")),
+                   max_seq=MAX_SEQ, n_slots=N_SLOTS, **kw)
+    jout, _ = jeng.serve(jreqs)
+    params = params_from_jax(jax.tree.map(np.asarray, jeng.params), cfg,
+                             device="cpu")
+    out, _ = Engine(cfg, max_seq=MAX_SEQ, n_slots=N_SLOTS, params=params,
+                    device="cpu", **kw).serve(reqs)
+    return out, {u: [int(t) for t in v] for u, v in jout.items()}
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("arch", ["yi-6b", "minitron-8b", "starcoder2-15b"])
+def test_gqa_family_serves_as_the_jax_engine(arch, layout):
+    """Reduced float32 with ``head_pad=0``, 8 requests on 4 slots, greedy:
+    token for token the JAX engine's (starcoder2: GELU, no gate)."""
+    jcfg = jget_config(arch).reduced(**BASE)
+    cfg = get_config(arch).reduced(**BASE)
+    prompts = _prompts(cfg.vocab_size)
+    out, want = _both_engines(
+        jcfg, cfg,
+        [Request(uid=i, prompt=p, max_new_tokens=g)
+         for i, (p, g) in enumerate(prompts)],
+        [JRequest(uid=i, prompt=p, max_new_tokens=g)
+         for i, (p, g) in enumerate(prompts)],
+        **({} if layout == "contiguous" else PAGED))
+    assert out == want
+
+
+@pytest.mark.parametrize("layout, temperature, top_k", [
+    ("contiguous", 0.8, 5), ("paged", 0.8, 5), ("contiguous", 1.0, 0)])
+def test_sampled_tokens_match_the_jax_engine(layout, temperature, top_k):
+    """Sampling on the host from the same logits with the same per-request
+    generator (seed = uid) draws the JAX engine's tokens: top-k 5 at
+    temperature 0.8, and the full vocabulary at temperature 1.0."""
+    from repro.runtime.scheduler import SamplingParams as JSampling
+    jcfg, cfg = _configs("bisect")
+    prompts = _prompts(cfg.vocab_size)
+    out, want = _both_engines(
+        jcfg, cfg,
+        [Request(uid=i, prompt=p, max_new_tokens=g,
+                 sampling=SamplingParams(temperature=temperature,
+                                         top_k=top_k, seed=i))
+         for i, (p, g) in enumerate(prompts)],
+        [JRequest(uid=i, prompt=p, max_new_tokens=g,
+                  sampling=JSampling(temperature=temperature, top_k=top_k,
+                                     seed=i))
+         for i, (p, g) in enumerate(prompts)],
+        **({} if layout == "contiguous" else PAGED))
+    assert out == want
