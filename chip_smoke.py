@@ -214,6 +214,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    mesh's tok/s and host-clock decode step beside the single device's
    (no limit, no claim).  ``[mesh-serve]`` lines and a ``[mesh-serve]
    numbers {...}`` JSON line.
+15. mesh-moe — ``Engine(mesh=...)`` on the MoE + MLA family:
+   deepseek-v2-lite-16b as shipped (27 layers, MLA's 16 heads, 64 routed
+   experts top-6 + 2 shared), random weights from seed 0, max_seq 48, on
+   four gloo ranks sharing the card (one torch thread each), meshes 1x4
+   and 2x2, both layouts, against the single-device engine on the card.
+   Each rank draws only its blocks, a layer at a time (four whole f32
+   trees would not fit the card): (a) in float32, four prompts prefilled
+   and 4 decode steps fed the same tokens, holding the single-device
+   engine's k-WTA selections (the rank's slots and experts of each) and
+   router choices, logits within 1e-3; then its blocks cast to bf16:
+   (b) phase 4's workload on both layouts, tokens equal on every rank
+   and equal to the single-device engine's but where they part between
+   its top two (on its own path), closer than twice the bf16
+   forced-logits difference; (c) each rank's param and cache bytes equal
+   to its blocks reckoned from the specs (``shard_shape``); (d) 27
+   ``topk_gather`` launches a decode step on every rank (the shared
+   experts' down projection), none in a prefill; (e) no tensor handed to
+   a collective is a param or cache block, the largest a decode step
+   moves is the (4, vocab) logits; (f) tok/s and the host-clock decode
+   step beside the single device's (no limit, no claim).  Then
+   ``topk_gather`` at the ranks' decode shapes (B=2 and 4, K=352, P=704,
+   G=512, N=4) against its plain version, and B=2's times (row 1's
+   ``mesh_moe_shape``).  ``[mesh-moe]`` lines and a ``[mesh-moe] numbers
+   {...}`` JSON line.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -1085,11 +1109,13 @@ def phase_ops(cfg):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def kwta_selections(held=None, rows=None):
+def kwta_selections(held=None, rows=None, experts=None):
     """Record the kept set of every bisect k-WTA call made inside, in call
     order, as boolean masks; with ``held`` (an iterator of masks, one a
     call) keep those sets instead of selecting (``rows`` of a held mask
-    whose batch is larger than the call's: a rank's block of slots).  The
+    whose batch is larger than the call's: a rank's block of slots;
+    ``experts`` = (lo, hi) of a routed experts' mask (G, E, C, F) whose
+    experts are more than the call's: a rank's block of experts).  The
     serving FFN selects with ``repro_torch.core.layers.kwta_bisect``."""
     layers = importlib.import_module("repro_torch.core.layers")
     select, masks = layers.kwta_bisect, []
@@ -1099,6 +1125,9 @@ def kwta_selections(held=None, rows=None):
             keep = next(held)
             if rows is not None and keep.shape[0] != x.shape[0]:
                 keep = keep[rows]
+            if experts is not None and keep.ndim == 4 and \
+                    keep.shape[1] != x.shape[1]:
+                keep = keep[:, experts[0]:experts[1]]
         else:
             keep = select(x, k) != 0
         masks.append(keep)
@@ -2247,12 +2276,13 @@ MOE_SHAPE = dict(b=4, k=352, p=704, g=512, n=4, r=512)
 
 
 @contextlib.contextmanager
-def router_choices(held=None):
+def router_choices(held=None, rows=None):
     """Record every MoE router's expert choice made inside, in call order;
     with ``held`` (an iterator of choices, one a call) route by those
     instead, each token's weights read from its own softmax at the held
-    experts.  The MoE block routes with ``repro_torch.models.moe.
-    router_top_k``."""
+    experts (``rows`` of a held choice whose groups are more than the
+    call's: a rank's block of slots).  The MoE block routes with
+    ``repro_torch.models.moe.router_top_k``."""
     moe = importlib.import_module("repro_torch.models.moe")
     route, choices = moe.router_top_k, []
 
@@ -2261,6 +2291,8 @@ def router_choices(held=None):
             top_p, top_e = route(probs, k)
         else:
             top_e = next(held)
+            if rows is not None and top_e.shape[0] != probs.shape[0]:
+                top_e = top_e[rows]
             top_p = probs.gather(-1, top_e)
         choices.append(top_e)
         return top_p, top_e
@@ -2277,25 +2309,25 @@ def cache_bytes(cache):
                for layer in cache for leaf in layer.values())
 
 
-def moe_kernel():
+def moe_kernel(shape=MOE_SHAPE, phase="moe"):
     """(c) ``topk_gather`` at the shared experts' decode shape against its
     plain version (bf16, and the support as the layer hands it over), then
     its times.  Returns the row-1 keys of that shape."""
     from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
     vals, p_idx, s_off, packed_p, route, packed = kernel_operands(
-        MOE_SHAPE, torch.bfloat16, SEED + 60)
+        shape, torch.bfloat16, SEED + 60)
     err = 0.0
     for label, operands in (
             ("", (vals, p_idx, s_off, packed_p, route)),
             (", bf16 values, int64 indices",
              (vals.to(torch.bfloat16), p_idx.long(), s_off.long(), packed_p,
               route))):
-        err = max(err, check(f"topk_gather {MOE_SHAPE} bf16{label}",
+        err = max(err, check(f"topk_gather {shape} bf16{label}",
                              topk_gather(*operands),
-                             topk_gather_plain(*operands), phase="moe"))
-    times = topk_times(MOE_SHAPE, vals, p_idx, s_off, packed_p, route,
-                       packed, "moe")
-    return {"shape": MOE_SHAPE, "max_abs_err": err, **times}
+                             topk_gather_plain(*operands), phase=phase))
+    times = topk_times(shape, vals, p_idx, s_off, packed_p, route,
+                       packed, phase)
+    return {"shape": shape, "max_abs_err": err, **times}
 
 
 def moe_serve(params, cfg, reqs):
@@ -3982,6 +4014,17 @@ MESH_SERVE_LAYOUTS = {(1, 4): ("contiguous",),
 MESH_SERVE_FORCED = 4
 MESH_SERVE_TOL = 1e-3
 LAYOUTS = ("contiguous", "paged")
+#: the depth of phase 14's smollm-360m (32 shipped), cut to keep the
+#: whole script within its time limit beside phase 15: a decode step of
+#: four gloo ranks on one card is mostly its collectives, four a layer
+MESH_SERVE_LAYERS = 8
+
+
+def mesh_serve_cfg():
+    """smollm-360m at its shipped widths, MESH_SERVE_LAYERS deep."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-360m"),
+                               n_layers=MESH_SERVE_LAYERS)
 
 
 def mesh_serve_kw(layout):
@@ -4050,15 +4093,15 @@ def serving_bytes(engine):
     return ref, nbytes(engine.params) - ref, nbytes(cache)
 
 
-def reckoned_serving_bytes(engine, whole):
+def reckoned_serving_bytes(engine, whole, rules=None):
     """The reference's per-device bytes of ``whole``'s params and the
-    engine's cache, reckoned from the specs under the engine's rules
-    (``shard_shape`` of each leaf, the units stacked)."""
+    engine's cache, reckoned from the specs under ``rules`` (default: the
+    engine's; ``shard_shape`` of each leaf, the units stacked)."""
     from repro_torch.core.layers import drop_partition_major
     from repro_torch.models import transformer as T
     from repro_torch.sharding.context import param_sharding
     from repro_torch.tree import leaves
-    cfg, rules = engine.cfg, engine.rules
+    cfg, rules = engine.cfg, engine.rules if rules is None else rules
 
     def total(specs, tree):
         out = 0
@@ -4154,7 +4197,6 @@ def mesh_serve_rank(rank):
     (tokens, launches, collectives, bytes, times; after a one-step
     warm-up) on the mesh's MESH_SERVE_LAYOUTS."""
     import pickle
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Engine
     from repro_torch.models import transformer as T
@@ -4163,7 +4205,7 @@ def mesh_serve_rank(rank):
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     single = pickle.loads((MESH_SERVE_DIR / "single.pkl").read_bytes())
-    cfg = get_config("smollm-360m")
+    cfg = mesh_serve_cfg()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     reqs = phase4_requests(cfg.vocab_size)
     prompts = [r.prompt for r in reqs[:4]]
@@ -4222,14 +4264,13 @@ def mesh_serve_nccl(rank):
     world size 1 against the engine without a mesh, phase 4's workload
     (bf16) and the forced logits, bit for bit."""
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Engine
     from repro_torch.models import transformer as T
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("smollm-360m")
+    cfg = mesh_serve_cfg()
     reqs = phase4_requests(cfg.vocab_size)
     forced = np.random.default_rng(SEED + 14).integers(
         0, cfg.vocab_size, (MESH_SERVE_FORCED, 4))
@@ -4254,14 +4295,13 @@ def phase_mesh_serve():
     at world size 1."""
     import pickle
     import shutil
-    from repro_torch.configs import get_config
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.launch.serve import Engine
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
     MESH_SERVE_DIR.mkdir(parents=True)
-    cfg = get_config("smollm-360m")
+    cfg = mesh_serve_cfg()
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     reqs = phase4_requests(cfg.vocab_size)
     prompts = [r.prompt for r in reqs[:4]]
@@ -4321,7 +4361,8 @@ def phase_mesh_serve():
     nccl, t_nccl = done["nccl"], done["s"]
     failed = []
     logits_bytes = 4 * cfg.padded_vocab * 2
-    print(f"[mesh-serve] smollm-360m at full width (32 layers, d_model 960, "
+    print(f"[mesh-serve] smollm-360m at full width, cut to {cfg.n_layers} "
+          f"layers of 32 (d_model 960, "
           f"15 heads on 5 kv heads, d_ff 2560, vocab {cfg.vocab_size}), "
           f"random weights from seed {SEED}, phase 4's workload (8 requests "
           f"on 4 slots, prompt 16, gen 16), max_seq {MESH_SERVE_SEQ}; four "
@@ -4417,6 +4458,357 @@ def phase_mesh_serve():
         "launches_per_step"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MoE + MLA family served on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_MOE_DIR = ROOT / "build" / "mesh_moe"
+#: the shared experts' decode down projection on a rank of 2x2's
+#: contiguous layout (2 slots a rank): B=2, K=352, P=704, G=512, N=4
+MESH_MOE_SHAPE = dict(MOE_SHAPE, b=2)
+#: the depth of check (a), in float32 (every other check runs all 27
+#: layers): a decode step of four gloo ranks on one card takes ~2 s at
+#: full depth, most of it their ~160 collectives
+MESH_MOE_F32_LAYERS = 4
+#: the tokens of the single-device serve's logits kept at every step, to
+#: tell a tie from a parting
+MESH_MOE_TOPS = 8
+
+
+@contextlib.contextmanager
+def sampled_tops(k=MESH_MOE_TOPS):
+    """Record, for every token an engine's serve samples inside, the k
+    largest logits of the row it was sampled from (tokens and values,
+    largest first), by request uid in token order."""
+    serve = importlib.import_module("repro_torch.launch.serve")
+    sched = importlib.import_module("repro_torch.runtime.scheduler")
+    sample, record = serve.sample_token, sched.Scheduler.record_token
+    last, tops = [], collections.defaultdict(list)
+
+    def spy_sample(logits, params, rng):
+        top = np.argsort(-logits, kind="stable")[:k]
+        last[:] = [([int(t) for t in top], [float(logits[t]) for t in top])]
+        return sample(logits, params, rng)
+
+    def spy_record(self, slot, token, *a, **kw):
+        tops[slot.request.uid].append(last[0])
+        return record(self, slot, token, *a, **kw)
+
+    serve.sample_token, sched.Scheduler.record_token = spy_sample, spy_record
+    try:
+        yield tops
+    finally:
+        serve.sample_token, sched.Scheduler.record_token = sample, record
+
+
+def tied_tokens(reqs, want_out, got_out, tops, label, margin):
+    """``got_out`` against the single-device serve's ``want_out``: equal,
+    or parted only at a tie: the single run's logit of the other token
+    lies within ``margin`` of its largest at that step (phase 14's
+    top-two rule, a tie of three or more tokens counted as one).  ``tops``: the
+    single run's :func:`sampled_tops`.  Returns the requests parted."""
+    parted = 0
+    for req in reqs:
+        want, got = want_out[req.uid], got_out[req.uid]
+        if len(got) != len(want):
+            fail(f"{label}: request {req.uid} returned {len(got)} tokens, "
+                 f"want {len(want)}")
+        part = next((j for j, (a, b) in enumerate(zip(want, got))
+                     if a != b), None)
+        if part is None:
+            continue
+        toks, vals = tops[req.uid][part]
+        place = toks.index(got[part]) if got[part] in toks else None
+        gap = math.inf if place is None else vals[0] - vals[place]
+        print(f"[mesh-moe] {label}: request {req.uid} parts at step {part}: "
+              f"{want[part]} -> {got[part]}, the single run's "
+              f"{'#' + str(place + 1) if place is not None else 'beyond #' + str(len(toks))} "
+              f"token, {gap:.3e} below its largest logit (bound "
+              f"{margin:.3e})")
+        if toks[0] != want[part] or not gap < margin:
+            fail(f"{label}: request {req.uid} differs at step {part} "
+                 "beyond a tie")
+        parted += 1
+    return parted
+
+
+def moe_fingerprint(params):
+    """Sums of leaves every rank holds whole (``dkv``, the shared experts'
+    down projection, the final norm): two processes drew the same
+    weights."""
+    layer = params["layers"][-1]
+    return [float(layer["mixer"]["dkv"].double().sum()),
+            float(layer["moe"]["shared"]["down"]["packed"].double().sum()),
+            float(params["final_norm"]["scale"].double().sum())]
+
+
+def mesh_moe_rank(rank):
+    """Phase 15 on one of four gloo ranks sharing the card, for each mesh
+    of MESH_SERVE_MESHES: each engine draws only the rank's blocks of
+    seed 0's weights, a layer at a time.  The f32 forced logits of both
+    layouts (MESH_MOE_F32_LAYERS deep) holding the single-device engine's
+    k-WTA selections and router choices, then at full depth the bf16
+    forced logits with free selections and the bf16 engine on phase 4's
+    workload on both layouts (tokens, launches, collectives, bytes,
+    times; after a warm-up of one request)."""
+    import pickle
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.sharding.collectives import observe_collectives
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    single = pickle.loads((MESH_MOE_DIR / "single.pkl").read_bytes())
+    cfg = get_config(MOE_ARCH)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                n_layers=MESH_MOE_F32_LAYERS)
+    reqs = phase4_requests(cfg.vocab_size)
+    prompts = [r.prompt for r in reqs[:4]]
+    warm = dataclasses.replace(reqs[0], max_new_tokens=2)
+    out = {"rank": rank}
+    for dims in MESH_SERVE_MESHES:
+        mesh = make_mesh(dims, ("data", "model"), device)
+        res = {"coords": mesh.coords, "f32_err": {}}
+        torch.cuda.reset_peak_memory_stats()
+        for layout in LAYOUTS:
+            t = time.perf_counter()
+            eng = Engine(cfg32, MESH_SERVE_SEQ, 4, device=device, mesh=mesh,
+                         **mesh_serve_kw(layout))
+            torch.cuda.synchronize()
+            res["init_s"] = time.perf_counter() - t
+            rows = eng.shards.batch_rows(4)
+            held = iter([m.to(device) for m in single["masks"][layout]])
+            chosen = iter([c.to(device) for c in single["choices"][layout]])
+            with kwta_selections(held, rows=rows, experts=eng.shards.block(
+                    "model", cfg.n_experts)), \
+                    router_choices(chosen, rows=rows):
+                got = forced_logits(eng, prompts, single["forced"])
+            if next(held, None) is not None or \
+                    next(chosen, None) is not None:
+                fail("mesh-moe: k-WTA selections or router choices left "
+                     "over")
+            res["f32_err"][layout] = rows_err(got,
+                                              single["f32_rows"][layout])
+            del eng
+        torch.cuda.empty_cache()
+        eng = Engine(cfg, MESH_SERVE_SEQ, 4, device=device, mesh=mesh)
+        res["same_weights"] = moe_fingerprint(eng.params) == \
+            single["fingerprint"]
+        res["bf16_move"] = rows_err(
+            forced_logits(eng, prompts, single["forced"]),
+            single["bf16_rows"])
+        del eng
+        for layout in LAYOUTS:
+            eng = Engine(cfg, MESH_SERVE_SEQ, 4, device=device, mesh=mesh,
+                         **mesh_serve_kw(layout))
+            eng.serve([warm])
+            eng.prefill_calls = 0
+            log, pre = CollectiveLog(eng), prefill_launches(eng)
+            reset_counts()
+            with observe_collectives(log):
+                toks, stats = eng.serve(reqs)
+            steps = stats["decode_steps"]
+            res[layout] = {
+                "tokens": toks, "steps": steps, "tok_s": stats["tok_s"],
+                "step_ms": stats["decode_s"] / steps * 1e3,
+                "prefill_calls": stats["prefill_calls"],
+                "launches": read_counts()["topk_gather"],
+                "prefill_launches": pre[0],
+                "collectives": log.summary(steps),
+                "bytes": serving_bytes(eng)}
+            del eng, log
+        res["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        out[dims] = res
+    return out
+
+
+def moe_single(cfg, reqs, forced):
+    """The single-device references of phase 15 on the card: the bf16
+    engine on phase 4's workload on both layouts (with each sampled row's
+    largest logits) and its forced logits, the reckoned per-rank bytes of
+    each mesh and layout, then the f32 forced logits of both layouts
+    (MESH_MOE_F32_LAYERS deep) with their k-WTA selections and router
+    choices (pickled for the ranks).  Returns the bf16 engine's numbers by
+    layout and the reckoned bytes by (mesh, layout)."""
+    import pickle
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    prompts = [r.prompt for r in reqs[:4]]
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    one, reckoned = {}, {}
+    for layout in LAYOUTS:
+        eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=params, device="cuda",
+                     **mesh_serve_kw(layout))
+        eng.serve([dataclasses.replace(reqs[0], max_new_tokens=2)])
+        with sampled_tops() as tops:
+            toks, stats = eng.serve(reqs)
+        one[layout] = {"tokens": toks, "tops": tops,
+                       "tok_s": stats["tok_s"],
+                       "step_ms": stats["decode_s"] / stats["decode_steps"]
+                       * 1e3, "bytes": serving_bytes(eng)}
+        for dims in MESH_SERVE_MESHES:
+            rules = make_rules(Mesh(dims, ("data", "model"),
+                                    torch.device("cuda")), "decode")
+            reckoned[dims, layout] = reckoned_serving_bytes(eng, params,
+                                                            rules)
+    single = {"forced": forced, "fingerprint": moe_fingerprint(params),
+              "bf16_rows": forced_logits(
+                  Engine(cfg, MESH_SERVE_SEQ, 4, params=params,
+                         device="cuda"), prompts, forced),
+              "f32_rows": {}, "masks": {}, "choices": {}}
+    del params, eng
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                n_layers=MESH_MOE_F32_LAYERS)
+    params = T.init_model(cfg32, seed=SEED, device="cuda")
+    for layout in LAYOUTS:
+        eng = Engine(cfg32, MESH_SERVE_SEQ, 4, params=params, device="cuda",
+                     **mesh_serve_kw(layout))
+        with kwta_selections() as masks, router_choices() as choices:
+            single["f32_rows"][layout] = forced_logits(eng, prompts, forced)
+        single["masks"][layout] = [m.cpu() for m in masks]
+        single["choices"][layout] = [c.cpu() for c in choices]
+    del params, eng
+    torch.cuda.empty_cache()
+    (MESH_MOE_DIR / "single.pkl").write_bytes(pickle.dumps(single))
+    return one, reckoned
+
+
+def phase_mesh_moe():
+    """Phase 15: the single-device references on the card, then four gloo
+    ranks sharing the card on meshes (1, 4) and (2, 2), both layouts;
+    then ``topk_gather`` at the ranks' decode shapes."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_MOE_DIR, ignore_errors=True)
+    MESH_MOE_DIR.mkdir(parents=True)
+    cfg = get_config(MOE_ARCH)
+    reqs = phase4_requests(cfg.vocab_size)
+    forced = np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, (MESH_SERVE_FORCED, 4))
+    one, reckoned = moe_single(cfg, reqs, forced)
+    t_single = time.perf_counter() - t0
+    t = time.perf_counter()
+    ranks = run_ranks(mesh_moe_rank, 4, MESH_MOE_DIR / "ranks",
+                      backend="gloo", timeout_s=900, threads=1)
+    t_gloo = time.perf_counter() - t
+    failed = []
+    logits_bytes = 4 * cfg.padded_vocab * 2
+    print(f"[mesh-moe] {MOE_ARCH} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, MLA {cfg.n_heads} heads on "
+          f"kv_lora {cfg.kv_lora_rank}, {cfg.n_experts} routed experts "
+          f"top-{cfg.experts_per_token} + {cfg.n_shared_experts} shared, "
+          f"vocab {cfg.vocab_size}), bf16, random weights from seed {SEED}, "
+          f"phase 4's workload (8 requests on 4 slots, prompt 16, gen 16), "
+          f"max_seq {MESH_SERVE_SEQ}; four gloo ranks sharing the card: "
+          f"{device_line()}")
+    numbers = {"single": {k: {"tok_s": v["tok_s"], "step_ms": v["step_ms"],
+                              "bytes": v["bytes"]} for k, v in one.items()}}
+    for layout in LAYOUTS:
+        print(f"[mesh-moe] single device {layout}: {one[layout]['tok_s']:.2f}"
+              f" tok/s, decode step {one[layout]['step_ms']:.2f} ms (host "
+              f"clock), param bytes {one[layout]['bytes'][0]}, cache bytes "
+              f"{one[layout]['bytes'][2]}")
+    for dims in MESH_SERVE_MESHES:
+        name = "x".join(map(str, dims))
+        rs = [r[dims] for r in ranks]
+        if not all(r["same_weights"] for r in rs):
+            failed.append(f"{name}: a rank drew other weights")
+        errs = {lay: max(r["f32_err"][lay] for r in rs) for lay in LAYOUTS}
+        print(f"[mesh-moe] {name} (a) f32, {MESH_MOE_F32_LAYERS} layers, 4 "
+              f"prompts prefilled and "
+              f"{MESH_SERVE_FORCED} forced decode steps holding the "
+              f"single-device k-WTA selections and router choices: largest "
+              f"|logits - single| contiguous {errs['contiguous']:.3e}, paged "
+              f"{errs['paged']:.3e} (tol {MESH_SERVE_TOL:.0e}); each rank "
+              f"drew its f32 blocks in "
+              f"{max(r['init_s'] for r in rs):.1f} s at most, peak "
+              f"{max(r['peak'] for r in rs) / 2**30:.2f} GiB a rank")
+        if not max(errs.values()) <= MESH_SERVE_TOL:
+            failed.append(f"{name}: f32 logits part from the single device")
+        move = max(r["bf16_move"] for r in rs)
+        margin = max(TIE_MARGIN, 2 * move)
+        numbers[name] = {"f32_err": errs, "bf16_move": move}
+        for layout in LAYOUTS:
+            got = [r[layout] for r in rs]
+            if any(g["tokens"] != got[0]["tokens"] for g in got):
+                failed.append(f"{name} {layout}: ranks sampled other tokens")
+            if any(g["prefill_calls"] != len(reqs) for g in got):
+                failed.append(f"{name} {layout}: prefill calls "
+                              f"{[g['prefill_calls'] for g in got]}")
+            parted = tied_tokens(reqs, one[layout]["tokens"],
+                                 got[0]["tokens"], one[layout]["tops"],
+                                 f"{name} {layout}", margin)
+            print(f"[mesh-moe] {name} {layout} (b) bf16 tokens against the "
+                  f"single-device engine: {len(reqs) - parted} requests "
+                  f"identical, {parted} parted at a tie "
+                  f"(bound {margin:.3e}: twice the largest bf16 forced-logits "
+                  f"difference {move:.3e}, at least {TIE_MARGIN:.0e}); every "
+                  f"rank the same tokens "
+                  f"{all(g['tokens'] == got[0]['tokens'] for g in got)}")
+            for r, g in zip(rs, got):
+                want = reckoned[dims, layout]
+                print(f"[mesh-moe] {name} {layout} (c) rank {r['coords']}: "
+                      f"param bytes {g['bytes'][0]} (reckoned from the specs "
+                      f"{want[0]}; single device {one[layout]['bytes'][0]}), "
+                      f"partition-major copies {g['bytes'][1]} (single "
+                      f"{one[layout]['bytes'][1]}), cache bytes "
+                      f"{g['bytes'][2]} (reckoned {want[1]}; single "
+                      f"{one[layout]['bytes'][2]})")
+                if (g["bytes"][0], g["bytes"][2]) != tuple(want):
+                    failed.append(f"{name} {layout}: a rank's bytes are not "
+                                  "its reckoned block's")
+            per_step = [g["launches"] / g["steps"] for g in got]
+            print(f"[mesh-moe] {name} {layout} (d) topk_gather launches a "
+                  f"decode step on each rank {per_step}, in the prefills "
+                  f"{[g['prefill_launches'] for g in got]}")
+            if any(p != cfg.n_layers for p in per_step) or any(
+                    g["prefill_launches"] for g in got):
+                failed.append(f"{name} {layout}: topk_gather launches")
+            c = got[0]["collectives"]
+            print(f"[mesh-moe] {name} {layout} (e) a decode step's "
+                  f"collectives: {c['per_step']:.1f} ({c['ops']} in all "
+                  f"steps), {c['bytes_per_step'] / 1e3:.1f} kB, the largest "
+                  f"{c['largest'][0]} of {c['largest'][1]} B (the (4, "
+                  f"{cfg.padded_vocab}) bf16 logits are {logits_bytes} B); "
+                  f"tensors handed over that are a param or cache block: "
+                  f"{[g['collectives']['weights_handed'] for g in got]}")
+            if any(g["collectives"]["weights_handed"] for g in got) or any(
+                    g["collectives"]["largest"] != ["all_gather",
+                                                    logits_bytes]
+                    for g in got):
+                failed.append(f"{name} {layout}: a collective moved a "
+                              "weight or more than the logits")
+            print(f"[mesh-moe] {name} {layout} (f) host clock: "
+                  f"{got[0]['tok_s']:.2f} tok/s, decode step "
+                  f"{got[0]['step_ms']:.2f} ms (single device "
+                  f"{one[layout]['tok_s']:.2f} tok/s, "
+                  f"{one[layout]['step_ms']:.2f} ms); no claim")
+            numbers[name][layout] = {
+                "tok_s": got[0]["tok_s"], "step_ms": got[0]["step_ms"],
+                "parted": parted, "launches_per_step": per_step[0],
+                "collectives": c, "bytes": [g["bytes"] for g in got]}
+    shape_4 = moe_kernel(MOE_SHAPE, "mesh-moe")
+    keys = moe_kernel(MESH_MOE_SHAPE, "mesh-moe")
+    numbers.update(single_s=t_single, gloo_s=t_gloo,
+                   phase_s=time.perf_counter() - t0)
+    print(f"[mesh-moe] numbers {json.dumps(numbers)}")
+    shutil.rmtree(MESH_MOE_DIR, ignore_errors=True)
+    if failed:
+        fail("mesh-moe: " + "; ".join(failed))
+    return {"mesh_moe_shape": keys,
+            "mesh_moe_max_abs_err": max(keys["max_abs_err"],
+                                        shape_4["max_abs_err"]),
+            "launches_mesh_moe_per_decode_step": numbers["2x2"][
+                "contiguous"]["launches_per_step"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -4496,6 +4888,10 @@ def main():
     t = time.perf_counter()
     row.update(phase_mesh_serve())
     print(f"[mesh-serve] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_mesh_moe())
+    print(f"[mesh-moe] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

@@ -58,8 +58,9 @@ same tokens; a decode step moves activations between ranks, never a
 weight.  The contiguous cache's slots shard over ``data`` where they
 divide; the page pools hold every page on every rank, so a paged step
 computes every slot.  A one-rank mesh is the engine without one.  The
-GQA family is served on a mesh of more than one rank; MLA, MoE, the
-SSM/hybrid patterns and the frontends raise there.
+attention block patterns are served on a mesh of more than one rank: the
+GQA and MLA families, MoE (experts parallel over ``model``), the int8
+cache and the frontends' inputs; the SSM/hybrid patterns raise there.
 
 Telemetry: pass ``telemetry=repro_torch.obs.Telemetry.on(...)`` and the
 engine traces host-clock spans around every stage (``schedule.admit`` /
@@ -148,8 +149,9 @@ class Engine:
 
     ``mesh`` (default none: one device) serves on a (data, model) mesh:
     ``params``, when given, are whole (as :func:`repro_torch.bridge.
-    params_from_jax` makes them) and each rank keeps its blocks; the
-    engine runs on the mesh's device unless ``device`` says otherwise."""
+    params_from_jax` makes them) and each rank keeps its blocks; without
+    them each rank draws only its blocks of seed 0's weights.  The engine
+    runs on the mesh's device unless ``device`` says otherwise."""
 
     def __init__(self, cfg, max_seq: int, n_slots: int = 4, params=None,
                  use_pallas: Optional[str] = None, device=None,
@@ -183,18 +185,19 @@ class Engine:
         #: the rank's place on a mesh of more than one rank, else None
         self.shards = Shards.of(mesh, max_seq)
         self.rules = None if self.shards is None else self.shards.rules
-        if self.shards is not None and (
-                cfg.use_mla or cfg.is_moe or cfg.frontend != "none"
-                or any(k != "attn" for k in cfg.block_pattern)):
+        if self.shards is not None and any(k != "attn"
+                                           for k in cfg.block_pattern):
             raise NotImplementedError(
-                f"{cfg.name} on mesh {mesh.dims}: only the GQA family "
-                "serves on a mesh of more than one rank (ROADMAP Queue 1 "
-                "item 5: MLA, MoE, SSM/hybrid and frontend serving on a "
-                "mesh)")
-        self.params = (params if params is not None
-                       else T.init_model(cfg, seed=0, device=self.device))
-        if self.shards is not None:     # each rank keeps its blocks
-            self.params = T.param_blocks(self.params, cfg, self.rules)
+                f"{cfg.name} on mesh {mesh.dims}: only attention block "
+                "patterns serve on a mesh of more than one rank (ROADMAP "
+                "Queue 1 item 5: SSM/hybrid serving on a mesh)")
+        if params is None:      # on a mesh, each rank draws only its blocks
+            self.params = T.init_model(cfg, seed=0, device=self.device,
+                                       rules=self.rules)
+        elif self.shards is not None:   # each rank keeps its blocks
+            self.params = T.param_blocks(params, cfg, self.rules)
+        else:
+            self.params = params
         self.prefill_calls = 0  # one per admitted prompt (tests assert)
         #: per-request lifecycle records of the last ``serve`` call
         self.records: Dict[int, RequestRecord] = {}
@@ -797,7 +800,7 @@ class Engine:
         return torch.cat(out, dim=1).cpu().numpy()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--slots", type=int, default=4)
@@ -848,7 +851,11 @@ def main(argv=None):
                     "torchrun's WORLD_SIZE)")
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
                     help="process group backend under torchrun")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     cfg = get_config(args.arch)
     if not args.full:

@@ -23,6 +23,13 @@ sharded softmax (each rank's maximum, sum of exponentials and weighted
 values over its rows, combined over ``model`` in float32); a cache that
 holds a block of kv heads is attended for those heads' queries, the head
 outputs gathered before ``o``, which every rank runs whole.
+
+MLA on a serving mesh holds the rank's heads (``q``, ``uk``, ``uv``: a
+block of columns; ``o``: the rows of those heads) and the whole ``dkv``
+and ``kpe``: its heads attend, and their products through ``o`` are
+summed over ``model`` (row parallel).  A contiguous latent cache that
+holds a block of rows is attended through the absorbed queries and the
+sharded softmax (:func:`_mla_rows_attn`); the page pools hold every row.
 """
 
 from __future__ import annotations
@@ -592,13 +599,14 @@ def mla_init(gen: torch.Generator, cfg):
 
 
 def _mla_qkv(params, x, cfg, positions):
-    """Queries (nope and roped parts), the latent ``c_kv`` (B, S, r) and
-    the roped shared key ``k_pe`` (B, S, dr).  Each weight is cast to the
-    compute dtype at its use, as the reference casts it (a no-op on
-    serving params, which :func:`repro_torch.models.transformer.
-    prepare_params` cast once; the training layout's masters are float32)."""
-    h, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], h, -1)
+    """Queries (nope and roped parts) of the heads ``params`` hold, the
+    latent ``c_kv`` (B, S, r) and the roped shared key ``k_pe`` (B, S,
+    dr).  Each weight is cast to the compute dtype at its use, as the
+    reference casts it (a no-op on serving params, which
+    :func:`repro_torch.models.transformer.prepare_params` cast once; the
+    training layout's masters are float32)."""
+    dh, dr = cfg.head_dim, cfg.rope_head_dim
+    q = (x @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], -1, dh + dr)
     q_nope, q_pe = q[..., :dh], q[..., dh:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     c_kv = x @ params["dkv"].to(x.dtype)
@@ -608,11 +616,12 @@ def _mla_qkv(params, x, cfg, positions):
 
 
 def _mla_expand(params, c_kv, cfg):
-    """Per-head keys (nope part) and values from the latent rows."""
-    h, dh = cfg.n_heads, cfg.head_dim
+    """Per-head keys (nope part) and values from the latent rows, for the
+    heads ``params`` hold."""
+    dh = cfg.head_dim
     ct = c_kv.dtype
-    k_nope = (c_kv @ params["uk"].to(ct)).reshape(*c_kv.shape[:-1], h, dh)
-    v = (c_kv @ params["uv"].to(ct)).reshape(*c_kv.shape[:-1], h, dh)
+    k_nope = (c_kv @ params["uk"].to(ct)).reshape(*c_kv.shape[:-1], -1, dh)
+    v = (c_kv @ params["uv"].to(ct)).reshape(*c_kv.shape[:-1], -1, dh)
     return k_nope, v
 
 
@@ -621,15 +630,27 @@ def _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg):
     key broadcast over the heads; v from the latent."""
     k_nope, v = _mla_expand(params, c_kv, cfg)
     q = torch.cat([q_nope, q_pe], dim=-1)
-    k_pe = k_pe[..., None, :].expand(*k_pe.shape[:-1], cfg.n_heads,
+    k_pe = k_pe[..., None, :].expand(*k_pe.shape[:-1], q.shape[-2],
                                      k_pe.shape[-1])
     return q, torch.cat([k_nope, k_pe], dim=-1), v
 
 
+def _mla_o(params, out, cfg):
+    """The o projection of the head outputs (..., H', dh).  On a serving
+    mesh ``o`` holds the rows of the rank's heads (``("heads", None)``):
+    each rank's product is a partial sum of the whole, summed over
+    ``model`` in float32 (row parallel)."""
+    y = out.reshape(*out.shape[:-2], -1) @ params["o"].to(out.dtype)
+    if params["o"].shape[0] < cfg.n_heads * cfg.head_dim:
+        y = serving().reduce_model(y.float()).to(y.dtype)
+    return y
+
+
 def _mla_forward(params, x, cfg, positions):
     """Full causal MLA forward. Returns (y, c_kv, k_pe) — the latent rows
-    the decode cache stores (fused-prefill bulk write)."""
-    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    the decode cache stores (fused-prefill bulk write).  On a serving
+    mesh the rank's heads attend and ``o`` sums their products."""
+    dh, dr = cfg.head_dim, cfg.rope_head_dim
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, positions)
     q, k, v = _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg)
     scale = 1.0 / np.sqrt(dh + dr)
@@ -637,8 +658,7 @@ def _mla_forward(params, x, cfg, positions):
         out = _flash_attn(q, k, v, scale, cfg.flash_block)
     else:
         out = _causal_attn(q, k, v, scale)
-    y = out.reshape(*x.shape[:-1], h * dh) @ params["o"].to(x.dtype)
-    return y, c_kv, k_pe
+    return _mla_o(params, out, cfg), c_kv, k_pe
 
 
 def mla_apply(params, x, cfg, positions):
@@ -660,30 +680,94 @@ def mla_cache_init(cfg, batch: int, max_seq: int, dtype, device=None):
 
 def mla_prefill(params, x, cfg, positions, max_seq: int):
     """Fused full-sequence MLA prefill: forward + bulk latent-cache write
-    (the contract of :func:`gqa_prefill`)."""
+    (the contract of :func:`gqa_prefill`; on a serving mesh the rank
+    keeps its block of the cache's rows)."""
     y, c_kv, k_pe = _mla_forward(params, x, cfg, positions)
-    return y, {"ckv": _pad_seq(c_kv, max_seq), "kpe": _pad_seq(k_pe, max_seq)}
+    cache = {"ckv": _pad_seq(c_kv, max_seq), "kpe": _pad_seq(k_pe, max_seq)}
+    sh = serving()
+    if sh is not None:
+        specs = mla_cache_specs()
+        cache = {n: sh.rules.sharding_for(specs[n], t.shape).take(t)
+                 for n, t in cache.items()}
+    return y, cache
 
 
 def _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg):
-    """MLA attention over full-length latent-cache views with a
-    broadcastable validity mask ``valid`` (B|1, S_q|1, V).  The latent
-    views are expanded through ``uk``/``uv`` over the whole view every
-    step, as the reference does."""
-    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    """MLA attention of the heads ``params`` hold over full-length
+    latent-cache views with a broadcastable validity mask ``valid``
+    (B|1, S_q|1, V).  The latent views are expanded through ``uk``/``uv``
+    over the whole view every step, as the reference does."""
+    dh, dr = cfg.head_dim, cfg.rope_head_dim
     q, k, v = _mla_qk(params, q_nope, q_pe, ckv_view, kpe_view, cfg)
     scale = 1.0 / np.sqrt(dh + dr)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     scores = torch.where(valid[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(*x.shape[:-1], h * dh) @ params["o"].to(x.dtype)
+    return _mla_o(params, torch.einsum("bhqk,bkhd->bqhd", probs, v), cfg)
+
+
+def _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg,
+                   sh):
+    """:func:`_mla_cache_attn` where the latent views are this rank's
+    block of rows and ``params`` the rank's heads.  The rank's rows meet
+    every head's query, but the rank holds ``uk``/``uv`` of its own heads
+    only, and no weight moves: so each rank absorbs ``uk`` into its heads'
+    queries (``q_nope · uk_h`` lives in the latent space), the absorbed
+    and roped queries are gathered over ``model``, the scores of the
+    rank's rows run through a sharded softmax (each rank's maximum, sum
+    of exponentials and latent rows weighted under it, float32, gathered
+    over ``model`` in one collective and rescaled to the largest
+    maximum), and each rank takes its heads' latent outputs through
+    ``uv`` and its rows of ``o``, summed over ``model``."""
+    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    ct = x.dtype
+    held = q_nope.shape[-2]
+    r = params["uk"].shape[0]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                         params["uk"].to(ct).reshape(r, held, dh))
+    q = torch.cat([q_lat, q_pe], dim=-1)                  # (B, S_q, H', r+dr)
+    if held < h:
+        q = sh.gather_last(q.flatten(-2))[0].unflatten(-1, (h, r + dr))
+    k = torch.cat([ckv_view, kpe_view], dim=-1)           # (B, V, r+dr)
+    scale = 1.0 / np.sqrt(dh + dr)
+    scores = torch.einsum("bqhc,bkc->bhqk", q, k).float() * scale
+    scores = torch.where(valid[:, None], scores, -1e30)
+    # each rank's maximum, sum of exponentials and weighted latent rows
+    # under its own maximum, gathered in one collective and combined
+    m = softmax_max(scores)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bhqk,bkr->bhqr", p, ckv_view.float())
+    part = torch.cat([m[..., None], p.sum(dim=-1)[..., None], acc], dim=-1)
+    part = sh.gather_last(part)[0].unflatten(-1, (-1, part.shape[-1]))
+    w = torch.exp(part[..., 0] - part[..., 0].amax(dim=-1, keepdim=True))
+    out = softmax_finish((part[..., 1] * w).sum(dim=-1),
+                         (part[..., 2:] * w[..., None]).sum(dim=-2))
+    if held < h:
+        h0 = sh.block("model", h)[0]
+        out = out[..., h0:h0 + held, :]
+    out = torch.einsum("bqhr,rhd->bqhd", out.to(ct),
+                       params["uv"].to(ct).reshape(r, held, dh))
+    return _mla_o(params, out, cfg)
+
+
+def _mla_rows(paged: bool):
+    """(serving shards, the first row of the rank's block) where the
+    contiguous latent cache holds a block of rows, else (shards, None).
+    The latent leaves' ``("batch", "kvseq", None)`` resolve as a cache of
+    one kv head does."""
+    sh = serving()
+    if sh is None or sh.kv_split(paged, 1) != "rows":
+        return sh, None
+    return sh, sh.block("model", sh.max_seq)[0]
 
 
 def mla_decode(params, x, cfg, cache, pos, pages=None):
     """One-token MLA decode step (the contract of :func:`gqa_decode`): the
     latent and rope-key rows are written in place at ``pos`` (through the
-    page tables with ``pages``)."""
+    page tables with ``pages``).  On a serving mesh whose cache holds a
+    block of rows, the rank that owns ``pos`` writes it and the rows
+    attend through :func:`_mla_rows_attn`; a cache that holds every row
+    (the page pools) attends the rank's heads."""
     b = x.shape[0]
     if isinstance(pos, torch.Tensor):
         pos_b = pos.to(device=x.device, dtype=torch.int64).expand(b)
@@ -691,19 +775,27 @@ def mla_decode(params, x, cfg, cache, pos, pages=None):
         pos_b = torch.full((b,), int(pos), dtype=torch.int64,
                            device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, pos_b[:, None])
+    sh, lo = _mla_rows(pages is not None)
     if pages is None:
-        _cache_write(cache["ckv"], c_kv, pos)
-        _cache_write(cache["kpe"], k_pe, pos)
+        at = pos - lo if lo else pos
+        _cache_write(cache["ckv"], c_kv, at)
+        _cache_write(cache["kpe"], k_pe, at)
         ckv_view, kpe_view = cache["ckv"], cache["kpe"]
     else:
         paged_write_rows(cache["ckv"], c_kv[:, 0], pages, pos_b)
         paged_write_rows(cache["kpe"], k_pe[:, 0], pages, pos_b)
         ckv_view = paged_view(cache["ckv"], pages)
         kpe_view = paged_view(cache["kpe"], pages)
-    valid = (torch.arange(ckv_view.shape[1], device=x.device)[None, None, :]
-             <= pos_b[:, None, None])
-    y = _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid,
-                        cfg)
+    cols = torch.arange(ckv_view.shape[1], device=x.device)
+    if lo:
+        cols = cols + lo
+    valid = cols[None, None, :] <= pos_b[:, None, None]
+    if lo is not None:
+        y = _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view,
+                           valid, cfg, sh)
+    else:
+        y = _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view,
+                            valid, cfg)
     return y, cache
 
 
@@ -711,7 +803,8 @@ def mla_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
                       chunk_len: int):
     """Chunked MLA prefill over the PAGED latent cache — the MLA
     counterpart of :func:`gqa_chunk_prefill` (same contract: x (1, C, D),
-    pages (1, n_blocks), padded rows sink to the null page)."""
+    pages (1, n_blocks), padded rows sink to the null page).  On a serving
+    mesh every rank holds every page and attends its heads."""
     b, c, _ = x.shape
     offs = int(pos_start) + torch.arange(c, device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, offs.expand(b, c))

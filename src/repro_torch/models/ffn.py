@@ -88,26 +88,30 @@ def _apply_one(p, x, sp: SparsityConfig, x_is_sparse=False, support=None):
     return linear_apply(p, x)
 
 
-def _d_in(p) -> int:
-    """The input width of a linear layer (a packed one's padded width)."""
+def hidden_width(p) -> int:
+    """The whole hidden width of an FFN (its down projection's input; a
+    packed one's padded width)."""
+    p = p["down"]
     if "packed" in p:
         return p["packed"].shape[1] * p["packed"].shape[2]
     return p["w"].shape[0]
 
 
-def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
-              act: str = "silu"):
+def ffn_hidden(params, x: torch.Tensor, cfg_sp: SparsityConfig,
+               act: str = "silu"):
+    """``act(gate x) * (up x)`` (or ``act(up x)``): on a serving mesh the
+    rank's block of the hidden's columns where up and gate are blocks."""
     a = _act(act)
     with named_scope("ffn_up"):
         up = _apply_one(params["up"], x, cfg_sp)
     if "gate" in params:
         with named_scope("ffn_gate"):
-            h = a(_apply_one(params["gate"], x, cfg_sp)) * up
-    else:
-        h = a(up)
-    sh = serving()
-    if sh is not None and h.shape[-1] < _d_in(params["down"]):
-        h = sh.gather(h, {-1: "model"})
+            return a(_apply_one(params["gate"], x, cfg_sp)) * up
+    return a(up)
+
+
+def ffn_down(params, h: torch.Tensor, cfg_sp: SparsityConfig):
+    """The k-WTA of the whole hidden row ``h`` and the down projection."""
     # Select (k-WTA) — identity when disabled. The winner support is handed
     # to the down projection so the sparse-sparse path never re-derives it.
     with named_scope("ffn_kwta"), observe_site("ffn"):
@@ -116,3 +120,12 @@ def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
         return _apply_one(params["down"], h, cfg_sp,
                           x_is_sparse=cfg_sp.activation_sparse,
                           support=support)
+
+
+def ffn_apply(params, x: torch.Tensor, cfg_sp: SparsityConfig,
+              act: str = "silu"):
+    h = ffn_hidden(params, x, cfg_sp, act)
+    sh = serving()
+    if sh is not None and h.shape[-1] < hidden_width(params):
+        h = sh.gather(h, {-1: "model"})
+    return ffn_down(params, h, cfg_sp)

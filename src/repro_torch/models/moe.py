@@ -20,6 +20,18 @@ groups where the reference vmaps):
      scatter-adds the k contributions; a sum over a fixed axis gives the
      same result without atomics, so a step on the card gives the same
      logits twice.
+
+On a serving mesh (:mod:`repro_torch.sharding.serving`) the experts are
+parallel over ``model`` (the reference's ``"experts" -> "model"``): the
+rank holds the router's columns and the routed weights of its block of
+experts [lo, hi), each expert whole.  The router's logits are gathered
+over ``model`` before the softmax, in one collective with the shared
+experts' hidden (both are column blocks of the same input's products),
+so every rank makes the same choices and the same dispatch (capacity,
+ranks and drops are global); each computes its block of the buffer and
+combines its experts' terms only, and the partial outputs are summed
+over ``model`` in float32.  The shared experts then run as the FFN does on a mesh:
+k-WTA over the whole hidden row, down whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,8 +47,9 @@ from repro_torch.core.api import SparsityConfig
 from repro_torch.core.layers import _uniform, apply_kwta
 from repro_torch.core.masks import CSLayout, make_routes
 from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
+from repro_torch.sharding.serving import serving
 from .common import normal_init
-from .ffn import ffn_apply, ffn_init, ffn_specs
+from .ffn import ffn_down, ffn_hidden, ffn_init, ffn_specs, hidden_width
 
 
 def moe_specs(d_model: int, d_ff: int, n_shared: int, act: str,
@@ -157,10 +170,14 @@ def _dispatch(xg, top_e, e: int, k: int, cap: int):
     return buf[:, :, :cap], rank_u, rank_u < cap
 
 
-def _combine(out, top_e, top_p, rank, keep):
+def _combine(out, top_e, top_p, rank, keep, lo=None):
     """Each token's k expert outputs, weighted, summed in top-k order.
     out (G, E, C, d); top_e/top_p/rank/keep (G, Tg, k).  Returns
-    (G, Tg, d)."""
+    (G, Tg, d).  With ``lo``, ``out`` holds experts [lo, lo + E') only (a
+    serving mesh's block), and the other experts' terms are left out."""
+    if lo is not None:
+        keep = keep & (top_e >= lo) & (top_e < lo + out.shape[1])
+        top_e = torch.where(keep, top_e - lo, 0)
     groups = out.shape[0]
     g_idx = torch.arange(groups, device=out.device)[:, None, None]
     row = torch.where(keep, rank, 0)
@@ -176,15 +193,24 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
     Dispatch runs per token group, one group per batch row, so a padded
     prompt bucket and a prefill chunk compete for expert capacity as the
     reference's do.  The router matmul runs in the compute dtype and is
-    then cast to f32; the Switch aux loss is global."""
+    then cast to f32; the Switch aux loss is global.  On a serving mesh
+    the rank computes its block of experts (see the module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
     groups = b
     tg = t // groups
     xg = x.reshape(groups, tg, d)
-    logits = (xg @ params["router"].to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                 # (G, Tg, E)
+    logits = xg @ params["router"].to(x.dtype)            # (G, Tg, E)
+    hidden = None
+    if "shared" in params:
+        hidden = ffn_hidden(params["shared"], x, cfg_sp, "silu")
+    sh = serving()
+    if sh is not None:
+        logits, hidden = _gather_columns(
+            sh, logits, e, hidden,
+            hidden_width(params["shared"]) if hidden is not None else 0)
+    probs = torch.softmax(logits.float(), dim=-1)         # (G, Tg, E)
     top_p, top_e = router_top_k(probs, k)                 # (G, Tg, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
@@ -204,6 +230,11 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
 
     cap = int(np.ceil(tg * k / e * cfg.capacity_factor))
     buf, rank, keep = _dispatch(xg, top_e, e, k, cap)     # (G, E, C, d)
+    held = next(iter(params["up"].values())).shape[0]     # experts held
+    lo = None
+    if held < e:                # a serving mesh's block of experts
+        lo = sh.block("model", e)[0]
+        buf = buf[:, lo:lo + held]
 
     up = _expert_matmul(params["up"], buf)
     if "gate" in params:
@@ -212,9 +243,25 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
         h = tF.gelu(up, approximate="tanh")
     if cfg_sp.activation_sparse:
         h = apply_kwta(h, cfg_sp)
-    out = _expert_matmul(params["down"], h)               # (G, E, C, d)
-    y = _combine(out, top_e, top_p, rank, keep).reshape(b, s, d)
+    out = _expert_matmul(params["down"], h)               # (G, E', C, d)
+    y = _combine(out, top_e, top_p, rank, keep, lo).reshape(b, s, d)
+    if lo is not None:          # the block's terms, summed in float32
+        y = sh.reduce_model(y.float()).to(x.dtype)
 
-    if "shared" in params:
-        y = y + ffn_apply(params["shared"], x, cfg_sp, "silu")
+    if hidden is not None:
+        y = y + ffn_down(params["shared"], hidden, cfg_sp)
     return y, aux
+
+
+def _gather_columns(sh, logits, n_experts, hidden, width):
+    """The router's logits and the shared experts' hidden (or None) made
+    whole over ``model`` where each is a block of its columns, in one
+    collective."""
+    out = [logits, hidden]
+    cut = [i for i, (t, n) in enumerate(((logits, n_experts),
+                                         (hidden, width)))
+           if t is not None and t.shape[-1] < n]
+    if cut:
+        for i, t in zip(cut, sh.gather_last(*(out[i] for i in cut))):
+            out[i] = t
+    return out

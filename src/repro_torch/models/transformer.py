@@ -214,7 +214,8 @@ def layer_cache_specs(cfg, paged: bool = False) -> List:
 def _check_blocks(blocks, whole):
     """A packed layer cut to a block of groups runs as a layer of its own
     only where its route is one table (shared by every group) or is cut
-    with the groups, and a bias is cut at the same columns."""
+    with the groups, and a bias is cut at the same columns; routed experts
+    run on a block of whole experts only."""
     if isinstance(blocks, list):
         for b, w in zip(blocks, whole):
             _check_blocks(b, w)
@@ -232,9 +233,38 @@ def _check_blocks(blocks, whole):
         if "b" in whole and whole["b"].shape[0] != g * n:
             raise NotImplementedError("a padded packed layer's bias cut "
                                       "beside its groups")
+    if "router" in blocks:
+        for name in ("up", "gate", "down"):
+            for leaf, t in blocks.get(name, {}).items():
+                if t.shape[1:] != whole[name][leaf].shape[1:]:
+                    raise NotImplementedError(
+                        f"routed experts' {name}.{leaf} cut inside an "
+                        f"expert ({tuple(t.shape)} of "
+                        f"{tuple(whole[name][leaf].shape)})")
     for k, v in blocks.items():
         if isinstance(v, (dict, list)):
             _check_blocks(v, whole[k])
+
+
+def _check_mesh(cfg, rules) -> None:
+    """Raise where the model's blocks on ``rules``' mesh are not whole
+    heads of MLA (its heads attend rank by rank)."""
+    m = rules.mesh.shape.get("model", 1)
+    if cfg.use_mla and m > 1 and cfg.n_heads % m:
+        raise NotImplementedError(
+            f"MLA's {cfg.n_heads} heads on a model axis of {m}: a rank's "
+            "block of q, uk, uv and o would cut a head")
+
+
+def _blocks_of(piece, specs, rules):
+    """This rank's blocks of a whole serving-params piece (a dict, a list
+    of layers, or the whole tree) under its specs, each packed layer's
+    ``packed_p`` made anew from its block."""
+    whole = drop_partition_major(piece)
+    shardings = param_sharding(specs, whole, rules)
+    blocks = map_tree(lambda sh, t: sh.take(t), shardings, whole)
+    _check_blocks(blocks, whole)
+    return add_partition_major(blocks)
 
 
 @torch.no_grad()
@@ -242,12 +272,8 @@ def param_blocks(params: Dict, cfg, rules) -> Dict:
     """This rank's blocks of whole serving params under ``rules``: every
     leaf of the reference's layout cut by its spec (:func:`param_specs`),
     each packed layer's ``packed_p`` made anew from its block."""
-    whole = drop_partition_major(params)
-    shardings = param_sharding(layer_specs(param_specs(cfg), cfg), whole,
-                               rules)
-    blocks = map_tree(lambda sh, t: sh.take(t), shardings, whole)
-    _check_blocks(blocks, whole)
-    return add_partition_major(blocks)
+    _check_mesh(cfg, rules)
+    return _blocks_of(params, layer_specs(param_specs(cfg), cfg), rules)
 
 
 def _cache_blocks(full: List[Dict], cfg, rules, paged: bool, device):
@@ -325,6 +351,18 @@ def _block_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
 # Model init
 # ---------------------------------------------------------------------------
 
+def _cast(tree, names, ct):
+    return {k: (_cast(v, names, ct) if isinstance(v, dict) else
+                [_cast(x, names, ct) for x in v] if isinstance(v, list) else
+                v.to(ct) if k in names else v)
+            for k, v in tree.items()}
+
+
+def _compute_leaves(kind: str):
+    """The leaf names a layer of ``kind`` casts to the compute dtype."""
+    return _COMPUTE_LEAVES if kind in ATTN_KINDS else S.COMPUTE_LEAVES
+
+
 def prepare_params(params: Dict, cfg) -> Dict:
     """Cast every weight to the compute dtype, once.
 
@@ -336,49 +374,67 @@ def prepare_params(params: Dict, cfg) -> Dict:
     by that kind's rule.
     """
     ct = dtype_of(cfg.compute_dtype)
-
-    def cast(tree, names):
-        return {k: (cast(v, names) if isinstance(v, dict) else
-                    [cast(x, names) for x in v] if isinstance(v, list) else
-                    v.to(ct) if k in names else v)
-                for k, v in tree.items()}
-
-    layers = [cast(p, _COMPUTE_LEAVES if kind in ATTN_KINDS
-                   else S.COMPUTE_LEAVES)
+    layers = [_cast(p, _compute_leaves(kind), ct)
               for kind, p in zip(layer_kinds(cfg), params["layers"],
                                  strict=True)]
     return {k: layers if k == "layers" else
-            cast(v, _COMPUTE_LEAVES) if isinstance(v, dict) else v
+            _cast(v, _COMPUTE_LEAVES, ct) if isinstance(v, dict) else v
             for k, v in params.items()}
 
 
-def _init_params(cfg, seed: int, device) -> Dict:
+def _init_params(cfg, seed: int, device, keep=None) -> Dict:
+    """The reference's random weights.  ``keep(path, piece)``, where
+    given, takes each top-level piece (``("embed",)``, ``("layers", j)``,
+    ...) as soon as it is drawn and returns what the tree holds of it."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = {"embed": embedding_init(gen, cfg.padded_vocab, cfg.d_model)}
+    keep = keep or (lambda path, piece: piece)
+    params = {"embed": keep(("embed",), embedding_init(gen, cfg.padded_vocab,
+                                                       cfg.d_model))}
     if "shared_attn" in cfg.block_pattern:
-        params["shared"] = _block_init("shared_attn", gen, cfg)
+        params["shared"] = keep(("shared",),
+                                _block_init("shared_attn", gen, cfg))
     # a shared_attn layer's weights live in params["shared"]
-    params["layers"] = [{} if kind == "shared_attn" else
-                        _block_init(kind, gen, cfg)
-                        for kind in layer_kinds(cfg)]
-    params["final_norm"] = rmsnorm_init(cfg.d_model, device)
+    params["layers"] = [keep(("layers", j), {} if kind == "shared_attn" else
+                             _block_init(kind, gen, cfg))
+                        for j, kind in enumerate(layer_kinds(cfg))]
+    params["final_norm"] = keep(("final_norm",),
+                                rmsnorm_init(cfg.d_model, device))
     if not cfg.tie_embeddings:
-        params["head"] = {"table": normal_init(
-            gen, (cfg.padded_vocab, cfg.d_model), 0.02)}
+        params["head"] = keep(("head",), {"table": normal_init(
+            gen, (cfg.padded_vocab, cfg.d_model), 0.02)})
     return params
 
 
-def init_model(cfg, seed: int = 0, device=None) -> Dict:
+def init_model(cfg, seed: int = 0, device=None, rules=None) -> Dict:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     drawn from the reference's distributions (uniform ±1/sqrt(fan-in) for
     dense, ±sqrt(N/D_in) for packed, normal(0.02) for tables), with the
     reference's numpy routes, in the serving layout
     (:func:`prepare_params`).  Runs on ``cuda`` unless ``device`` says
-    otherwise."""
-    return prepare_params(_init_params(cfg, seed, device), cfg)
+    otherwise.
+
+    With ``rules`` (a serving mesh's), this rank's blocks of those weights
+    (:func:`param_blocks` of them), each layer cut as soon as it is drawn:
+    the whole tree is never held at once."""
+    if rules is None:
+        return prepare_params(_init_params(cfg, seed, device), cfg)
+    _check_mesh(cfg, rules)
+    ct = dtype_of(cfg.compute_dtype)
+    specs, kinds = layer_specs(param_specs(cfg), cfg), layer_kinds(cfg)
+
+    @torch.no_grad()
+    def keep(path, piece):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        names = (_compute_leaves(kinds[path[1]]) if path[0] == "layers"
+                 else _COMPUTE_LEAVES)
+        return _blocks_of(_cast(piece, names, ct), spec, rules)
+
+    return _init_params(cfg, seed, device, keep)
 
 
 def init_train_params(cfg, seed: int = 0, device=None) -> Dict:

@@ -8,6 +8,12 @@ Under those rules each rank holds (the reference's specs, leaf for leaf):
 * q, k and v: a block of output columns (``model``); o and the FFN's down
   projection: whole; the FFN's up and gate: a block of output groups
   (``model``), their route with them where it divides, else whole;
+* MLA's q, uk and uv: the columns of the rank's heads, its o: their rows
+  (a row-parallel product, summed over ``model``), dkv and kpe whole;
+* MoE: the router's columns and the routed experts' weights of the
+  rank's block of experts, ``block("model", n_experts)``, each expert
+  whole (its groups cannot shard over ``model`` too: a mesh axis appears
+  once in a spec); the shared experts as the FFN;
 * the contiguous cache: a block of slots (``data``) and a block of rows
   (``kvseq`` -> ``model``), or of kv heads where the rows do not divide;
   the page pools: every page, and a block of kv heads (``model``) where
@@ -18,7 +24,9 @@ lookup sums one non-zero term over ``model``; the q/k/v columns, the FFN
 hidden (before its k-WTA, which picks from the whole row) and head outputs
 are gathered over ``model``; a sequence-sharded cache's softmax combines
 each rank's maximum, sum of exponentials and weighted values over
-``model``; the logits are gathered over ``data`` and ``model``.
+``model``; row-parallel partial outputs (MLA's o, the MoE's experts) are
+summed with :meth:`Shards.reduce_model`; the logits are gathered over
+``data`` and ``model``.
 
 :class:`Shards` answers the model code's questions (which rows of the
 batch, which block of an axis) and runs those collectives.  The engine

@@ -115,3 +115,88 @@ def mesh_serve(rank, dims, np_params, cfg_kw, spec, layouts, static):
             res["static"] = eng.generate_static(*static)
         out[layout] = res
     return out
+
+
+def _shared_packed_p(params):
+    """Every packed layer's ``packed_p`` is ``partition_major`` of its
+    ``packed`` (a rank's block made anew from the block)."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            if "packed_p" in tree:
+                yield torch.equal(tree["packed_p"],
+                                  partition_major(tree["packed"]))
+            for v in tree.values():
+                yield from walk(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from walk(v)
+    return all(walk(params))
+
+
+def mesh_serve_family(rank, dims, jobs):
+    """One mesh, models of any attention family (MLA, MoE, the int8
+    cache): for each job ``(name, arch, np_params, cfg_kw, spec,
+    layouts)`` and each of its layouts, the greedy tokens of ``spec``
+    (every collective recorded), the rank's param blocks and its fresh
+    cache blocks, under ``name``."""
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    out = {"coords": mesh.coords}
+    for name, arch, np_params, cfg_kw, spec, layouts in jobs:
+        cfg = get_config(arch).reduced(**cfg_kw)
+        params = params_from_jax(np_params, cfg, device="cpu")
+        out[name] = {}
+        for layout, kw in layouts.items():
+            eng = Engine(cfg, max_seq=32, n_slots=4, params=params,
+                         device="cpu", mesh=mesh, **kw)
+            rec = Recorder(eng)
+            with observe_collectives(rec):
+                toks, stats = eng.serve(requests(spec, False))
+            out[name][layout] = {
+                "greedy": {u: list(v) for u, v in toks.items()},
+                "collectives": rec.summary(stats["decode_steps"]),
+                "params": _np(drop_partition_major(eng.params)),
+                "packed_p": _shared_packed_p(eng.params),
+                "cache": _np(eng.new_paged_cache() if layout == "paged"
+                             else eng.new_cache(4))}
+    return out
+
+
+def frontend_steps(rank, dims, arch, np_params, cfg_kw, max_seq, prompt,
+                   steps):
+    """``prefill`` of the frontend's stub inputs ``prompt`` and a decode
+    step of each of ``steps`` (batches at positions after the prompt) on
+    the rank's blocks under the serving mesh: the logits of each call."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.serving import Shards, use_serving
+    cfg = get_config(arch).reduced(**cfg_kw)
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    shards = Shards.of(mesh, max_seq)
+    params = T.param_blocks(params_from_jax(np_params, cfg, device="cpu"),
+                            cfg, shards.rules)
+
+    def tensors(batch):
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    with torch.no_grad(), use_serving(shards):
+        logits, cache = T.prefill(params, tensors(prompt), cfg, max_seq)
+        rows = [logits.numpy()]
+        for pos, batch in steps:
+            logits, cache = T.serve_step(params, cache, tensors(batch), pos,
+                                         cfg)
+            rows.append(logits.numpy())
+    return rows
+
+
+def serve_cli(rank, argv):
+    """The serve CLI's body on this rank (the process group is up): what
+    it prints."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import _serve_cli, build_parser
+    args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch).reduced()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _serve_cli(args, cfg, args.device)
+    return out.getvalue()

@@ -137,13 +137,21 @@ def test_a_mesh_without_a_process_group_is_refused():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-1.2b",
-                                  "musicgen-large"])
-def test_other_families_raise_on_a_mesh(arch):
-    """MLA and MoE, the SSM/hybrid patterns and the frontends are not
-    served on a mesh of more than one rank yet (a mesh whose groups are
-    stand-ins: the engine refuses before any collective)."""
+                                  "musicgen-large", "xlstm-350m"])
+def test_other_families_raise_on_a_mesh(arch, monkeypatch):
+    """The SSM/hybrid patterns are not served on a mesh of more than one
+    rank yet (a mesh whose groups are stand-ins: the engine refuses
+    before any collective); the attention patterns, MLA and MoE
+    (deepseek-v2-lite) and the frontends (musicgen) among them, build
+    there, rank 0 holding its blocks."""
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
     cfg = get_config(arch).reduced()
     mesh = Mesh((1, 2), ("data", "model"), torch.device("cpu"),
                 groups={("model",): None})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)
+    if any(k != "attn" for k in cfg.block_pattern):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)
+        return
+    eng = Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)
+    table = eng.params["embed"]["table"]
+    assert table.shape[0] == cfg.padded_vocab // 2
