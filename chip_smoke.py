@@ -238,6 +238,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    G=512, N=4) against its plain version, and B=2's times (row 1's
    ``mesh_moe_shape``).  ``[mesh-moe]`` lines and a ``[mesh-moe] numbers
    {...}`` JSON line.
+16. roofline — the port's census and roofline (``repro_torch.launch.hlo``,
+   ``roofline``, ``dryrun``): (a) the census of phase 4's bf16 decode step
+   (full width, 4 slots, every slot at position 16) run on the card: 32
+   ``topk_gather`` nodes and as many launches, no host transfer, no
+   collective, and the same FLOPs and bytes as a trace of the step on
+   fake CUDA tensors; (b) its bound (``cell_roofline``: bf16 products on
+   the tensor cores, the rest outside them, against HBM) and the bound's
+   share of phase 4's step on the device alone and on the host clock,
+   each in (0, 1.05] (more means the count is wrong); (c) rows 1-4's
+   bounds from their modules' cost formulas (shapes and types alone)
+   beside the kernels line's, never below them; (d) the dry run of
+   smollm-360m, deepseek-v2-lite-16b and qwen3-moe-235b-a22b decode_32k on
+   16x16 on fake CUDA tensors (rank 0 of a fake process group of 256):
+   each rank's params and cache bytes, peak and bound.  ``[roofline]``
+   lines and a ``[roofline] numbers {...}`` JSON line.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -267,11 +282,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 rate
-# outside the tensor cores and the dense bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+sys.path.insert(0, str(ROOT / "src"))
+# H100 SXM published peaks (NVIDIA data sheet), one copy for the card: the
+# roofline module's HBM3 rate, float32 rate outside the tensor cores and
+# dense bf16 tensor-core rate.
+from repro_torch.launch.roofline import (F32_FLOPS,  # noqa: E402
+                                         HBM_BW as HBM_BYTES_PER_S,
+                                         PEAK_FLOPS as BF16_FLOPS)
 
 # The FFN down projection of smollm-360m at decode with 4 slots:
 # B=4 rows, K=k_for(2560)=320 winners, P=2560/4, G=960/4, N=4, R=G.
@@ -563,6 +580,11 @@ def read_counts():
     return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
+#: phase 4's decode step: its host-clock and device-alone times (ms), for
+#: phase 16's shares of its bound
+SERVE_STEP_MS = {}
+
+
 def phase_serve():
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine
@@ -604,6 +626,7 @@ def phase_serve():
     print(f"[serve] one decode step on the device alone (CUDA graph "
           f"replay): {dev_ms:.3f} ms; device idle share of the eager step "
           f"{1 - dev_ms / step_ms:.3f}")
+    SERVE_STEP_MS.update(host=step_ms, device=dev_ms)
     acts = step_profile(engine)
     if not acts:
         print("[serve] torch.profiler recorded no device activity: the "
@@ -625,10 +648,10 @@ def phase_serve():
     return launches, steps, engine
 
 
-def _decode_step(engine):
-    """One decode step of every slot at position 16, as a callable; on a
-    paged engine through page tables that give each slot its own pages."""
-    from repro_torch.models import transformer as T
+def decode_args(engine):
+    """The params, a fresh cache, tokens, positions and page tables of one
+    decode step of every slot at position 16; on a paged engine the page
+    tables give each slot its own pages, else they are None."""
     n = engine.n_slots
     pages = None
     if engine.kv_layout == "paged":
@@ -639,8 +662,15 @@ def _decode_step(engine):
         cache = engine.new_cache(n)
     batch = {"tokens": torch.zeros((n, 1), dtype=torch.int64,
                                    device="cuda")}
-    pos = torch.full((n,), 16, device="cuda")
-    return lambda: T.serve_step(engine.params, cache, batch, pos, engine.cfg,
+    return (engine.params, cache, batch, torch.full((n,), 16, device="cuda"),
+            pages)
+
+
+def _decode_step(engine):
+    """One decode step of every slot at position 16, as a callable."""
+    from repro_torch.models import transformer as T
+    params, cache, batch, pos, pages = decode_args(engine)
+    return lambda: T.serve_step(params, cache, batch, pos, engine.cfg,
                                 pages=pages)
 
 
@@ -4809,6 +4839,172 @@ def phase_mesh_moe():
                 "contiguous"]["launches_per_step"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the census and roofline of the decode step, and the dry run
+# ---------------------------------------------------------------------------
+
+# The dry run's cells on 16x16 traced here on fake CUDA tensors.
+ROOFLINE_CELLS = ("smollm_360m", "deepseek_v2_lite_16b",
+                  "qwen3_moe_235b_a22b")
+# A share of the step's bound above this means the count is wrong.
+SHARE_LIMIT = 1.05
+
+
+def module_bounds(cfg, kernel_rows):
+    """Rows 1-4 of the kernels line: each kernel's bound from its module's
+    cost formula (shapes and types alone) at the shape its row's bound was
+    taken at, beside the row's (``topk_gather``'s counts the partitions
+    the support touches).  The module's must be no smaller."""
+    from repro_torch.launch.roofline import kernel_bound
+    # the modules (the package's attributes of these names are the wrappers)
+    topk_gather, packed_matmul, grouped_cs_matmul, kwta_hist = (
+        importlib.import_module(f"repro_torch.kernels.{m}") for m in (
+            "topk_gather", "packed_matmul", "grouped_cs_matmul",
+            "kwta_hist"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, k, p, g, n, r = (MAIN_SHAPE[x] for x in "bkpgnr")
+    t, d, ff = TIMED_TOKENS, cfg.d_model, cfg.d_ff
+    n4 = cfg.ffn_sparsity.n
+    costs = {   # the up projection (d_model -> d_ff) at T=128, one route
+        "topk_gather": topk_gather.cost(b, k, p, g, n, r, f32, torch.int32,
+                                        bf16, f32),
+        "packed_matmul": packed_matmul.cost(t, d // n4, ff // n4, n4,
+                                            ff // n4, bf16, bf16),
+        "grouped_cs_matmul": grouped_cs_matmul.cost(n4, t, d // n4,
+                                                    ff // n4, bf16, bf16),
+        "kwta_hist": kwta_hist.cost(t, ff, bf16)}
+    out = {}
+    for row in kernel_rows:
+        if row["name"] not in costs:
+            continue
+        sec, by = kernel_bound(costs[row["name"]])
+        out[row["name"]] = {"module_bound_ms": 1e3 * sec, "module_by": by,
+                            "table_bound_ms": row["bound_ms"]}
+        print(f"[roofline] {row['name']}: module bound {1e3 * sec:.6f} ms "
+              f"({by}), the table's {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})")
+        if 1e3 * sec < row["bound_ms"] * (1 - 1e-9):
+            fail(f"{row['name']}: the module's bound is below the table's")
+    return out
+
+
+def phase_roofline(kernel_rows):
+    """(a) the census of phase 4's decode step on the card, equal to a
+    fake-CUDA trace of it; (b) its bound and its shares of phase 4's
+    device-alone and host-clock step; (c) rows 1-4's bounds from the
+    modules; (d) the dry run of three decode cells on 16x16."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import compile_cell
+    from repro_torch.launch.hlo import census
+    from repro_torch.launch.roofline import cell_roofline
+    from repro_torch.launch.serve import Engine
+    from repro_torch.tree import fake
+    from repro_torch.models import transformer as T
+    cfg = get_config("smollm-360m")
+    engine = Engine(cfg, max_seq=33, n_slots=4, device="cuda")
+
+    def step(p, c, b, q):
+        return T.serve_step(p, c, b, q, cfg)[0]
+
+    args = decode_args(engine)[:4]
+    with torch.no_grad():
+        step(*args)
+        torch.cuda.synchronize()
+        reset_counts()
+        real = census(step, *args)
+        torch.cuda.synchronize()
+        launches = read_counts()["topk_gather"]
+        traced = census(step, *fake(lambda: decode_args(engine)[:4],
+                                    "cuda"))
+    ops, cost = real["ops"], real["cost"]
+    print(f"[roofline] census of the bf16 decode step on the card: "
+          f"{cost['flops']:.0f} flops ({cost['flops_bf16']:.0f} on the "
+          f"tensor cores), {cost['bytes_accessed']:.0f} bytes, "
+          f"{ops['total']} ops, {ops.get('repro_torch.topk_gather', 0)} "
+          f"topk_gather nodes ({launches} launches), host transfers "
+          f"{real['host_transfers']}, collectives {real['collectives']}")
+    if ops.get("repro_torch.topk_gather") != cfg.n_layers or \
+            launches != cfg.n_layers:
+        fail(f"the census holds {ops.get('repro_torch.topk_gather')} "
+             f"topk_gather nodes and {launches} launches, want "
+             f"{cfg.n_layers}")
+    if real["host_transfers"] or real["collectives"]["total_bytes"]:
+        fail("the decode step moves data to the host or to other ranks")
+    for key in ("flops", "flops_bf16", "bytes_accessed"):
+        if real["cost"][key] != traced["cost"][key]:
+            fail(f"{key}: the card's step counts {real['cost'][key]}, its "
+                 f"fake-CUDA trace {traced['cost'][key]}")
+    for key in ("argument_read_bytes", "argument_written_bytes",
+                "output_bytes"):
+        if real["memory"][key] != traced["memory"][key]:
+            fail(f"{key}: the card's step counts {real['memory'][key]}, "
+                 f"its fake-CUDA trace {traced['memory'][key]}")
+    print("[roofline] the fake-CUDA trace counts the same flops and bytes")
+    rec = {"ok": True, "kind": "decode", "mesh": "1x1",
+           "n_units": cfg.n_units, "seq_len": engine.max_seq,
+           "global_batch": engine.n_slots, "full": real}
+    roof = cell_roofline(rec, cfg)
+    bound_ms = 1e3 * roof["bound_s"]
+    floor_ms = 1e3 * roof["floor_s"]
+    shares = {k: bound_ms / SERVE_STEP_MS[k] for k in ("device", "host")}
+    floor_shares = {k: floor_ms / SERVE_STEP_MS[k]
+                    for k in ("device", "host")}
+    print(f"[roofline] the step's bound on its eager traffic "
+          f"{bound_ms:.6f} ms ({roof['bottleneck']}: compute "
+          f"{1e3 * roof['compute_s']:.6f}, memory "
+          f"{1e3 * roof['memory_s']:.6f}, collective "
+          f"{1e3 * roof['collective_s']:.6f} ms); share of phase 4's step "
+          f"on the device alone ({SERVE_STEP_MS['device']:.3f} ms) "
+          f"{shares['device']:.5f}, of its host-clock step "
+          f"({SERVE_STEP_MS['host']:.3f} ms) {shares['host']:.5f}")
+    print(f"[roofline] the step's floor (each byte it reads of its "
+          f"arguments, writes in them and outputs, moved once: "
+          f"{roof['io_bytes_per_chip']:.0f} bytes) {floor_ms:.6f} ms; "
+          f"share of the device-alone step {floor_shares['device']:.5f}, "
+          f"of the host-clock step {floor_shares['host']:.5f}")
+    if not all(0 < v <= SHARE_LIMIT for v in (*shares.values(),
+                                              *floor_shares.values())):
+        fail(f"a share of the step's bound lies outside (0, {SHARE_LIMIT}]: "
+             "the count is wrong")
+    if roof["io_bytes_per_chip"] > roof["bytes_per_chip"]:
+        fail("the step's floor moves more bytes than its eager ops")
+    del engine
+    torch.cuda.empty_cache()
+    bounds = module_bounds(cfg, kernel_rows)
+    cells = {}
+    for arch in ROOFLINE_CELLS:
+        t = time.perf_counter()
+        cell = compile_cell(arch, "decode_32k", False, accounting=False,
+                            device="cuda")
+        mem = cell["full"]["memory"]
+        cells[arch] = {"argument_bytes": mem["argument_bytes"],
+                       "peak_bytes_est": mem["peak_bytes_est"],
+                       "bound_ms": 1e3 * cell_roofline(cell)["bound_s"],
+                       "flops": cell["full"]["cost"]["flops"],
+                       "seconds": time.perf_counter() - t}
+        print(f"[roofline] dry run {arch} decode_32k on 16x16 (fake CUDA "
+              f"tensors): a rank holds {mem['argument_bytes'] / 1e9:.3f} GB "
+              f"of params and cache, peak {mem['peak_bytes_est'] / 1e9:.3f} "
+              f"GB, bound {cells[arch]['bound_ms']:.3f} ms "
+              f"({cells[arch]['seconds']:.1f} s)")
+    print("[roofline] numbers " + json.dumps({
+        "decode_step": {"flops": cost["flops"],
+                        "flops_bf16": cost["flops_bf16"],
+                        "bytes": cost["bytes_accessed"],
+                        "ops": ops["total"], "bound_ms": bound_ms,
+                        "bottleneck": roof["bottleneck"],
+                        "io_bytes": roof["io_bytes_per_chip"],
+                        "floor_ms": floor_ms,
+                        "floor_share_device": floor_shares["device"],
+                        "floor_share_host": floor_shares["host"],
+                        "device_ms": SERVE_STEP_MS["device"],
+                        "host_ms": SERVE_STEP_MS["host"],
+                        "share_device": shares["device"],
+                        "share_host": shares["host"],
+                        "peak_bytes_est": real["memory"]["peak_bytes_est"]},
+        "kernels": bounds, "dry_run": cells}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -4892,6 +5088,10 @@ def main():
     t = time.perf_counter()
     row.update(phase_mesh_moe())
     print(f"[mesh-moe] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase_roofline([row] + rows)
+    print(f"[roofline] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

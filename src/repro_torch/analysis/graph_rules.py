@@ -10,7 +10,8 @@ aten graph is what the device is asked to run, op by op.
   ``aten.masked_select``, ``aten.unique``...), or a copy from a device to
   the CPU.  A trace that stops because the code asks for a value
   (``bool(t)``, ``int(t)``, ``t.numpy()``) becomes a finding of the same
-  rule, naming the line that asked (:func:`trace_error_finding`).
+  rule, naming the line that asked (:func:`trace_error_finding`).  The ops
+  are :data:`repro_torch.launch.hlo.HOST_OPS`, which the census counts.
 * ``collective`` — any ``c10d`` or ``_c10d_functional`` node: the
   single-process entry points must not communicate.
 """
@@ -21,13 +22,11 @@ import traceback
 from pathlib import Path
 from typing import List, Optional
 
+from repro_torch.launch.hlo import HOST_OPS
+
 from .findings import Finding
 from .graph_walk import iter_nodes, op_name, values
 
-#: ops whose result the host must see (a scalar, or a data-dependent shape)
-HOST_OPS = ("aten._local_scalar_dense", "aten.item", "aten.nonzero",
-            "aten.masked_select", "aten._unique", "aten._unique2",
-            "aten.unique_dim", "aten.unique_consecutive")
 #: copies that may cross from a device to the host
 _COPY_OPS = ("aten._to_copy", "aten.to", "aten.copy", "aten.copy_",
              "aten._copy_from", "aten._copy_from_and_resize")

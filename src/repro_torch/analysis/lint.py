@@ -34,7 +34,6 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core import functional as F
 from repro_torch.core.api import SparsityConfig, choose_executor, choose_path
@@ -42,6 +41,7 @@ from repro_torch.core.instrument import named_scope
 from repro_torch.core.masks import pad_to_multiple
 from repro_torch.kernels import registry
 from repro_torch.models.common import resolve_device
+from repro_torch.tree import fake
 
 from . import seeded
 from .findings import Report
@@ -190,26 +190,6 @@ def lint_fn(fn: Callable, *example_args,
 # ---------------------------------------------------------------------------
 # lint_config: lint a configuration's entry points on fake tensors
 # ---------------------------------------------------------------------------
-
-def _tree_map(f, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(f, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(f, v) for v in tree)
-    return f(tree) if isinstance(tree, torch.Tensor) else tree
-
-
-def fake(make: Callable, device):
-    """The tensors ``make()`` returns, as fake tensors of the same shapes
-    and types on ``device``, with no storage, all of one fake mode (one
-    trace's inputs come from one call).  ``make`` runs on the CPU
-    under ``FakeTensorMode`` (its generator calls draw nothing), and its
-    results are re-made on ``device`` from their shapes."""
-    mode = FakeTensorMode(allow_non_fake_inputs=True)
-    with mode:
-        return _tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                               device=device), make())
-
 
 def _with_pallas_mode(cfg, mode: Optional[str]):
     if mode is None:

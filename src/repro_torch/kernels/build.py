@@ -23,8 +23,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Dict
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: the linter's seeded-fault kernels, looked up after :data:`CSRC`
@@ -47,23 +49,45 @@ class Geometry:
     smem: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class Cost:
+    """The work of one call of a kernel op, from its shapes and types
+    alone, whatever runs it (the kernel or its plain version): ``flops``
+    (a multiply-add is two), ``bytes`` (each input the function needs read
+    once, each output written once) and whether the kernel runs its
+    products on the tensor cores (``tensor_cores``) or on the CUDA cores.
+    Each kernel module computes it with a pure function (``cost``), which
+    the census of :mod:`repro_torch.launch.hlo` reads."""
+    flops: int
+    bytes: int
+    tensor_cores: bool = False
+
+
 #: the package's operator library: each kernel is one op,
 #: ``torch.ops.repro_torch.<name>``, defined by :func:`define_op`
 OPS = torch.library.Library("repro_torch", "DEF")
+#: ``repro_torch.<name>`` -> its op's arguments -> :class:`Cost`
+COSTS: Dict[str, Callable[..., Cost]] = {}
 
 
-def define_op(schema: str, cpu, cuda, fake):
+def define_op(schema: str, cpu, cuda, fake, cost: Callable[..., Cost]):
     """Register ``repro_torch::<schema>`` with its CPU body (the plain
-    version), its CUDA body (the kernel's launch) and its fake (the output's
-    shape and type, for fake-tensor tracing, where it is one graph node);
-    returns the op.  The bodies are registered per device key, so an eager
-    call reaches its body through the dispatcher alone
-    (``torch.library.custom_op`` also wraps every call in Python)."""
+    version), its CUDA body (the kernel's launch), its fake (the output's
+    shape and type, for fake-tensor tracing, where it is one graph node)
+    and its cost (the op's arguments -> :class:`Cost`, also registered as
+    its ``torch.utils.flop_counter`` formula); returns the op.  The bodies
+    are registered per device key, so an eager call reaches its body
+    through the dispatcher alone (``torch.library.custom_op`` also wraps
+    every call in Python)."""
     name = schema.split("(", 1)[0]
     OPS.define(schema)
     OPS.impl(name, cpu, "CPU")
     OPS.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"repro_torch::{name}", fake, lib=OPS)
+    COSTS[f"repro_torch.{name}"] = cost
+    register_flop_formula(getattr(torch.ops.repro_torch, name),
+                          get_raw=True)(
+        lambda *args, out_val=None, **kwargs: cost(*args, **kwargs).flops)
     return getattr(torch.ops.repro_torch, name).default
 
 

@@ -15,8 +15,9 @@ Layouts:
 The CUDA source is ``csrc/grouped_cs_matmul.cu``; its header says which TPU
 kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
 runs a tensor-core body; f32 and mixed operand types a CUDA-core body.
-:func:`launch_geometry` is the launcher's geometry, for the linter.
-:func:`grouped_cs_matmul` validates the operands and calls the custom op
+:func:`launch_geometry` is the launcher's geometry, for the linter, and
+:func:`cost` its work, for the census.  :func:`grouped_cs_matmul`
+validates the operands and calls the custom op
 ``repro_torch::grouped_cs_matmul``, whose body launches the kernel for
 CUDA tensors (:func:`launch_into`) and runs :func:`grouped_cs_matmul_plain`
 for CPU tensors; it never falls back on a CUDA tensor.
@@ -30,7 +31,7 @@ import functools
 
 import torch
 
-from .build import Geometry, define_op, load_library, run_launch
+from .build import Cost, Geometry, define_op, load_library, run_launch
 from .packed_matmul import tc_smem
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,6 +78,21 @@ def launch_geometry(n: int, b: int, g: int, bf16: bool) -> Geometry:
     smem = tc_smem(_TC_STAGES * (bm * bk + bk * bn) * 2, bm, bn, wk)
     return Geometry((-(-g // bn), -(-b // bm), n), wm * wn * wk * 32, 1,
                     smem)
+
+
+def cost(n: int, b: int, p: int, g: int, x_dtype, w_dtype) -> Cost:
+    """One call's work from its shapes and types (:class:`~.build.Cost`):
+    the plain version's 2·N·B·P·G flops, on the tensor cores where both
+    operands are bf16, and the bytes of xg, the slot-major weights and the
+    f32 output."""
+    return Cost(2 * n * b * p * g,
+                n * b * p * x_dtype.itemsize + n * p * g * w_dtype.itemsize
+                + n * b * g * 4, x_dtype == w_dtype == torch.bfloat16)
+
+
+def _op_cost(xg, packed) -> Cost:
+    n, b, p = xg.shape
+    return cost(n, b, p, packed.shape[2], xg.dtype, packed.dtype)
 
 
 def async_staging(xg, packed) -> bool:
@@ -138,7 +154,7 @@ def _fake(xg, packed):
 
 
 _OP = define_op("grouped_cs_matmul(Tensor xg, Tensor packed) -> Tensor",
-                grouped_cs_matmul_plain, _cuda_body, _fake)
+                grouped_cs_matmul_plain, _cuda_body, _fake, _op_cost)
 
 
 def grouped_cs_matmul(xg, packed) -> torch.Tensor:

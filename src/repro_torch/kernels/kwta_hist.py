@@ -17,8 +17,9 @@ it replaces, what bounds it and how it is laid out.  The pure function
 calls the custom op ``repro_torch::kwta_hist``, whose body launches it for
 CUDA tensors (:func:`launch_into`) and runs :func:`kwta_hist_cuda_plain`
 for CPU tensors; it never falls back on a CUDA tensor.
-:func:`launch_geometry` is the launcher's geometry, for the linter.
-``kwta_hist_cuda.launches`` counts the kernel's launches.
+:func:`launch_geometry` is the launcher's geometry, for the linter, and
+:func:`cost` its work, for the census.  ``kwta_hist_cuda.launches``
+counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import functools
 
 import torch
 
-from .build import Geometry, define_op, load_library, run_launch
+from .build import Cost, Geometry, define_op, load_library, run_launch
 
 _BINS = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +74,18 @@ def launch_geometry(b: int) -> Geometry:
     """The launcher's geometry (``launch`` in ``csrc/kwta_hist.cu``): one
     block of :data:`THREADS` a row, static shared memory only."""
     return Geometry((b, 1, 1), THREADS)
+
+
+#: float32 operations an element: the row's min and max, the quantizing
+#: subtract and multiply, two clamps and the compare with the threshold
+OPS_PER_ELEMENT = 7
+
+
+def cost(b: int, d: int, dtype) -> Cost:
+    """One call's work from its shapes and types (:class:`~.build.Cost`):
+    :data:`OPS_PER_ELEMENT` float32 operations an element on the CUDA cores
+    (no product), x read once and y written once."""
+    return Cost(OPS_PER_ELEMENT * b * d, 2 * b * d * dtype.itemsize)
 
 
 def register_path(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -126,7 +139,8 @@ def _cuda_body(x, k):
 
 
 _OP = define_op("kwta_hist(Tensor x, int k) -> Tensor", kwta_hist_cuda_plain,
-                _cuda_body, lambda x, k: torch.empty_like(x))
+                _cuda_body, lambda x, k: torch.empty_like(x),
+                lambda x, k: cost(x.shape[0], x.shape[1], x.dtype))
 
 
 def kwta_hist_cuda(x: torch.Tensor, k: int) -> torch.Tensor:

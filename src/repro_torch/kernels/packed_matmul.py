@@ -20,12 +20,12 @@ kernel it replaces, what bounds it and how it is laid out.  bf16 x bf16
 runs a tensor-core body that expands each chunk of packed weights into a
 dense tile in shared memory (:func:`expand_tile` is that rule in plain
 PyTorch); f32 and mixed operand types run a CUDA-core body.
-:func:`launch_geometry` is the launcher's geometry, for the linter.
-:func:`packed_matmul` validates the operands and calls the custom op
-``repro_torch::packed_matmul``, whose body launches the kernel for CUDA
-tensors (:func:`launch_into`) and runs :func:`packed_matmul_plain` for CPU
-tensors; it never falls back on a CUDA tensor.  ``packed_matmul.launches``
-counts the kernel's launches.
+:func:`launch_geometry` is the launcher's geometry, for the linter, and
+:func:`cost` its work, for the census.  :func:`packed_matmul` validates
+the operands and calls the custom op ``repro_torch::packed_matmul``, whose
+body launches the kernel for CUDA tensors (:func:`launch_into`) and runs
+:func:`packed_matmul_plain` for CPU tensors; it never falls back on a CUDA
+tensor.  ``packed_matmul.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import functools
 import torch
 
 from repro_torch.core.functional import cs_matmul
-from .build import Geometry, define_op, load_library, run_launch
+from .build import Cost, Geometry, define_op, load_library, run_launch
 
 #: pack factors the kernel is instantiated for
 SUPPORTED_N = (1, 2, 4, 8, 16)
@@ -99,6 +99,24 @@ def launch_geometry(b: int, g: int, n: int, bf16: bool) -> Geometry:
     smem = tc_smem(ring, bm, bn, wk)
     return Geometry((-(-g * n // bn), -(-b // bm), 1), wm * wn * wk * 32, 1,
                     smem)
+
+
+def cost(b: int, p: int, g: int, n: int, r: int, x_dtype, w_dtype) -> Cost:
+    """One call's work from its shapes and types (:class:`~.build.Cost`):
+    the plain version's 2·B·P·N·G flops (each of the G·N outputs sums P
+    products: 2·T·D_in·D_out/N), on the tensor cores where both operands
+    are bf16, and the bytes of x, the packed weights, the route and the
+    f32 output."""
+    return Cost(2 * b * p * n * g,
+                b * p * n * x_dtype.itemsize + g * p * n * w_dtype.itemsize
+                + g // r * p * n + b * g * n * 4,
+                x_dtype == w_dtype == torch.bfloat16)
+
+
+def _op_cost(x, packed, route) -> Cost:
+    g, p, n = packed.shape
+    return cost(x.shape[0], p, g, n, g // route.shape[0], x.dtype,
+                packed.dtype)
 
 
 def async_staging(x, packed, route) -> bool:
@@ -190,7 +208,7 @@ def _fake(x, packed, route):
 
 
 _OP = define_op("packed_matmul(Tensor x, Tensor packed, Tensor route) -> "
-                "Tensor", packed_matmul_plain, _cuda_body, _fake)
+                "Tensor", packed_matmul_plain, _cuda_body, _fake, _op_cost)
 
 
 def packed_matmul(x, packed, route) -> torch.Tensor:

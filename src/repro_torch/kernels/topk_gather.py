@@ -21,12 +21,12 @@ kernel it replaces, what bounds it and how it is laid out.  Two pure
 functions here decide how it is launched: :func:`launch_rule` (the cluster
 size and strip width) and :func:`async_staging` (16-byte ``cp.async``
 copies or plain loads); :func:`launch_geometry` is the launcher's whole
-geometry, for the linter.  :func:`topk_gather` validates the operands and
-calls the custom op ``repro_torch::topk_gather``, a single node in a traced
-graph, whose body launches the kernel for CUDA tensors
-(:func:`launch_into`) and runs :func:`topk_gather_plain` for CPU tensors;
-it never falls back on a CUDA tensor.  ``topk_gather.launches`` counts the
-kernel's launches.
+geometry, for the linter, and :func:`cost` its work, for the census.
+:func:`topk_gather` validates the operands and calls the custom op
+``repro_torch::topk_gather``, a single node in a traced graph, whose body
+launches the kernel for CUDA tensors (:func:`launch_into`) and runs
+:func:`topk_gather_plain` for CPU tensors; it never falls back on a CUDA
+tensor.  ``topk_gather.launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from .build import Geometry, define_op, load_library, run_launch
+from .build import Cost, Geometry, define_op, load_library, run_launch
 
 #: pack factors the kernel is instantiated for
 SUPPORTED_N = (1, 2, 4, 8, 16)
@@ -129,6 +129,27 @@ def launch_geometry(b: int, k: int, g: int, n: int,
     return Geometry((strips * cluster, b, 1), THREADS, cluster, 0)
 
 
+def cost(b: int, k: int, p: int, g: int, n: int, r: int, vals_dtype,
+         idx_dtype, w_dtype, out_dtype) -> Cost:
+    """One call's work from its shapes and types (:class:`~.build.Cost`):
+    the plain version's 2·B·K·G·N flops (each entry times its partition's
+    row of G·N weights, the route's mask included) on the CUDA cores, and
+    the bytes of the support, of the packed and route rows of every
+    partition the support can touch (min(B·K, P): the data decide which)
+    and of the output."""
+    rows = min(b * k, p)
+    return Cost(2 * b * k * g * n,
+                b * k * (vals_dtype.itemsize + 2 * idx_dtype.itemsize)
+                + rows * (g * n * w_dtype.itemsize + g // r * n)
+                + b * g * n * out_dtype.itemsize)
+
+
+def _op_cost(vals, p_idx, s_off, packed_p, route, out_dtype) -> Cost:
+    p, g, n = packed_p.shape
+    return cost(vals.shape[0], vals.shape[1], p, g, n, g // route.shape[0],
+                vals.dtype, p_idx.dtype, packed_p.dtype, out_dtype)
+
+
 def static_smem(elem_size: int) -> int:
     """Bytes of the kernel's static shared arrays for weights of
     ``elem_size`` bytes (the ``__shared__`` declarations of
@@ -207,7 +228,7 @@ def _fake(vals, p_idx, s_off, packed_p, route, out_dtype):
 
 _OP = define_op("topk_gather(Tensor vals, Tensor p_idx, Tensor s_off, "
                 "Tensor packed_p, Tensor route, ScalarType out_dtype) -> "
-                "Tensor", topk_gather_plain, _cuda_body, _fake)
+                "Tensor", topk_gather_plain, _cuda_body, _fake, _op_cost)
 
 
 def topk_gather(vals, p_idx, s_off, packed_p, route,

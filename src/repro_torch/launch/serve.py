@@ -115,6 +115,16 @@ from repro_torch.runtime.scheduler import (Request, RequestRecord,
 from repro_torch.sharding.serving import Shards, use_serving
 
 
+def check_mesh_pattern(cfg, mesh) -> None:
+    """Raise for a block pattern that does not serve on ``mesh`` (of more
+    than one rank): only attention block patterns do."""
+    if any(k != "attn" for k in cfg.block_pattern):
+        raise NotImplementedError(
+            f"{cfg.name} on mesh {mesh.dims}: only attention block "
+            "patterns serve on a mesh of more than one rank (ROADMAP "
+            "Queue 1 item 5: SSM/hybrid serving on a mesh)")
+
+
 def _bucket(n: int, max_seq: int) -> int:
     """Next power-of-two prompt bucket (>= 8): prompts of one bucket run
     prefill at one shape."""
@@ -185,12 +195,8 @@ class Engine:
         #: the rank's place on a mesh of more than one rank, else None
         self.shards = Shards.of(mesh, max_seq)
         self.rules = None if self.shards is None else self.shards.rules
-        if self.shards is not None and any(k != "attn"
-                                           for k in cfg.block_pattern):
-            raise NotImplementedError(
-                f"{cfg.name} on mesh {mesh.dims}: only attention block "
-                "patterns serve on a mesh of more than one rank (ROADMAP "
-                "Queue 1 item 5: SSM/hybrid serving on a mesh)")
+        if self.shards is not None:
+            check_mesh_pattern(cfg, mesh)
         if params is None:      # on a mesh, each rank draws only its blocks
             self.params = T.init_model(cfg, seed=0, device=self.device,
                                        rules=self.rules)

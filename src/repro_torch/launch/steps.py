@@ -8,8 +8,16 @@ No kernel of :mod:`repro_torch.kernels` runs in it: every projection of a
 training batch takes the Hadamard path, as in the reference.
 
 The spec helpers of the mesh step: :func:`batch_logical_specs` and
-:func:`zero1_specs`.  The roofline and dry-run tools
-(``abstract_params``, ``input_specs``, the unit steps) are not ported.
+:func:`zero1_specs`.
+
+For the dry run and the roofline (:mod:`repro_torch.launch.dryrun`):
+:func:`abstract_params`, :func:`abstract_cache` and :func:`input_specs`
+make a cell's params, cache and batch as fake tensors
+(:func:`fake`: shapes and types, no storage), so the largest config is
+traced on the CPU without allocating a weight; the accounting steps
+:func:`make_unit_train_step`, :func:`make_unit_fwd_step` and
+:func:`make_head_train_step` run one unit, and the embedding, head and
+loss, alone.
 """
 
 from __future__ import annotations
@@ -18,11 +26,12 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
-from repro_torch.models.common import dtype_of
+from repro_torch.models.common import cross_entropy, dtype_of
 from repro_torch.optim import (AdamWConfig, apply_updates, global_norm,
                                warmup_cosine)
 from repro_torch.sharding import (NamedSharding, Rules, UnitSpec, dp_axes,
@@ -30,7 +39,7 @@ from repro_torch.sharding import (NamedSharding, Rules, UnitSpec, dp_axes,
 from repro_torch.sharding.collectives import (gather_leaves, gather_pieces,
                                              group_size, summed)
 from repro_torch.sharding.context import map_specs
-from repro_torch.tree import flatten, leaves, map_tree, unflatten
+from repro_torch.tree import fake, flatten, leaves, map_tree, unflatten
 
 
 def value_and_grad(fn: Callable, params, *args
@@ -299,5 +308,124 @@ def make_opt_step(cfg: ModelConfig, tcfg: TrainConfig):
     def step(params, grads, opt_state):
         apply_updates(params, grads, opt_state, acfg, 1.0)
         return params, opt_state
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Abstract init and input specs (fake tensors: shapes and types only)
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig, rules: Optional[Rules] = None,
+                    device=None, mode: Optional[FakeTensorMode] = None):
+    """``(params, specs)`` without allocating: the reference's tree (its
+    ``init_model``'s leaves in ``param_dtype``) in the port's training
+    layout (:func:`repro_torch.models.transformer.init_train_params`) as
+    fake tensors on ``device`` (``cuda`` unless it says otherwise), and
+    its logical specs in that layout.  With ``rules``, this rank's blocks
+    of it, each leaf cut by its spec (:meth:`NamedSharding.take`: an empty
+    tensor where the rank holds none of a unit leaf).  ``mode``: the fake
+    mode to make them in (:func:`fake`)."""
+    specs = T.layer_specs(T.param_specs(cfg), cfg)
+
+    def make():
+        params = T.init_train_params(cfg, seed=0, device="cpu")
+        if rules is None:
+            return params
+        return map_tree(lambda sh, t: sh.take(t),
+                        param_sharding(specs, params, rules), params)
+
+    return fake(make, device or "cuda", mode), specs
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   rules: Optional[Rules] = None, device=None,
+                   mode: Optional[FakeTensorMode] = None):
+    """``(cache, specs)`` of :func:`repro_torch.models.transformer.
+    init_cache` as fake tensors (with ``rules``, this rank's blocks) and
+    its logical specs in the port's per-layer layout."""
+    return (fake(lambda: T.init_cache(cfg, batch, max_seq, "cpu",
+                                      rules=rules), device or "cuda", mode),
+            T.layer_cache_specs(cfg))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device=None,
+                mode: Optional[FakeTensorMode] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Fake stand-ins for every model input of this cell (the reference's
+    ``input_specs``), token ids as the port's int64."""
+    b, s = shape.global_batch, shape.seq_len
+    ct, i64 = dtype_of(cfg.compute_dtype), torch.int64
+
+    def make():
+        if shape.kind == "decode":
+            if cfg.frontend == "embed":
+                return {"embeds": torch.empty((b, 1, cfg.d_model), dtype=ct)}
+            return {"tokens": torch.empty((b, 1), dtype=i64)}
+        if cfg.frontend == "embed":
+            batch = {"embeds": torch.empty((b, s, cfg.d_model), dtype=ct),
+                     "labels": torch.empty((b, s), dtype=i64)}
+        elif cfg.frontend == "vision_prefix":
+            s_txt = s - cfg.n_prefix
+            batch = {"tokens": torch.empty((b, s_txt), dtype=i64),
+                     "patch_embeds": torch.empty((b, cfg.n_prefix,
+                                                  cfg.d_model), dtype=ct),
+                     "labels": torch.empty((b, s_txt), dtype=i64)}
+        else:
+            batch = {"tokens": torch.empty((b, s), dtype=i64),
+                     "labels": torch.empty((b, s), dtype=i64)}
+        if shape.kind == "prefill":
+            batch.pop("labels", None)
+        return batch
+
+    return fake(make, device or "cuda", mode)
+
+
+# ---------------------------------------------------------------------------
+# Accounting steps: one unit, and the embedding + head + loss, alone
+# ---------------------------------------------------------------------------
+
+def make_unit_train_step(cfg: ModelConfig):
+    """Forward and backward through ONE unit (``{"b{i}": layer params}``,
+    :func:`repro_torch.models.transformer.unit_step_fn`): the gradients of
+    the unit's params and of x, in :func:`repro_torch.tree.flatten`'s
+    order of ``{"unit", "x"}``."""
+    unit_fn = T.unit_step_fn(cfg)
+
+    def step(unit_params, shared, x, positions):
+        def lf(p):
+            y, aux = unit_fn(p["unit"], shared, p["x"], positions)
+            return torch.sum(y.float() ** 2) + aux, {}
+
+        return value_and_grad(lf, {"unit": unit_params, "x": x})[1]
+
+    return step
+
+
+def make_unit_fwd_step(cfg: ModelConfig):
+    unit_fn = T.unit_step_fn(cfg)
+
+    def step(unit_params, shared, x, positions):
+        with torch.no_grad():
+            return unit_fn(unit_params, shared, x, positions)[0]
+
+    return step
+
+
+def make_head_train_step(cfg: ModelConfig):
+    """The embedding lookup, the LM head and the loss, forward and backward
+    (the vocabulary's part of a training step): the gradients of the table
+    and of x."""
+    ct = dtype_of(cfg.compute_dtype)
+
+    def step(table, tokens, labels, x):
+        def lf(p):
+            t = p["table"].to(ct)
+            emb = t[tokens]
+            logits = p["x"] @ t.T
+            return (cross_entropy(logits[:, :-1], labels[:, 1:])
+                    + 0.0 * torch.sum(emb.float() ** 2)), {}
+
+        return value_and_grad(lf, {"table": table, "x": x})[1]
 
     return step

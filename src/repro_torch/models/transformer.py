@@ -25,7 +25,8 @@ positions only.
 Entry points:
   :func:`forward` — full-sequence logits; :func:`loss_fn` — the training
   loss, on params in the training layout (:func:`init_train_params`;
-  :func:`serving_params` turns them into serving params).
+  :func:`serving_params` turns them into serving params);
+  :func:`unit_step_fn` — one unit's forward, for the cost accounting.
   :func:`prefill` + :func:`serve_step` + :func:`init_cache` — fused prompt
   prefill (attention-only patterns; SSM/hybrid patterns prefill stepwise
   through :func:`serve_step`) and one-token decode with the contiguous
@@ -40,7 +41,7 @@ engine) the serving entry points run on the rank's blocks:
 :func:`param_blocks` cuts whole params to them, ``init_cache`` and
 ``init_paged_cache`` with ``rules`` make the rank's cache blocks; the
 lookup is vocab-parallel, a decode step on the contiguous cache computes
-the rank's slots (where they shard over ``data``), and the logits come
+the rank's slots (where they shard over the DP axes), and the logits come
 back whole on every rank.
 """
 
@@ -502,7 +503,7 @@ def _embed_inputs(params, batch, cfg, ct):
 def _logits(params, x, cfg, ct, rows_split: bool = False):
     """The logits of ``x``; on a serving mesh gathered whole from the
     head's vocabulary blocks (over ``model``) and, with ``rows_split``,
-    from the rank's rows of the batch (over ``data``), in one
+    from the rank's rows of the batch (over the DP axes), in one
     collective."""
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
@@ -510,7 +511,7 @@ def _logits(params, x, cfg, ct, rows_split: bool = False):
     sh = serving()
     if sh is None:
         return logits
-    dims = {0: "data"} if rows_split else {}
+    dims = {0: sh.dp} if rows_split else {}
     if head["table"].shape[0] < cfg.padded_vocab:
         dims[-1] = "model"
     return sh.gather(logits, dims)
@@ -532,6 +533,26 @@ def forward(params, batch, cfg):
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg, ct), aux
+
+
+def unit_step_fn(cfg):
+    """A single-superblock forward for per-unit cost accounting (the
+    reference's ``unit_step_fn``): ``fn(unit_params, shared, x,
+    positions)`` runs blocks ``b0..b{L-1}`` of one unit, ``unit_params``
+    ``{"b{i}": layer params}`` (a ``shared_attn`` block reads ``shared``),
+    and returns (x, aux), aux the MoE load-balancing loss summed."""
+
+    def fn(unit_params, shared, x, positions):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(cfg.block_pattern):
+            p = shared if kind == "shared_attn" else unit_params[f"b{i}"]
+            with named_scope(f"b{i}_{kind}"):
+                x, a = _block_apply(kind, p, x, cfg, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    return fn
 
 
 def loss_fn(params, batch, cfg):

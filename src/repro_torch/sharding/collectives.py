@@ -26,9 +26,9 @@ vocab-parallel embedding and the sharded softmax).
 Without a process group (a one-rank mesh) every collective is the
 identity and none is called.  A collective that fails raises; nothing is
 retried on another device or backend.  :func:`observe_collectives` hands
-an observer every tensor given to :func:`all_gather`, :func:`all_reduce_`
-and :func:`gather_pieces` (the serving tests check that none is a
-weight).
+an observer every collective this module runs with the tensors it was
+given and fills (the serving tests check that none is a weight; the
+census of :mod:`repro_torch.launch.hlo` counts them).
 """
 
 from __future__ import annotations
@@ -193,6 +193,7 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     staged = _on_host(t, group)
     src = t.cpu() if staged else t.contiguous()
     dst = torch.empty_like(src)
+    _notify("ring_shift", src, dst)
     ops = [dist.P2POp(dist.isend, src,
                       dist.get_global_rank(group, (me + 1) % n), group),
            dist.P2POp(dist.irecv, dst,
@@ -206,6 +207,7 @@ def broadcast_(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """In place: group rank ``src``'s ``t`` on every member (no-op for
     None)."""
     if group is not None:
+        _notify("broadcast", t)
         dist.broadcast(t, dist.get_global_rank(group, src), group=group)
     return t
 
@@ -233,6 +235,7 @@ def batch_sum(x: torch.Tensor, group) -> torch.Tensor:
     mean over the group undoes it."""
     if group is None:
         return x
+    _notify("all_reduce_sum", x)
     from torch.distributed.nn.functional import all_reduce
     with warnings.catch_warnings():
         # newer torch marks it deprecated for the functional collectives,

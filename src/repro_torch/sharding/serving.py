@@ -14,7 +14,8 @@ Under those rules each rank holds (the reference's specs, leaf for leaf):
   rank's block of experts, ``block("model", n_experts)``, each expert
   whole (its groups cannot shard over ``model`` too: a mesh axis appears
   once in a spec); the shared experts as the FFN;
-* the contiguous cache: a block of slots (``data``) and a block of rows
+* the contiguous cache: a block of slots (the DP axes: ``data``, and
+  ``pod`` on a multi-pod mesh) and a block of rows
   (``kvseq`` -> ``model``), or of kv heads where the rows do not divide;
   the page pools: every page, and a block of kv heads (``model``) where
   they divide.
@@ -26,7 +27,7 @@ are gathered over ``model``; a sequence-sharded cache's softmax combines
 each rank's maximum, sum of exponentials and weighted values over
 ``model``; row-parallel partial outputs (MLA's o, the MoE's experts) are
 summed with :meth:`Shards.reduce_model`; the logits are gathered over
-``data`` and ``model``.
+the DP axes and ``model``.
 
 :class:`Shards` answers the model code's questions (which rows of the
 batch, which block of an axis) and runs those collectives.  The engine
@@ -43,9 +44,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .axes import make_rules
+from .axes import dp_axes, make_rules
 from .collectives import all_gather, all_reduce_
-from .context import Rules
+from .context import MeshAxes, Rules
 
 _STATE = threading.local()
 
@@ -77,12 +78,19 @@ class Shards:
         lo = self.mesh.coords.get(axis, 0) * k
         return lo, lo + k
 
+    @property
+    def dp(self) -> Tuple[str, ...]:
+        """The axes a batch's rows shard over (``pod`` and ``data``)."""
+        return dp_axes(self.mesh)
+
     def batch_rows(self, b: int) -> Optional[slice]:
         """The rank's slots of a batch of ``b`` where the batch shards over
-        ``data`` (``b`` divides), else None (every rank holds them all)."""
-        if self.size("data") == 1 or b % self.size("data"):
+        the DP axes (``b`` divides), as the cache's slots do, else None
+        (every rank holds them all)."""
+        sharding = self.rules.sharding_for(("batch",), (b,))
+        if not sharding.axes:
             return None
-        return slice(*self.block("data", b))
+        return sharding.block((b,))[0]
 
     def kv_split(self, paged: bool, n_kv_heads: int) -> Optional[str]:
         """What the cache's ``model`` block holds: ``"rows"`` (the
@@ -102,21 +110,26 @@ class Shards:
         """In place: ``x`` summed (or maximised) over ``model``."""
         return all_reduce_(x, self.mesh.group("model"), op)
 
-    def gather(self, x: torch.Tensor, dims: Dict[int, str]) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dims: Dict[int, MeshAxes]
+               ) -> torch.Tensor:
         """The whole tensor from every member's block, in one all_gather:
         ``dims`` maps each dimension of ``x`` that is a block to the mesh
-        axis it is split over (axes of one rank are skipped)."""
-        on = {d % x.ndim: a for d, a in dims.items() if self.size(a) > 1}
-        axes = self.mesh.ordered(set(on.values()))
+        axis (or the axes, major first) it is split over (axes of one rank
+        are skipped)."""
+        on = {d % x.ndim: tuple(a for a in self.mesh.ordered(axes)
+                                if self.size(a) > 1)
+              for d, axes in dims.items()}
+        on = {d: axes for d, axes in on.items() if axes}
+        axes = self.mesh.ordered({a for part in on.values() for a in part})
         if not axes:
             return x
         stacked = all_gather(x, self.mesh.group(axes)).view(
             *(self.size(a) for a in axes), *x.shape)
         perm, shape = [], []
         for j, n in enumerate(x.shape):
-            if j in on:
-                perm.append(axes.index(on[j]))
-                n *= self.size(on[j])
+            for a in on.get(j, ()):
+                perm.append(axes.index(a))
+                n *= self.size(a)
             perm.append(len(axes) + j)
             shape.append(n)
         return stacked.permute(perm).reshape(shape)

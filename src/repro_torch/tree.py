@@ -5,9 +5,10 @@ for the reference's treedef."""
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 
 def flatten(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -56,3 +57,17 @@ def map_tree(fn: Callable, tree, *rest):
 
 def is_float(t) -> bool:
     return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+def fake(make: Callable, device, mode: Optional[FakeTensorMode] = None):
+    """The tensors ``make()`` returns, as fake tensors of the same shapes
+    and types on ``device``, with no storage, all of one fake mode (one
+    trace's inputs come from one call, or from calls given one ``mode``).
+    ``make`` runs on the CPU under ``FakeTensorMode`` (its generator calls
+    draw nothing), and its results are re-made on ``device`` from their
+    shapes."""
+    mode = mode or FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=device)
+                        if isinstance(t, torch.Tensor) else t, make())

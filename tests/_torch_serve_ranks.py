@@ -200,3 +200,16 @@ def serve_cli(rank, argv):
     with contextlib.redirect_stdout(out):
         _serve_cli(args, cfg, args.device)
     return out.getvalue()
+
+
+def pod_serve(rank, dims, np_params, cfg_kw, spec):
+    """A (pod, data, model) mesh: greedy tokens of ``spec`` on the
+    contiguous layout, and the rank's fresh cache blocks' shapes."""
+    cfg = get_config("smollm-360m").reduced(**cfg_kw)
+    mesh = make_mesh(dims, ("pod", "data", "model"), "cpu")
+    eng = Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh,
+                 params=params_from_jax(np_params, cfg, device="cpu"))
+    toks, _ = eng.serve(requests(spec, False))
+    return {"coords": mesh.coords,
+            "greedy": {u: list(v) for u, v in toks.items()},
+            "cache": [tuple(leaf.shape) for leaf in leaves(eng.new_cache(4))]}

@@ -56,6 +56,8 @@ def test_importing_every_module_loads_neither_jax_nor_the_reference():
             "repro_torch.sharding.context", "repro_torch.launch.mesh",
             "repro_torch.launch.ranks",
             "repro_torch.runtime.pipeline_parallel"} <= set(mods)
+    assert {f"repro_torch.launch.{m}" for m in (
+        "dryrun", "hlo", "roofline", "rooftool")} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -93,6 +95,25 @@ def test_obs_imports_nothing_of_core_or_models():
                              r"(core|models)\b", text, re.M), f
         assert not re.search(r"^\s*from\s+\.\.(core|models)", text,
                              re.M), f
+
+
+def test_the_fake_process_group_is_imported_only_inside_the_dry_run():
+    """``torch.testing._internal.distributed.fake_pg`` is internal to
+    torch: one function of the dry run imports it, when it runs."""
+    users = [f for f in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             if "fake_pg" in f.read_text()]
+    assert users == [PORT / "launch" / "dryrun.py"]
+    imports = re.findall(r"^(\s*)from torch\.testing\._internal\S* import",
+                         users[0].read_text(), re.M)
+    assert imports == ["    "]
+    code = ("import sys, repro_torch.launch.dryrun\n"
+            "print('torch.testing._internal.distributed.fake_pg' in "
+            "sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
