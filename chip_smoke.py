@@ -138,7 +138,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    its three variants, 60 steps of AdamW at batch 32 each (last loss
    below 0.7 of the first), held-out accuracy, step time, the compression
    ratio and the realized k-WTA sparsity, and one f32 forward and
-   backward of each variant against the port on the CPU.
+   backward of each variant against the port on the CPU; (e) in a fresh
+   process under ``torch.use_deterministic_algorithms``, the full-width
+   step with the shipped ``remat=True`` (each block's activations
+   recomputed in the backward) beside ``remat=False``: one loss and
+   backward from the same weights and batch, every gradient bit-equal,
+   then each one's peak memory and host-clock step.
 12. hybrid — the SSM/hybrid family and the modality frontends, full width
    and depth, random weights from seed 0: (a) zamba2-1.2b (2 units of 18
    Mamba2 blocks + the weight-shared attention block, whose FFN is the
@@ -164,8 +169,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    full width on fake CUDA tensors.
 13. mesh — training on a mesh (``repro_torch.launch.mesh``,
    ``repro_torch.sharding``, ZeRO-1, the int8 sync, GPipe), which
-   launches none of the kernels: smollm-360m at its shipped widths in
-   float32 (masters and compute), batch 8 x 128, ZeRO-1 on, the reference
+   launches none of the kernels: smollm-360m at its shipped widths and
+   depth (32 layers, remat on as shipped), in float32 (masters and
+   compute), batch 8 x 128, ZeRO-1 on, the reference
    comparison's ``TrainConfig(lr=1e-3)`` (a 100-step warmup), under
    ``use_deterministic_algorithms``; every part in fresh processes
    (``spawn``).  (b) four gloo ranks sharing the card on mesh 2x2 (data x
@@ -174,7 +180,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    shards reckoned from the rule table on its stacked layout; the
    host-clock step; the params' gather and the gradient mean alone; peak
    memory), the run's step-5 checkpoint, the uninterrupted step 6 (the
-   k-WTA selections of all 6 steps kept), and the checkpoint restored
+   k-WTA selections of all 6 steps kept, the forward's and remat's
+   recompute's), and the checkpoint restored
    onto 4x1 (params and moments gathered whole bit-equal to the
    checkpoint's) for one more step; (c) on the same
    ranks, ``make_compressed_grad_sync`` on mesh 2x2 (pod x data) over a
@@ -182,7 +189,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mean, the residual input - sent bit for bit) and ``pipeline_apply`` of
    4 full-width decoder blocks on mesh 4 (pipe), n_micro 4, against the
    blocks in sequence on each microbatch (1e-5), and which collectives
-   gloo runs on CUDA tensors; (a) in a fresh process, the single-device
+   gloo runs on CUDA tensors; (d) on the same ranks, deepseek-v2-lite-16b
+   at its shipped widths, 1 of its 27 MoE layers, f32: one loss of each
+   rank's rows under the training rules of mesh 2x2 and its backward, with
+   remat and without, every gradient leaf bit-equal (the card runs the
+   backward, and remat's recompute, on autograd's device thread, which
+   must still sum the MoE load-balancing loss over the DP group); (a) in
+   a fresh process, the single-device
    Trainer and the Trainer on mesh 1x1 over NCCL at world size 1 (1e-6:
    bit-equal expected), (b)'s losses (1e-5 relative) and step-5 params
    (1e-5, which must lie below the smallest move of a leaf in step 5's
@@ -215,8 +228,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (no limit, no claim).  ``[mesh-serve]`` lines and a ``[mesh-serve]
    numbers {...}`` JSON line.
 15. mesh-moe — ``Engine(mesh=...)`` on the MoE + MLA family:
-   deepseek-v2-lite-16b as shipped (27 layers, MLA's 16 heads, 64 routed
-   experts top-6 + 2 shared), random weights from seed 0, max_seq 48, on
+   deepseek-v2-lite-16b at its shipped widths (MLA's 16 heads, 64 routed
+   experts top-6 + 2 shared), 4 of 27 layers in float32 and 8 in bf16
+   (to keep the script within its time limit), random weights from seed
+   0, max_seq 48, on
    four gloo ranks sharing the card (one torch thread each), meshes 1x4
    and 2x2, both layouts, against the single-device engine on the card.
    Each rank draws only its blocks, a layer at a time (four whole f32
@@ -228,8 +243,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and equal to the single-device engine's but where they part between
    its top two (on its own path), closer than twice the bf16
    forced-logits difference; (c) each rank's param and cache bytes equal
-   to its blocks reckoned from the specs (``shard_shape``); (d) 27
-   ``topk_gather`` launches a decode step on every rank (the shared
+   to its blocks reckoned from the specs (``shard_shape``); (d) one
+   ``topk_gather`` launch a layer a decode step on every rank (the shared
    experts' down projection), none in a prefill; (e) no tensor handed to
    a collective is a param or cache block, the largest a decode step
    moves is the (4, vocab) logits; (f) tok/s and the host-clock decode
@@ -249,10 +264,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    each in (0, 1.05] (more means the count is wrong); (c) rows 1-4's
    bounds from their modules' cost formulas (shapes and types alone)
    beside the kernels line's, never below them; (d) the dry run of
-   smollm-360m, deepseek-v2-lite-16b and qwen3-moe-235b-a22b decode_32k on
-   16x16 on fake CUDA tensors (rank 0 of a fake process group of 256):
-   each rank's params and cache bytes, peak and bound.  ``[roofline]``
-   lines and a ``[roofline] numbers {...}`` JSON line.
+   smollm-360m, deepseek-v2-lite-16b and qwen3-moe-235b-a22b decode_32k
+   and zamba2-1.2b long_500k (batch 1 under the ``decode_long`` rules: the
+   shared attention's 524,288 cache rows over all 256 ranks) on 16x16 on
+   fake CUDA tensors (rank 0 of a fake process group of 256): each rank's
+   params and cache bytes, peak and bound.  ``[roofline]`` lines and a
+   ``[roofline] numbers {...}`` JSON line.
+17. mesh-ssm — ``Engine(mesh=...)`` on the SSM/hybrid patterns through
+   ``generate_static`` (their serving path): zamba2-1.2b as shipped
+   (each Mamba2 block on the rank's blocks of ``in_proj``'s columns, the
+   conv's channels and the heads, the shared attention block as an
+   attention block, its sparse FFN through ``topk_gather``) and
+   xlstm-350m, random weights from seed 0, max_seq 20 (the shared
+   attention's cache rows shard), on four gloo ranks sharing the card
+   (one torch thread each), meshes 1x4 and 2x2, each rank drawing only
+   its blocks, against the single device on the card: (a) in float32,
+   19 of zamba2's 38 blocks (one unit), 4 prompts of 8 tokens stepped
+   through and 3 forced steps holding the single device's k-WTA
+   selections, logits within 1e-3, and ``topk_gather`` at the rank's
+   decode shape against its plain version; (b) zamba2 in bf16 at full
+   depth, ``generate_static`` of 4 prompts of 8 tokens and 8 new ones:
+   tokens equal on every rank, their logits on equal inputs (every
+   step before a row parts) within a fixed limit of the single device's
+   (``MESH_SSM_GAP``), and the tokens equal to the single device's but
+   where the single run's logit of the mesh's token lies within that
+   limit of its largest (phase 15's tie rule); (c) 2
+   ``topk_gather`` launches a step on every rank, and none by zamba2
+   reduced on the CPU (the plain version); (d) each rank's param and
+   cache bytes equal to its blocks reckoned from the specs; (e) a step's
+   collectives, their bytes and the largest, none handed a param or
+   cache block; (f) tok/s and the host-clock step beside the single
+   device's (no limit, no claim); (g) xlstm-350m in bf16, 4 prompts of 4
+   tokens and 4 new ones, (b)-(f) for it (no kernel: d_ff 0); (h) mesh
+   1x1 over NCCL at world size 1 in a process of its own: zamba2's
+   tokens and every step's logits bit-equal to the engine without a
+   mesh.  ``[mesh-ssm]`` lines and a ``[mesh-ssm] numbers {...}`` JSON
+   line.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -2945,6 +2992,79 @@ def train_resume():
         fail("train: resume is not deterministic")
 
 
+def remat_window():
+    """(e) in a fresh process under ``torch.use_deterministic_algorithms``
+    (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts): the full-width
+    smollm-360m loss and backward with ``remat`` off and on from the same
+    weights and batch (every gradient compared), then each one's training
+    step (peak memory over a step, host-clock step of three after two
+    warm-ups); written as JSON to build/train_remat.json."""
+    from repro_torch.data import canonical, lm_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import init_state
+    torch.use_deterministic_algorithms(True)
+    cfg, _, tcfg = lm_train_setup()
+    batch = {k: torch.from_numpy(canonical(v)).cuda() for k, v in
+             lm_batch(SEED, 0, TRAIN_BATCH, TRAIN_SEQ,
+                      cfg.vocab_size).items()}
+    params = T.init_train_params(cfg, seed=SEED, device="cuda")
+    (l0, g0), (l1, g1) = (
+        St.value_and_grad(lambda p, c=dataclasses.replace(cfg, remat=r):
+                          T.loss_fn(p, batch, c), params)
+        for r in (False, True))
+    pairs = [(a, b) for a, b in zip(g0, g1) if a is not None]
+    out = {"remat_shipped": cfg.remat, "loss_equal": bool(torch.equal(
+        l0[0], l1[0])), "leaves": len(pairs),
+        "equal": sum(bool(torch.equal(a, b)) for a, b in pairs),
+        "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs)}
+    del params, g0, g1, pairs
+    torch.cuda.empty_cache()
+    for remat in (False, True):
+        step, acfg = St.make_train_step(
+            dataclasses.replace(cfg, remat=remat), tcfg)
+        p = T.init_train_params(cfg, seed=SEED, device="cuda")
+        opt = init_state(p, acfg)
+        host = []
+        for i in range(5):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            float(step(p, opt, batch)[2]["loss"])
+            host.append((time.perf_counter() - t) * 1e3)
+        out[str(remat)] = {"peak": torch.cuda.max_memory_allocated(),
+                           "host_ms": host[2:]}
+        del p, opt, step
+        torch.cuda.empty_cache()
+    (ROOT / "build" / "train_remat.json").write_text(json.dumps(out))
+
+
+def train_remat():
+    path = ROOT / "build" / "train_remat.json"
+    path.unlink(missing_ok=True)
+    t = time.perf_counter()
+    run_fresh("remat_window()", env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    r = json.loads(path.read_text())
+    off, on = r["False"], r["True"]
+    print(f"[train] remat (full-width smollm-360m, batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, a fresh process under "
+          f"use_deterministic_algorithms, {time.perf_counter() - t:.1f} s; "
+          f"shipped remat={r['remat_shipped']}): one loss and backward from "
+          f"the same weights, remat on vs off: loss bit-equal "
+          f"{r['loss_equal']}, {r['equal']} of {r['leaves']} gradient leaves "
+          f"bit-equal (max |diff| {r['max_abs_diff']:.3e}); a training step's "
+          f"peak max_memory_allocated off {off['peak'] / 2**30:.3f} GiB, on "
+          f"{on['peak'] / 2**30:.3f} GiB; host-clock step (median of 3) off "
+          f"{np.median(off['host_ms']):.3f} ms, on "
+          f"{np.median(on['host_ms']):.3f} ms (the recompute: no limit, no "
+          f"claim); {device_line()}")
+    if not (r["loss_equal"] and r["equal"] == r["leaves"]):
+        fail("train: remat changes the loss or a gradient")
+    if not on["peak"] < off["peak"]:
+        fail("train: remat does not lower the step's peak memory")
+
+
 @contextlib.contextmanager
 def kwta_zeros():
     """The share of zeros in every k-WTA output of the GSC CNN made inside
@@ -3050,6 +3170,7 @@ def phase_train():
     del trainer
     torch.cuda.empty_cache()
     train_resume()
+    train_remat()
     nbytes = {v: gsc_train(v) for v in GSC_VARIANTS}
     ratio = nbytes["dense"] / nbytes["sparse_sparse"]
     print(f"[train] gsc parameter compression dense / sparse-sparse: "
@@ -3093,13 +3214,19 @@ def step_logits():
         T.serve_step = step
 
 
-def static_parity(toks_k, rows_k, toks_f, rows_f, label):
+def static_parity(toks_k, rows_k, toks_f, rows_f, label,
+                  prompt=HYBRID_PROMPT, phase="hybrid", top_two=True,
+                  bound=None):
     """The kernel engine's greedy tokens against the formula engine's
     (phase 7's rule): where a row parts, the formula's top two at that
     step are the two tokens, closer than the larger of TIE_MARGIN and
     twice the logit difference the two paths show on equal inputs in this
-    run (steps up to each row's first parting).  Returns (rows parted,
-    that difference)."""
+    run (steps up to each row's first parting), or than a fixed
+    ``bound``.  Without ``top_two`` (phase 15's rule, a tie of three or
+    more counted as one), the second run's logit of the first run's token
+    lies within that bound of its largest.  ``rows_*``: the logits of
+    each of the ``prompt`` + generated steps.  Returns (rows parted, that
+    difference)."""
     first = {}
     for r in range(toks_k.shape[0]):
         diff = np.nonzero(toks_k[r] != toks_f[r])[0]
@@ -3107,17 +3234,22 @@ def static_parity(toks_k, rows_k, toks_f, rows_f, label):
     free = max(float((rows_k[s][r].float() - rows_f[s][r].float())
                      .abs().max())
                for r, part in first.items()
-               for s in range(HYBRID_PROMPT + part))
-    margin = max(TIE_MARGIN, 2 * free)
+               for s in range(prompt + part))
+    margin = max(TIE_MARGIN, 2 * free) if bound is None else bound
     parted = 0
     for r, part in first.items():
         if toks_k[r, part] == toks_f[r, part]:
             continue
-        top = torch.topk(rows_f[HYBRID_PROMPT - 1 + part][r].float(), 2)
+        row = rows_f[prompt - 1 + part][r].float()
+        top = torch.topk(row, 2)
         best = set(top.indices.tolist())
         gap = float(top.values[0] - top.values[1])
-        print(f"[hybrid] {label}: row {r} parts at token {part}; formula's "
-              f"top two {sorted(best)}, margin {gap:.3e} (bound "
+        if not top_two:
+            best = {int(toks_k[r, part]), int(top.indices[0])}
+            gap = float(top.values[0] - row[int(toks_k[r, part])])
+        what = "top two" if top_two else "largest and the first run's token"
+        print(f"[{phase}] {label}: row {r} parts at token {part}; the "
+              f"second run's {what} {sorted(best)}, margin {gap:.3e} (bound "
               f"{margin:.3e})")
         if best != {int(toks_k[r, part]), int(toks_f[r, part])} \
                 or not gap < margin:
@@ -3404,14 +3536,21 @@ MESH_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 # per-leaf move of step 5's update (~4.5e-5: what a skipped ZeRO-1 slice
 # update would part by), which the phase prints and holds above it
 MESH_TOL = dict(world1=1e-6, loss_rel=1e-5, params=1e-5, pipe=1e-5)
-MESH_LAYERS = 32        # one bisect k-WTA call a layer a forward
+MESH_LAYERS = 32
+#: bisect k-WTA calls a step: one a layer in the forward and one in the
+#: backward, where the shipped ``remat=True`` recomputes each block
+#: (recorded and held in call order, the recompute's as the forward's)
+MESH_SELECTS = 2 * MESH_LAYERS
+#: (d): deepseek-v2-lite-16b at its shipped widths, cut to this many of
+#: its 27 MoE layers, in float32, one loss and backward of 4 rows of
+#: MESH_REMAT_SEQ tokens
+MESH_REMAT_LAYERS, MESH_REMAT_SEQ = 1, 64
 
 
 def mesh_setup(ckpt_dir):
-    """smollm-360m at its shipped widths, float32 masters and float32
-    compute (with bf16 compute the DP mean of bf16-rounded half-batch
-    gradients differs from the whole batch's by up to a bf16 ulp), and the
-    reference comparison's ``TrainConfig(lr=1e-3)``
+    """smollm-360m at its shipped widths, float32 masters and float32 compute (with bf16 compute the DP mean of
+    bf16-rounded half-batch gradients differs from the whole batch's by up
+    to a bf16 ulp), and the reference comparison's ``TrainConfig(lr=1e-3)``
     (tests/test_distributed.py:39: a 100-step warmup).  Under phase 11's
     2-step warmup the partitionings part by 2.2e-4 after 5 steps (Adam
     scales the f32-order parting of gradients near its eps up to a
@@ -3736,9 +3875,10 @@ def mesh_gloo(rank):
     out["collectives_ms"] = collective_times(trainer)
     out["losses"] = losses
     out["step_ms"] = [e.duration * 1e3 for e in trainer.monitor.events]
-    if len(flat) != MESH_LAYERS * (MESH_STEPS + 1):
+    if len(flat) != MESH_SELECTS * (MESH_STEPS + 1):
         fail(f"mesh: {len(flat)} k-WTA selections in 6 steps")
-    masks = [[m.cpu() for m in flat[s * MESH_LAYERS:(s + 1) * MESH_LAYERS]]
+    n = MESH_SELECTS
+    masks = [[m.cpu() for m in flat[s * n:(s + 1) * n]]
              for s in range(MESH_STEPS + 1)]
     del flat
     if trainer.mesh.coords["model"] == 0:
@@ -3781,9 +3921,57 @@ def mesh_gloo(rank):
     del holder
     torch.cuda.empty_cache()
     out["pipe"] = pipeline_check(device)
+    out["moe_remat"] = moe_remat_check(mesh_remat_cfg(), device)
     out["gloo_cuda"] = gloo_cuda_probe(device)
     out["peak_all"] = torch.cuda.max_memory_allocated(device)
     dist.barrier()
+    return out
+
+
+def mesh_remat_cfg():
+    """(d)'s deepseek-v2-lite-16b: its shipped widths, MESH_REMAT_LAYERS
+    deep, float32 compute, remat as shipped."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), compute_dtype="float32",
+                               n_layers=MESH_REMAT_LAYERS)
+
+
+def moe_remat_check(cfg, device):
+    """(d) on mesh 2x2 (data x model): the loss of the rank's rows of 4
+    sequences under the training rules and its gradient, remat off then
+    on, from the same weights.  Autograd runs a CUDA backward on its
+    device thread, outside the thread-locals of the forward, and with
+    remat each block runs again there: its MoE load-balancing loss must
+    still sum over the DP group.  Returns the leaves compared and equal
+    and the largest difference."""
+    from repro_torch.data import canonical, lm_batch
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules, use_rules
+    rules = make_rules(make_mesh((2, 2), ("data", "model"), device), "train")
+    rows = {k: rules.sharding_for(("batch", None), v.shape).take(
+        torch.from_numpy(canonical(v)).to(device)) for k, v in lm_batch(
+        SEED, 0, 4, MESH_REMAT_SEQ, cfg.vocab_size).items()}
+    got = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        params = T.init_train_params(c, seed=SEED, device=device)
+        t = time.perf_counter()
+        with use_rules(rules):
+            (loss, _), grads = St.value_and_grad(
+                lambda p: T.loss_fn(p, rows, c), params)
+        float(loss)
+        got[remat] = loss, grads, (time.perf_counter() - t) * 1e3
+        del params
+    (l0, g0, ms0), (l1, g1, ms1) = got[False], got[True]
+    pairs = [(a, b) for a, b in zip(g0, g1, strict=True) if a is not None]
+    out = {"loss_equal": bool(torch.equal(l0, l1)), "leaves": len(pairs),
+           "equal": sum(bool(torch.equal(a, b)) for a, b in pairs),
+           "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs),
+           "ms": [ms0, ms1]}
+    del got, g0, g1, pairs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3806,7 +3994,7 @@ def mesh_single():
     parts = [torch.load(MESH_DIR / f"masks_{r}.pt")
              for r in range(0, TRAIN_BATCH, TRAIN_BATCH // 2)]
     masks = [[torch.cat([p[s][j] for p in parts])
-              for j in range(MESH_LAYERS)] for s in range(MESH_STEPS + 1)]
+              for j in range(MESH_SELECTS)] for s in range(MESH_STEPS + 1)]
     every = slice(0, TRAIN_BATCH)
     out = {}
     cfg, shape, tcfg = mesh_setup(MESH_DIR / "single")
@@ -3912,8 +4100,9 @@ def phase_mesh():
     four = ("topk_gather", "packed_matmul", "grouped_cs_matmul", "kwta_hist")
     failed = []
 
-    print(f"[mesh] smollm-360m at its shipped widths (32 layers, d_model "
-          f"960, d_ff 2560, vocab 49152), float32 masters and compute, "
+    print(f"[mesh] smollm-360m at its shipped widths ({MESH_LAYERS} layers, "
+          f"d_model 960, d_ff 2560, vocab 49152; remat on, as shipped), "
+          f"float32 masters and compute, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, ZeRO-1 on, {MESH_STEPS} "
           f"steps, lr 1e-3 warmup 100, use_deterministic_algorithms; (a) "
           f"and the restores hold (b)'s k-WTA selections")
@@ -4005,6 +4194,17 @@ def phase_mesh():
           f"(free k-WTA selections); {pipes[0]['ms']:.1f} ms")
     if not perr <= tol["pipe"]:
         failed.append("the pipeline parts from the blocks in sequence")
+    mr = [r["moe_remat"] for r in ranks]
+    print(f"[mesh] (d) {MOE_ARCH} at its shipped widths, {MESH_REMAT_LAYERS} "
+          f"of 27 layers, f32, 4 rows of {MESH_REMAT_SEQ} on mesh 2x2 under "
+          f"the training rules: one loss and backward (on autograd's device "
+          f"thread), remat on vs off: loss bit-equal on every rank "
+          f"{all(m['loss_equal'] for m in mr)}, gradient leaves bit-equal "
+          f"{[m['equal'] for m in mr]} of {mr[0]['leaves']} (largest |diff| "
+          f"{max(m['max_abs_diff'] for m in mr):.3e}); host clock off / on "
+          f"{mr[0]['ms'][0]:.1f} / {mr[0]['ms'][1]:.1f} ms")
+    if not all(m["loss_equal"] and m["equal"] == m["leaves"] for m in mr):
+        failed.append("remat's recompute parts from the forward on a mesh")
     print(f"[mesh] gloo on CUDA tensors: {r0['gloo_cuda']}")
     numbers = {
         "step_ms_median": float(np.median(steps)),
@@ -4500,9 +4700,18 @@ MESH_MOE_SHAPE = dict(MOE_SHAPE, b=2)
 #: layers): a decode step of four gloo ranks on one card takes ~2 s at
 #: full depth, most of it their ~160 collectives
 MESH_MOE_F32_LAYERS = 4
+#: the depth of checks (b)-(f), in bf16 (27 shipped), cut as phase 14's
+#: is to keep the script within its time limit beside phase 17
+MESH_MOE_LAYERS = 8
 #: the tokens of the single-device serve's logits kept at every step, to
 #: tell a tie from a parting
 MESH_MOE_TOPS = 8
+
+
+def mesh_moe_cfg():
+    """deepseek-v2-lite-16b at its shipped widths, MESH_MOE_LAYERS deep."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MESH_MOE_LAYERS)
 
 
 @contextlib.contextmanager
@@ -4590,8 +4799,8 @@ def mesh_moe_rank(rank):
     torch.cuda.set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     single = pickle.loads((MESH_MOE_DIR / "single.pkl").read_bytes())
-    cfg = get_config(MOE_ARCH)
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+    cfg = mesh_moe_cfg()
+    cfg32 = dataclasses.replace(get_config(MOE_ARCH), compute_dtype="float32",
                                 n_layers=MESH_MOE_F32_LAYERS)
     reqs = phase4_requests(cfg.vocab_size)
     prompts = [r.prompt for r in reqs[:4]]
@@ -4713,12 +4922,11 @@ def phase_mesh_moe():
     ranks sharing the card on meshes (1, 4) and (2, 2), both layouts;
     then ``topk_gather`` at the ranks' decode shapes."""
     import shutil
-    from repro_torch.configs import get_config
     from repro_torch.launch.ranks import run_ranks
     t0 = time.perf_counter()
     shutil.rmtree(MESH_MOE_DIR, ignore_errors=True)
     MESH_MOE_DIR.mkdir(parents=True)
-    cfg = get_config(MOE_ARCH)
+    cfg = mesh_moe_cfg()
     reqs = phase4_requests(cfg.vocab_size)
     forced = np.random.default_rng(SEED + 15).integers(
         0, cfg.vocab_size, (MESH_SERVE_FORCED, 4))
@@ -4730,8 +4938,9 @@ def phase_mesh_moe():
     t_gloo = time.perf_counter() - t
     failed = []
     logits_bytes = 4 * cfg.padded_vocab * 2
-    print(f"[mesh-moe] {MOE_ARCH} at full width and depth ({cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, MLA {cfg.n_heads} heads on "
+    print(f"[mesh-moe] {MOE_ARCH} at full width, cut to {cfg.n_layers} of "
+          f"27 layers in bf16 (d_model {cfg.d_model}, MLA {cfg.n_heads} "
+          f"heads on "
           f"kv_lora {cfg.kv_lora_rank}, {cfg.n_experts} routed experts "
           f"top-{cfg.experts_per_token} + {cfg.n_shared_experts} shared, "
           f"vocab {cfg.vocab_size}), bf16, random weights from seed {SEED}, "
@@ -4844,8 +5053,10 @@ def phase_mesh_moe():
 # ---------------------------------------------------------------------------
 
 # The dry run's cells on 16x16 traced here on fake CUDA tensors.
-ROOFLINE_CELLS = ("smollm_360m", "deepseek_v2_lite_16b",
-                  "qwen3_moe_235b_a22b")
+ROOFLINE_CELLS = (("smollm_360m", "decode_32k"),
+                  ("deepseek_v2_lite_16b", "decode_32k"),
+                  ("qwen3_moe_235b_a22b", "decode_32k"),
+                  ("zamba2_1p2b", "long_500k"))
 # A share of the step's bound above this means the count is wrong.
 SHARE_LIMIT = 1.05
 
@@ -4892,7 +5103,8 @@ def phase_roofline(kernel_rows):
     """(a) the census of phase 4's decode step on the card, equal to a
     fake-CUDA trace of it; (b) its bound and its shares of phase 4's
     device-alone and host-clock step; (c) rows 1-4's bounds from the
-    modules; (d) the dry run of three decode cells on 16x16."""
+    modules; (d) the dry run of three decode_32k cells and zamba2's
+    long_500k on 16x16."""
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import compile_cell
     from repro_torch.launch.hlo import census
@@ -4972,21 +5184,24 @@ def phase_roofline(kernel_rows):
     torch.cuda.empty_cache()
     bounds = module_bounds(cfg, kernel_rows)
     cells = {}
-    for arch in ROOFLINE_CELLS:
+    for arch, shape in ROOFLINE_CELLS:
         t = time.perf_counter()
-        cell = compile_cell(arch, "decode_32k", False, accounting=False,
+        cell = compile_cell(arch, shape, False, accounting=False,
                             device="cuda")
         mem = cell["full"]["memory"]
-        cells[arch] = {"argument_bytes": mem["argument_bytes"],
-                       "peak_bytes_est": mem["peak_bytes_est"],
-                       "bound_ms": 1e3 * cell_roofline(cell)["bound_s"],
-                       "flops": cell["full"]["cost"]["flops"],
-                       "seconds": time.perf_counter() - t}
-        print(f"[roofline] dry run {arch} decode_32k on 16x16 (fake CUDA "
+        key = f"{arch}|{shape}"
+        cells[key] = {"argument_bytes": mem["argument_bytes"],
+                      "peak_bytes_est": mem["peak_bytes_est"],
+                      "bound_ms": 1e3 * cell_roofline(cell)["bound_s"],
+                      "flops": cell["full"]["cost"]["flops"],
+                      "collectives": cell["full"]["collectives"],
+                      "seconds": time.perf_counter() - t}
+        print(f"[roofline] dry run {arch} {shape} on 16x16 (fake CUDA "
               f"tensors): a rank holds {mem['argument_bytes'] / 1e9:.3f} GB "
               f"of params and cache, peak {mem['peak_bytes_est'] / 1e9:.3f} "
-              f"GB, bound {cells[arch]['bound_ms']:.3f} ms "
-              f"({cells[arch]['seconds']:.1f} s)")
+              f"GB, bound {cells[key]['bound_ms']:.3f} ms, collectives "
+              f"{cell['full']['collectives']} "
+              f"({cells[key]['seconds']:.1f} s)")
     print("[roofline] numbers " + json.dumps({
         "decode_step": {"flops": cost["flops"],
                         "flops_bf16": cost["flops_bf16"],
@@ -5003,6 +5218,377 @@ def phase_roofline(kernel_rows):
                         "share_host": shares["host"],
                         "peak_bytes_est": real["memory"]["peak_bytes_est"]},
         "kernels": bounds, "dry_run": cells}))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the SSM/hybrid patterns served on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_SSM_DIR = ROOT / "build" / "mesh_ssm"
+XLSTM_ARCH = "xlstm-350m"
+#: (b): generate_static of 4 prompts of this many tokens and as many new
+MESH_SSM_PROMPT = MESH_SSM_GEN = 8
+#: (a): one unit of zamba2 (18 Mamba2 blocks and the shared block) in
+#: float32, the prompt stepped through, then this many forced steps
+MESH_SSM_F32_LAYERS, MESH_SSM_FORCED = 19, 3
+#: max_seq of (a) and (b): a multiple of 4, so the shared attention's
+#: cache rows shard over ``model`` (its sharded softmax runs)
+MESH_SSM_SEQ = 20
+#: (g): xlstm-350m's prompts and new tokens
+MESH_SSM_XLSTM_PROMPT = MESH_SSM_XLSTM_GEN = 4
+#: (b) and (g): the largest bf16 logit difference between the mesh and
+#: the single device on equal inputs (every step before a row's first
+#: parting), and the tie margin of a parted token: fixed at about twice
+#: the differences the sound runs showed on an H100 (zamba2 0.2129 on
+#: 2x2, xlstm 0.0615 on 1x4), so a fault that widens the difference
+#: cannot widen its own bound
+MESH_SSM_GAP = {"zamba2": 0.43, "xlstm": 0.125}
+
+
+def ssm_cfgs():
+    """zamba2-1.2b and xlstm-350m as shipped (bf16), and (a)'s float32
+    zamba2 cut to one unit."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    return (cfg, get_config(XLSTM_ARCH),
+            dataclasses.replace(cfg, compute_dtype="float32",
+                                n_layers=MESH_SSM_F32_LAYERS))
+
+
+def ssm_tokens(cfg, xcfg):
+    """(a)'s and (b)'s prompts and forced tokens, (g)'s prompts."""
+    rng = np.random.default_rng(SEED + 17)
+    return (rng.integers(0, cfg.vocab_size,
+                         (4, MESH_SSM_PROMPT + MESH_SSM_FORCED)),
+            rng.integers(0, xcfg.vocab_size, (4, MESH_SSM_XLSTM_PROMPT)))
+
+
+def stepped_logits(engine, toks):
+    """Every column of ``toks`` (4, S) stepped through ``serve_step`` from
+    a fresh cache on the engine's mesh: the logits of each step, float32
+    host tensors."""
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(toks).to(engine.device)
+    rows = []
+    with torch.no_grad(), engine.on_mesh():
+        cache = engine.new_cache(toks.shape[0])
+        for pos in range(toks.shape[1]):
+            logits, cache = T.serve_step(engine.params, cache,
+                                         {"tokens": toks[:, pos:pos + 1]},
+                                         pos, engine.cfg)
+            rows.append(logits.float().cpu())
+    return rows
+
+
+def static_run(engine, prompts, gen, log=None):
+    """``generate_static`` after a short warm-up, the counts set to 0 just
+    before: tokens, the logits of every step (host), the host-clock step,
+    ``topk_gather`` launches, and (with ``log``, a :class:`CollectiveLog`)
+    the collectives of the run."""
+    from repro_torch.sharding.collectives import observe_collectives
+    engine.generate_static(prompts[:, :2], 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        rows = stack.enter_context(step_logits())
+        if log is not None:
+            log.in_step = True
+            stack.enter_context(observe_collectives(log))
+        t = time.perf_counter()
+        toks = engine.generate_static(prompts, gen)
+        wall = time.perf_counter() - t
+    steps = prompts.shape[1] + gen
+    return {"tokens": toks, "rows": [r.float().cpu() for r in rows],
+            "step_ms": wall / steps * 1e3,
+            "tok_s": prompts.shape[0] * gen / wall,
+            "launches": read_counts()["topk_gather"], "steps": steps,
+            "collectives": None if log is None else log.summary(steps)}
+
+
+def mesh_ssm_rank(rank):
+    """Phase 17 on one of four gloo ranks sharing the card, for each mesh
+    of MESH_SERVE_MESHES, every engine drawing only the rank's blocks of
+    seed 0's weights: (a) the f32 unit's logits holding the single-device
+    k-WTA selections; ``topk_gather`` at the rank's decode shape against
+    its plain version; (b) zamba2 bf16 ``generate_static`` (tokens,
+    logits, launches, collectives, bytes, times); (g) xlstm-350m bf16."""
+    import pickle
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.kernels.topk_gather import topk_gather, topk_gather_plain
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    single = pickle.loads((MESH_SSM_DIR / "single.pkl").read_bytes())
+    cfg, xcfg, cfg32 = ssm_cfgs()
+    toks, xtoks = single["toks"], single["xtoks"]
+    prompts = toks[:, :MESH_SSM_PROMPT]
+    out = {"rank": rank}
+    for dims in MESH_SERVE_MESHES:
+        mesh = make_mesh(dims, ("data", "model"), device)
+        res = {"coords": mesh.coords}
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg32, MESH_SSM_SEQ, 4, device=device, mesh=mesh)
+        rows = eng.shards.batch_rows(4)
+        held = iter([m.to(device) for m in single["masks"]])
+        with kwta_selections(held, rows=rows):
+            got = stepped_logits(eng, toks)
+        if next(held, None) is not None:
+            fail("mesh-ssm: k-WTA selections left over")
+        res["f32_err"] = rows_err([g.numpy() for g in got],
+                                  single["f32_rows"])
+        del eng
+        torch.cuda.empty_cache()
+        shape = dict(HYBRID_SHAPE, b=4 if rows is None
+                     else rows.stop - rows.start)
+        operands = kernel_operands(shape, torch.bfloat16, SEED + 71)[:5]
+        res["kernel"] = {"shape": shape, "max_abs_err": check(
+            f"topk_gather {shape} bf16 on rank {rank} of {dims}",
+            topk_gather(*operands), topk_gather_plain(*operands),
+            phase="mesh-ssm")}
+        eng = Engine(cfg, MESH_SSM_SEQ, 4, device=device, mesh=mesh)
+        res["zamba2"] = static_run(eng, prompts, MESH_SSM_GEN,
+                                   CollectiveLog(eng))
+        res["zamba2"]["bytes"] = serving_bytes(eng)
+        del eng
+        eng = Engine(xcfg, 2 * MESH_SSM_XLSTM_PROMPT + 1, 4, device=device,
+                     mesh=mesh)
+        res["xlstm"] = static_run(eng, xtoks, MESH_SSM_XLSTM_GEN,
+                                  CollectiveLog(eng))
+        res["xlstm"]["bytes"] = serving_bytes(eng)
+        del eng
+        res["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        out[dims] = res
+    return out
+
+
+def mesh_ssm_nccl(rank):
+    """(h) in a process of its own: zamba2 bf16 ``generate_static`` on
+    mesh 1x1 over NCCL at world size 1 against the engine without a
+    mesh: tokens and every step's logits, bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, xcfg, _ = ssm_cfgs()
+    prompts = ssm_tokens(cfg, xcfg)[0][:, :MESH_SSM_PROMPT]
+    params = T.init_model(cfg, seed=SEED, device=device)
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    runs = [static_run(Engine(cfg, MESH_SSM_SEQ, 4, params=params,
+                              device=device, mesh=m),
+                       prompts, MESH_SSM_GEN) for m in (None, mesh)]
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "distributed": mesh.distributed,
+            "tokens_equal": bool(np.array_equal(runs[0]["tokens"],
+                                                runs[1]["tokens"])),
+            "logits_equal": all(torch.equal(a, b) for a, b in zip(
+                runs[0]["rows"], runs[1]["rows"], strict=True))}
+
+
+def ssm_single(cfg, xcfg, cfg32, toks, xtoks):
+    """The single-device references of phase 17 on the card: the f32
+    unit's stepped logits with its k-WTA selections (pickled for the
+    ranks), zamba2's and xlstm's bf16 ``generate_static`` runs, and the
+    reckoned per-rank bytes of each on each mesh."""
+    import pickle
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    params = T.init_model(cfg32, seed=SEED, device="cuda")
+    eng = Engine(cfg32, MESH_SSM_SEQ, 4, params=params, device="cuda")
+    with kwta_selections() as masks:
+        f32_rows = [r.numpy() for r in stepped_logits(eng, toks)]
+    single = {"toks": toks, "xtoks": xtoks, "f32_rows": f32_rows,
+              "masks": [m.cpu() for m in masks]}
+    del params, eng
+    torch.cuda.empty_cache()
+    (MESH_SSM_DIR / "single.pkl").write_bytes(pickle.dumps(single))
+    one, reckoned = {}, {}
+    for name, c, prompts, gen, seq in (
+            ("zamba2", cfg, toks[:, :MESH_SSM_PROMPT], MESH_SSM_GEN,
+             MESH_SSM_SEQ),
+            ("xlstm", xcfg, xtoks, MESH_SSM_XLSTM_GEN,
+             2 * MESH_SSM_XLSTM_PROMPT + 1)):
+        params = T.init_model(c, seed=SEED, device="cuda")
+        eng = Engine(c, seq, 4, params=params, device="cuda")
+        one[name] = static_run(eng, prompts, gen)
+        one[name]["bytes"] = serving_bytes(eng)
+        for dims in MESH_SERVE_MESHES:
+            rules = make_rules(Mesh(dims, ("data", "model"),
+                                    torch.device("cuda")), "decode")
+            reckoned[dims, name] = reckoned_serving_bytes(eng, params, rules)
+        del params, eng
+        torch.cuda.empty_cache()
+    return one, reckoned
+
+
+def cpu_launches():
+    """(c) zamba2 reduced on the CPU through ``generate_static``: the
+    plain version runs for CPU tensors, the kernel never."""
+    from repro_torch.launch.serve import Engine
+    cfg = ssm_cfgs()[0].reduced()
+    reset_counts()
+    toks = Engine(cfg, 8, 2, device="cpu").generate_static(
+        np.zeros((2, 3), np.int64), 3)
+    return toks.shape, read_counts()["topk_gather"]
+
+
+def phase_mesh_ssm():
+    """Phase 17: the single-device references on the card, then four gloo
+    ranks sharing the card on meshes (1, 4) and (2, 2) beside one NCCL
+    rank at world size 1."""
+    import shutil
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_SSM_DIR, ignore_errors=True)
+    MESH_SSM_DIR.mkdir(parents=True)
+    cfg, xcfg, cfg32 = ssm_cfgs()
+    toks, xtoks = ssm_tokens(cfg, xcfg)
+    one, reckoned = ssm_single(cfg, xcfg, cfg32, toks, xtoks)
+    t_single = time.perf_counter() - t0
+    done = {}
+
+    def nccl_rank():
+        t = time.perf_counter()
+        try:
+            done["nccl"] = run_ranks(mesh_ssm_nccl, 1, MESH_SSM_DIR / "nccl",
+                                     backend="nccl", timeout_s=600)[0]
+        except BaseException as e:      # raised again below, in this thread
+            done["error"] = e
+        done["s"] = time.perf_counter() - t
+
+    side = threading.Thread(target=nccl_rank)
+    side.start()
+    t = time.perf_counter()
+    try:
+        ranks = run_ranks(mesh_ssm_rank, 4, MESH_SSM_DIR / "ranks",
+                          backend="gloo", timeout_s=900, threads=1)
+    finally:
+        side.join()
+    t_gloo = time.perf_counter() - t
+    if "error" in done:
+        raise done["error"]
+    nccl = done["nccl"]
+    failed = []
+    per_step = cfg.n_units * cfg.block_pattern.count("shared_attn")
+    print(f"[mesh-ssm] {HYBRID_ARCH} as shipped ({cfg.n_layers} layers: "
+          f"{cfg.n_units} units of {cfg.block_pattern.count('mamba2')} "
+          f"Mamba2 + the shared attention block, d_model {cfg.d_model}, "
+          f"d_inner {cfg.ssm_expand * cfg.d_model}, ssm_state "
+          f"{cfg.ssm_state}, {cfg.n_heads} heads, shared FFN d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}) and {XLSTM_ARCH} "
+          f"({xcfg.n_layers} layers, d_model {xcfg.d_model}, {xcfg.n_heads} "
+          f"heads), bf16, random weights from seed {SEED}; four gloo ranks "
+          f"sharing the card: {device_line()}")
+    numbers = {"single": {k: {"tok_s": v["tok_s"], "step_ms": v["step_ms"],
+                              "bytes": v["bytes"]} for k, v in one.items()}}
+    for name in ("zamba2", "xlstm"):
+        print(f"[mesh-ssm] single device {name}: {one[name]['tok_s']:.2f} "
+              f"tok/s, step {one[name]['step_ms']:.2f} ms (host clock), "
+              f"param bytes {one[name]['bytes'][0]}, cache bytes "
+              f"{one[name]['bytes'][2]}, topk_gather launches "
+              f"{one[name]['launches']} in {one[name]['steps']} steps")
+    for dims in MESH_SERVE_MESHES:
+        name = "x".join(map(str, dims))
+        rs = [r[dims] for r in ranks]
+        err = max(r["f32_err"] for r in rs)
+        print(f"[mesh-ssm] {name} (a) f32, {MESH_SSM_F32_LAYERS} of "
+              f"{cfg.n_layers} blocks, 4 prompts of {MESH_SSM_PROMPT} "
+              f"stepped through and {MESH_SSM_FORCED} forced steps holding "
+              f"the single-device k-WTA selections: largest |logits - "
+              f"single| {err:.3e} (tol {MESH_SERVE_TOL:.0e}); peak "
+              f"{max(r['peak'] for r in rs) / 2**30:.2f} GiB a rank")
+        if not err <= MESH_SERVE_TOL:
+            failed.append(f"{name}: f32 logits part from the single device")
+        numbers[name] = {"f32_err": err, "kernel": [r["kernel"] for r in rs]}
+        for arch, prompt in (("zamba2", MESH_SSM_PROMPT),
+                             ("xlstm", MESH_SSM_XLSTM_PROMPT)):
+            got = [r[arch] for r in rs]
+            if any(not np.array_equal(g["tokens"], got[0]["tokens"])
+                   for g in got):
+                failed.append(f"{name} {arch}: ranks took other tokens")
+            parted, free = static_parity(
+                got[0]["tokens"], got[0]["rows"], one[arch]["tokens"],
+                one[arch]["rows"], f"{name} {arch} mesh vs single", prompt,
+                "mesh-ssm", top_two=False, bound=MESH_SSM_GAP[arch])
+            check_id = "(b)" if arch == "zamba2" else "(g)"
+            print(f"[mesh-ssm] {name} {arch} {check_id} bf16 tokens against "
+                  f"the single device: {4 - parted} of 4 rows identical, "
+                  f"{parted} parted at a tie (the single run's logit of "
+                  f"the mesh's token within {MESH_SSM_GAP[arch]} of its "
+                  f"largest); largest logit difference on equal inputs "
+                  f"{free:.3e} (limit {MESH_SSM_GAP[arch]})")
+            if not free <= MESH_SSM_GAP[arch]:
+                failed.append(f"{name} {arch}: bf16 logits part from the "
+                              "single device on equal inputs")
+            launches = [g["launches"] / g["steps"] for g in got]
+            want_launches = per_step if arch == "zamba2" else 0
+            print(f"[mesh-ssm] {name} {arch} (c) topk_gather launches a "
+                  f"step on each rank {launches} (want {want_launches})")
+            if any(x != want_launches for x in launches):
+                failed.append(f"{name} {arch}: topk_gather launches")
+            for r, g in zip(rs, got):
+                want = reckoned[dims, arch]
+                print(f"[mesh-ssm] {name} {arch} (d) rank {r['coords']}: "
+                      f"param bytes {g['bytes'][0]} (reckoned from the specs "
+                      f"{want[0]}; single device {one[arch]['bytes'][0]}), "
+                      f"cache bytes {g['bytes'][2]} (reckoned {want[1]}; "
+                      f"single {one[arch]['bytes'][2]})")
+                if (g["bytes"][0], g["bytes"][2]) != tuple(want):
+                    failed.append(f"{name} {arch}: a rank's bytes are not "
+                                  "its reckoned block's")
+            c = got[0]["collectives"]
+            logits_bytes = 4 * (cfg if arch == "zamba2" else
+                                xcfg).padded_vocab * 2
+            print(f"[mesh-ssm] {name} {arch} (e) a step's collectives: "
+                  f"{c['per_step']:.1f} ({c['ops']} in all steps), "
+                  f"{c['bytes_per_step'] / 1e3:.1f} kB, the largest "
+                  f"{c['largest'][0]} of {c['largest'][1]} B (the bf16 "
+                  f"logits are {logits_bytes} B); tensors handed over that "
+                  f"are a param or cache block: "
+                  f"{[g['collectives']['weights_handed'] for g in got]}")
+            if any(g["collectives"]["weights_handed"] for g in got):
+                failed.append(f"{name} {arch}: a collective was handed a "
+                              "param or cache block")
+            print(f"[mesh-ssm] {name} {arch} (f) host clock: "
+                  f"{got[0]['tok_s']:.2f} tok/s, step "
+                  f"{got[0]['step_ms']:.2f} ms (single device "
+                  f"{one[arch]['tok_s']:.2f} tok/s, "
+                  f"{one[arch]['step_ms']:.2f} ms); no claim")
+            numbers[name][arch] = {
+                "tok_s": got[0]["tok_s"], "step_ms": got[0]["step_ms"],
+                "parted": parted, "launches_per_step": launches[0],
+                "collectives": c, "bytes": [g["bytes"] for g in got]}
+    shape, cpu = cpu_launches()
+    print(f"[mesh-ssm] (c) {HYBRID_ARCH} reduced on the CPU, "
+          f"generate_static {shape}: topk_gather launches {cpu} (the plain "
+          f"version runs for CPU tensors)")
+    if cpu:
+        failed.append("the CPU path launched the kernel")
+    print(f"[mesh-ssm] (h) mesh 1x1 over {nccl['backend']} at world size "
+          f"{nccl['world']} (process group up: {nccl['distributed']}) "
+          f"against the engine without a mesh: tokens bit-equal "
+          f"{nccl['tokens_equal']}, every step's logits bit-equal "
+          f"{nccl['logits_equal']}")
+    if not (nccl["tokens_equal"] and nccl["logits_equal"]
+            and nccl["distributed"]):
+        failed.append("the 1x1 mesh over NCCL parts from the plain engine")
+    numbers.update(single_s=t_single, gloo_s=t_gloo, nccl_s=done["s"],
+                   phase_s=time.perf_counter() - t0)
+    print(f"[mesh-ssm] numbers {json.dumps(numbers)}")
+    shutil.rmtree(MESH_SSM_DIR, ignore_errors=True)
+    if failed:
+        fail("mesh-ssm: " + "; ".join(failed))
+    return {"launches_mesh_ssm_per_decode_step": numbers["2x2"]["zamba2"][
+        "launches_per_step"],
+        "mesh_ssm_max_abs_err": max(k["max_abs_err"] for d in
+                                    MESH_SERVE_MESHES for k in
+                                    numbers["x".join(map(str, d))]["kernel"])}
 
 
 def main():
@@ -5092,6 +5678,10 @@ def main():
     t = time.perf_counter()
     phase_roofline([row] + rows)
     print(f"[roofline] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_mesh_ssm())
+    print(f"[mesh-ssm] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

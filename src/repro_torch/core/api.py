@@ -135,6 +135,17 @@ def observe_dispatch(cb: Callable[[Dict], None]) -> Iterator[None]:
         _DISPATCH_OBS.stack.remove(cb)
 
 
+@contextlib.contextmanager
+def pause_dispatch() -> Iterator[None]:
+    """No dispatch observer of this thread sees an event while the block
+    runs."""
+    saved, _DISPATCH_OBS.stack = _DISPATCH_OBS.stack, []
+    try:
+        yield
+    finally:
+        _DISPATCH_OBS.stack = saved
+
+
 def dispatch_observed() -> bool:
     """True when a dispatch observer is active on this thread (callers
     skip building the event dict otherwise)."""

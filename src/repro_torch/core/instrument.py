@@ -72,6 +72,17 @@ def count_selects() -> Iterator[SelectCounter]:
         _STATE.stack.remove(c)
 
 
+@contextlib.contextmanager
+def pause_selects() -> Iterator[None]:
+    """No Select counter of this thread ticks while the block runs (a
+    block's recompute in the backward: the step counted it once)."""
+    saved, _STATE.stack = _STATE.stack, []
+    try:
+        yield
+    finally:
+        _STATE.stack = saved
+
+
 def counted_top_k(x: torch.Tensor, k: int):
     """``torch.topk`` over the last axis (largest first, sorted, like
     ``lax.top_k``) that ticks every active Select counter.  Traced under

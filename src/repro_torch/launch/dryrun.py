@@ -19,9 +19,10 @@ mesh (:func:`repro_torch.launch.mesh.make_production_mesh` and
 
 * train: :func:`repro_torch.launch.steps.make_sharded_train_step` on the
   rank's training state (ZeRO-1 moments) and its rows of the batch;
-* prefill: :func:`repro_torch.models.transformer.prefill` of the rank's
-  rows under the prefill rules (:func:`repro_torch.sharding.serving.
-  use_serving`), the last position's logits;
+* prefill: :func:`repro_torch.launch.steps.make_prefill_step` (the
+  forward's last-position logits, as the reference counts it) of the
+  rank's rows on the serving params a rank of the engine holds, under the
+  prefill rules (:func:`repro_torch.sharding.serving.use_serving`);
 * decode: :func:`repro_torch.models.transformer.serve_step` under the
   decode rules (``decode_long`` for a batch below 8), on the serving params
   and cache a rank of the engine holds.
@@ -29,8 +30,10 @@ mesh (:func:`repro_torch.launch.mesh.make_production_mesh` and
 Each record (the reference's keys, appended to a JSON results file) holds
 ``full`` (the census of the whole step: ``cost``, ``collectives``,
 ``ops``, ``host_transfers``, ``memory``), the accounting parts ``unit``
-(one unit of blocks), ``head`` (the final norm and head; with the
-embedding and the loss for train) and, for train, ``opt`` (the
+(one unit of blocks: its forward and backward for train, its forward
+(:func:`repro_torch.launch.steps.make_unit_fwd_step`, no remat) for
+prefill, its decode step for decode), ``head`` (the final norm and head;
+with the embedding and the loss for train) and, for train, ``opt`` (the
 optimizer update), and ``n_params``.  The roofline
 (:mod:`repro_torch.launch.roofline`) reads ``full``: an eager trace hides
 no loop body.  A cell that raises is recorded ``ok: false`` with its error,
@@ -68,7 +71,6 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.launch import steps as St
 from repro_torch.launch.hlo import census
 from repro_torch.launch.mesh import make_production_mesh, parse_mesh
-from repro_torch.launch.serve import check_mesh_pattern
 from repro_torch.models import transformer as T
 from repro_torch.models.common import dtype_of
 from repro_torch.optim import AdamWConfig, apply_updates
@@ -250,15 +252,12 @@ def _serving_params(cfg, rules, device, mode):
 
 
 def _prefill_cell(cfg, tcfg, shape, rules, whole, mode, device, accounting):
-    check_mesh_pattern(cfg, rules.mesh)
     shards = Shards(rules, shape.seq_len)
     params = _serving_params(cfg, rules, device, mode)
     batch = {k: _rows(rules, v) for k, v in St.input_specs(
         cfg, shape, device, mode).items()}
     with use_serving(shards):
-        out = {"full": census(
-            lambda p, b: T.prefill(p, b, cfg, shape.seq_len)[0][:, -1],
-            params, batch)}
+        out = {"full": census(St.make_prefill_step(cfg), params, batch)}
     if not accounting:
         return out
     rows = next(iter(batch.values())).shape[0]
@@ -266,22 +265,16 @@ def _prefill_cell(cfg, tcfg, shape, rules, whole, mode, device, accounting):
     x, positions = fake(lambda: (
         torch.empty((rows, s, cfg.d_model), dtype=ct),
         torch.arange(s).expand(rows, s)), device, mode)
-
-    def unit_prefill(unit, x, positions):
-        for i in range(len(cfg.block_pattern)):
-            x, _ = T._block_prefill(unit[f"b{i}"], x, cfg, positions, s)
-        return x
-
+    unit_step = St.make_unit_fwd_step(dataclasses.replace(cfg, remat=False))
     with use_serving(shards):
-        out["unit"] = census(unit_prefill, _unit(params["layers"], cfg), x,
-                             positions)
+        out["unit"] = census(unit_step, _unit(params["layers"], cfg),
+                             params.get("shared"), x, positions)
         out["head"] = census(
             lambda p, x: T._logits(p, x, cfg, ct)[:, -1], params, x)
     return out
 
 
 def _decode_cell(cfg, tcfg, shape, rules, whole, mode, device, accounting):
-    check_mesh_pattern(cfg, rules.mesh)
     b, s = shape.global_batch, shape.seq_len
     shards = Shards(rules, s)
     params = _serving_params(cfg, rules, device, mode)

@@ -57,10 +57,11 @@ them), runs the same scheduler on the same logits and so samples the
 same tokens; a decode step moves activations between ranks, never a
 weight.  The contiguous cache's slots shard over ``data`` where they
 divide; the page pools hold every page on every rank, so a paged step
-computes every slot.  A one-rank mesh is the engine without one.  The
-attention block patterns are served on a mesh of more than one rank: the
-GQA and MLA families, MoE (experts parallel over ``model``), the int8
-cache and the frontends' inputs; the SSM/hybrid patterns raise there.
+computes every slot.  A one-rank mesh is the engine without one.  Every
+block pattern is served on a mesh of more than one rank: the GQA and MLA
+families, MoE (experts parallel over ``model``), the int8 cache, the
+frontends' inputs, and the SSM/hybrid patterns (Mamba2, zamba2's shared
+attention block, mLSTM, sLSTM) through :meth:`Engine.generate_static`.
 
 Telemetry: pass ``telemetry=repro_torch.obs.Telemetry.on(...)`` and the
 engine traces host-clock spans around every stage (``schedule.admit`` /
@@ -113,16 +114,6 @@ from repro_torch.runtime.scheduler import (Request, RequestRecord,
                                            SamplingParams, Scheduler,
                                            sample_token)
 from repro_torch.sharding.serving import Shards, use_serving
-
-
-def check_mesh_pattern(cfg, mesh) -> None:
-    """Raise for a block pattern that does not serve on ``mesh`` (of more
-    than one rank): only attention block patterns do."""
-    if any(k != "attn" for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {mesh.dims}: only attention block "
-            "patterns serve on a mesh of more than one rank (ROADMAP "
-            "Queue 1 item 5: SSM/hybrid serving on a mesh)")
 
 
 def _bucket(n: int, max_seq: int) -> int:
@@ -195,8 +186,6 @@ class Engine:
         #: the rank's place on a mesh of more than one rank, else None
         self.shards = Shards.of(mesh, max_seq)
         self.rules = None if self.shards is None else self.shards.rules
-        if self.shards is not None:
-            check_mesh_pattern(cfg, mesh)
         if params is None:      # on a mesh, each rank draws only its blocks
             self.params = T.init_model(cfg, seed=0, device=self.device,
                                        rules=self.rules)

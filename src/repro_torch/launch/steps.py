@@ -293,8 +293,11 @@ def make_serve_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
+    """The forward's next-token logits (B, vocab), with no autograd
+    record (so no remat)."""
     def prefill_step(params, batch):
-        logits, _ = T.forward(params, batch, cfg)
+        with torch.no_grad():
+            logits, _ = T.forward(params, batch, cfg)
         return logits[:, -1]  # next-token logits
 
     return prefill_step

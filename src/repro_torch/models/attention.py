@@ -450,15 +450,15 @@ def _gqa_cache_attn(params, x, q, k_view, v_view, valid, cfg):
     return _o_of_heads(params, x, _mask_dummy_heads(out, cfg), cfg)
 
 
-def _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh):
+def _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh, axes):
     """:func:`_gqa_cache_attn` where the cache view is this rank's block
-    of rows: the sharded softmax, combined over ``model``, for the true
-    heads (the padded heads' outputs are zeros)."""
+    of rows: the sharded softmax, combined over the rows' ``axes``, for
+    the true heads (the padded heads' outputs are zeros)."""
     rep = cfg.n_heads // cfg.n_kv_heads
     scores = _scores(q, _repeat_kv(k_view, rep), valid, cfg.head_dim)
-    m = sh.reduce_model(softmax_max(scores), "max")
+    m = sh.reduce(softmax_max(scores), axes, "max")
     l, acc = softmax_terms(scores, _repeat_kv(v_view, rep), m)
-    terms = sh.reduce_model(torch.cat([l[..., None], acc], dim=-1))
+    terms = sh.reduce(torch.cat([l[..., None], acc], dim=-1), axes)
     out = softmax_finish(terms[..., 0], terms[..., 1:]).to(x.dtype)
     return _o_of_heads(params, x, _pad_heads(out, cfg.padded_heads), cfg)
 
@@ -477,13 +477,16 @@ def _heads_attn(params, x, q, k_view, v_view, valid, cfg, sh, heads):
 
 def _cache_split(cfg, paged: bool):
     """(serving shards, what the rank's cache block holds: "rows",
-    "heads" or None, and that block [lo, hi))."""
+    "heads" or None, the mesh axes it is a block over, and that block
+    [lo, hi))."""
     sh = serving()
     split = None if sh is None else sh.kv_split(paged, cfg.n_kv_heads)
     if split is None:
-        return sh, None, None
-    n = sh.max_seq if split == "rows" else cfg.n_kv_heads
-    return sh, split, sh.block("model", n)
+        return sh, None, None, None
+    if split == "rows":
+        axes = sh.rows_axes(paged, cfg.n_kv_heads)
+        return sh, split, axes, sh.block(axes, sh.max_seq)
+    return sh, split, "model", sh.block("model", cfg.n_kv_heads)
 
 
 def gqa_decode(params, x, cfg, cache, pos, pages=None):
@@ -507,7 +510,7 @@ def gqa_decode(params, x, cfg, cache, pos, pages=None):
         pos_b = torch.full((b,), int(pos), dtype=torch.int64,
                            device=x.device)
     q, k, v = _qkv(params, x, cfg, pos_b[:, None])
-    sh, split, block = _cache_split(cfg, pages is not None)
+    sh, split, axes, block = _cache_split(cfg, pages is not None)
     lo = block[0] if split == "rows" else 0
     if split == "heads":
         k, v = k[..., block[0]:block[1], :], v[..., block[0]:block[1], :]
@@ -519,7 +522,7 @@ def gqa_decode(params, x, cfg, cache, pos, pages=None):
         cols = cols + lo
     valid = cols[None, None, :] <= pos_b[:, None, None]
     if split == "rows":
-        y = _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh)
+        y = _rows_attn(params, x, q, k_view, v_view, valid, cfg, sh, axes)
     elif split == "heads":
         y = _heads_attn(params, x, q, k_view, v_view, valid, cfg, sh, block)
     else:
@@ -542,7 +545,7 @@ def gqa_chunk_prefill(params, x, cfg, cache, pages, pos_start: int,
     b, c, _ = x.shape
     offs = int(pos_start) + torch.arange(c, device=x.device)
     q, k, v = _qkv(params, x, cfg, offs.expand(b, c))
-    sh, split, heads = _cache_split(cfg, paged=True)
+    sh, split, _, heads = _cache_split(cfg, paged=True)
     if split == "heads":
         k, v = k[..., heads[0]:heads[1], :], v[..., heads[0]:heads[1], :]
 

@@ -21,17 +21,29 @@ distributions; each ``*_decode`` returns the block's output and its new
 state, which :mod:`repro_torch.models.transformer` writes into the cache
 in place.  The state ``S`` and sLSTM's ``c``/``n`` are float32; sLSTM's
 ``h`` and the conv cache are in the compute dtype.
+
+On a serving mesh (:mod:`repro_torch.sharding.serving`) every mixer runs
+on the rank's blocks of its params and state, the reference's specs leaf
+for leaf, where each leaf is whole or a block over ``model`` as its
+dimension divides: a projection whose weight is a block of columns is
+gathered over ``model`` before its output is split (the blocks straddle
+the split), the recurrence runs on the rank's heads (Mamba2, mLSTM), a
+norm over the whole width takes its sum of squares over ``model``, and
+an out projection that holds a block of rows is a row-parallel product
+summed over ``model`` in float32.  sLSTM gathers its pre-activations and
+runs the cell on the whole state on every rank.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as tF
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.serving import serving
 from .common import normal_init, rmsnorm_apply, rmsnorm_init
 
 #: the mixers' leaves that every use casts to the compute dtype; the rest
@@ -43,6 +55,55 @@ COMPUTE_LEAVES = ("in_proj", "conv_w", "conv_b", "D", "out_proj", "qkv",
 
 def _zeros(shape, device, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The rank's blocks on a serving mesh
+# ---------------------------------------------------------------------------
+
+def _span(held: int, n: int) -> Tuple[int, int]:
+    """The block [lo, hi) of ``n`` that a leaf holding ``held`` of them
+    covers: its block over ``model`` on a serving mesh, else all."""
+    return (0, n) if held == n else serving().block("model", n)
+
+
+def _whole(*pairs):
+    """Each ``(x, n)``: ``x``, whose last dimension is a block of ``n``
+    over ``model`` (a product with a block of a weight's columns), made
+    whole; all of them in one collective.  Whole tensors pass as they
+    are."""
+    out = [x for x, _ in pairs]
+    cut = [i for i, (x, n) in enumerate(pairs) if x.shape[-1] < n]
+    if cut:
+        for i, t in zip(cut, serving().gather_last(*(out[i] for i in cut))):
+            out[i] = t
+    return out
+
+
+def _norm_cols(params, y, lo: int, n: int):
+    """RMSNorm over the whole width ``n`` of which ``y`` holds the columns
+    [lo, lo + w): the sum of squares summed over ``model`` in float32,
+    times the scale's columns."""
+    w = y.shape[-1]
+    if w == n:
+        return rmsnorm_apply(params, y)
+    y32 = y.float()
+    ss = serving().reduce_model((y32 * y32).sum(dim=-1, keepdim=True))
+    out = y32 * torch.rsqrt(ss / n + 1e-5)
+    return (out * params["scale"][lo:lo + w].float()).to(y.dtype)
+
+
+def _rows_product(y, lo: int, w, n: int):
+    """``y @ w`` where ``y`` holds the columns [lo, lo + y's width) of
+    ``n`` and ``w`` all ``n`` rows or a block of them over ``model`` (a
+    row-parallel product, summed over ``model`` in float32).  ``y`` is a
+    block of heads only where the heads divide over ``model``, and then
+    so do ``w``'s rows: its rows are ``y``'s, or ``y`` is whole."""
+    r0, r1 = _span(w.shape[0], n)
+    out = y[..., r0 - lo:r1 - lo] @ w.to(y.dtype)
+    if r1 - r0 < n:
+        out = serving().reduce_model(out.float()).to(y.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +207,6 @@ def mamba2_init(gen: torch.Generator, cfg) -> Dict:
     }
 
 
-def _mamba2_project(params, x, cfg):
-    d_inner, nh, ds = _mamba2_dims(cfg)
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
-    return torch.split(zxbcdt, [d_inner, ds, ds, nh, d_inner], dim=-1)
-
-
 def _causal_conv(seq, w, b, cache=None):
     """Depthwise causal conv over time. seq: (B, T, C); w: (K, C).
 
@@ -170,31 +225,46 @@ def _causal_conv(seq, w, b, cache=None):
 
 def _mamba2_mix(params, x, cfg, conv_cache=None):
     """The projection, the causal conv and the gate: (xin, B, C, dt, z,
-    conv_cache) with dt = softplus(dt + dt_bias) in f32."""
-    d_inner, _, ds = _mamba2_dims(cfg)
-    xin, B, C, dt, z = _mamba2_project(params, x, cfg)
-    xbc, conv_new = _causal_conv(torch.cat([xin, B, C], dim=-1),
+    conv_cache) with dt = softplus(dt + dt_bias) in f32; ``xin``, ``dt``
+    and ``z`` of the heads the rank holds (all of them off a mesh).  On a
+    mesh ``in_proj``'s block of columns straddles [x | B | C | dt | z] and
+    is gathered before the split; the conv runs on the rank's block of
+    channels (its weights and its cache), gathered again."""
+    d_inner, nh, ds = _mamba2_dims(cfg)
+    hd, conv_dim = cfg.ssm_head_dim, d_inner + 2 * ds
+    (zxbcdt,) = _whole((x @ params["in_proj"].to(x.dtype),
+                        conv_dim + nh + d_inner))
+    xin, B, C, dt, z = torch.split(zxbcdt, [d_inner, ds, ds, nh, d_inner],
+                                   dim=-1)
+    c0, c1 = _span(params["conv_b"].shape[0], conv_dim)
+    xbc, conv_new = _causal_conv(torch.cat([xin, B, C], dim=-1)[..., c0:c1],
                                  params["conv_w"], params["conv_b"],
                                  conv_cache)
+    (xbc,) = _whole((xbc, conv_dim))
     xin, B, C = torch.split(xbc, [d_inner, ds, ds], dim=-1)
-    dt = tF.softplus(dt.float() + params["dt_bias"])
-    return xin, B, C, dt, z, conv_new
+    h0, h1 = _span(params["A_log"].shape[0], nh)
+    dt = tF.softplus(dt[..., h0:h1].float() + params["dt_bias"])
+    return (xin[..., h0 * hd:h1 * hd], B, C, dt, z[..., h0 * hd:h1 * hd],
+            conv_new)
 
 
-def _mamba2_out(params, y, xh, z, x):
-    """Skip, gate, norm and the out projection."""
-    d_inner = z.shape[-1]
+def _mamba2_out(params, y, xh, z, cfg):
+    """Skip, gate, the gated RMSNorm over the whole d_inner and the out
+    projection (row parallel on a mesh) of the rank's heads."""
+    d_inner, nh, _ = _mamba2_dims(cfg)
     y = y + params["D"][:, None].to(y.dtype) * xh
-    y = y.reshape(*z.shape[:2], d_inner) * tF.silu(z)
-    y = rmsnorm_apply(params["norm"], y)
-    return y @ params["out_proj"].to(x.dtype)
+    y = y.reshape(*z.shape) * tF.silu(z)
+    lo = _span(params["A_log"].shape[0], nh)[0] * cfg.ssm_head_dim
+    y = _norm_cols(params["norm"], y, lo, d_inner)
+    return _rows_product(y, lo, params["out_proj"], d_inner)
 
 
 def mamba2_apply(params, x, cfg):
     """Training/prefill forward. x: (B, T, D)."""
     b, t, _ = x.shape
-    _, nh, ds = _mamba2_dims(cfg)
+    ds = cfg.ssm_state
     xin, B, C, dt, z, _ = _mamba2_mix(params, x, cfg)
+    nh = dt.shape[-1]                                       # heads held
     log_a = -torch.exp(params["A_log"]) * dt                # (B,T,nh) <= 0
     xh = xin.reshape(b, t, nh, cfg.ssm_head_dim)
     # B/C are shared across heads (Mamba2 'multi-value' pattern)
@@ -202,7 +272,7 @@ def mamba2_apply(params, x, cfg):
     q = C[:, :, None, :].expand(b, t, nh, ds)
     kdt = k * dt[..., None].to(k.dtype)
     y, _ = ssd_scan(q, kdt, xh, log_a, cfg.ssm_chunk)
-    return _mamba2_out(params, y, xh, z, x)
+    return _mamba2_out(params, y, xh, z, cfg)
 
 
 def mamba2_cache_init(cfg, batch: int, dtype, device=None):
@@ -215,16 +285,16 @@ def mamba2_cache_init(cfg, batch: int, dtype, device=None):
 def mamba2_decode(params, x, cfg, cache, pos):
     """One-token step: O(1) state update (the long_500k path)."""
     del pos
-    b = x.shape[0]
-    _, nh, ds = _mamba2_dims(cfg)
+    b, ds = x.shape[0], cfg.ssm_state
     xin, B, C, dt, z, conv_new = _mamba2_mix(params, x, cfg, cache["conv"])
+    nh = dt.shape[-1]                                       # heads held
     log_a = (-torch.exp(params["A_log"]) * dt)[:, 0]        # (B, nh)
     xh = xin.reshape(b, nh, cfg.ssm_head_dim)
     k = B[:, 0, None, :].expand(b, nh, ds)
     q = C[:, 0, None, :].expand(b, nh, ds)
     kdt = k * dt[:, 0, :, None].to(k.dtype)
     y, S_new = ssd_step(cache["S"], q, kdt, xh, log_a)
-    return (_mamba2_out(params, y[:, None], xh[:, None], z, x),
+    return (_mamba2_out(params, y[:, None], xh[:, None], z, cfg),
             {"S": S_new, "conv": conv_new})
 
 
@@ -258,15 +328,21 @@ def mlstm_init(gen: torch.Generator, cfg) -> Dict:
 
 
 def _mlstm_qkvg(params, x, cfg):
+    """q, k, v (B, T, H', Dh) and the gates i, log f (B, T, H') of the
+    H' heads the rank holds (all of them off a mesh).  On a mesh ``qkv``'s
+    and ``gates``' blocks of columns straddle q | k | v and i | f: they
+    are gathered, in one collective, before the split."""
     b, t, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    q, k, v = (x @ params["qkv"].to(x.dtype)).chunk(3, dim=-1)
-    q = q.reshape(b, t, h, dh)
-    k = k.reshape(b, t, h, dh) / math.sqrt(dh)
-    v = v.reshape(b, t, h, dh)
     gates = (x @ params["gates"].to(x.dtype)).float() + params["gate_b"]
-    ig, fg = gates.chunk(2, dim=-1)                          # (B, T, H)
+    qkv, gates = _whole((x @ params["qkv"].to(x.dtype), 3 * d),
+                        (gates, 2 * h))
+    h0, h1 = _span(params["skip"].shape[0], h)
+    q, k, v = (z.reshape(b, t, h, dh)[:, :, h0:h1]
+               for z in qkv.chunk(3, dim=-1))
+    k = k / math.sqrt(dh)
+    ig, fg = (g[..., h0:h1] for g in gates.chunk(2, dim=-1))  # (B, T, H')
     log_f = tF.logsigmoid(fg)
     i = torch.exp(tF.logsigmoid(ig))  # sigmoid input gate (stabilized)
     return q, k, v, i, log_f
@@ -274,13 +350,16 @@ def _mlstm_qkvg(params, x, cfg):
 
 def _mlstm_finalize(params, y_aug, xh, cfg):
     """Split the augmented value (v, 1) -> normalize, skip, project.  The
-    skip term takes ``xh`` = q, as the reference's does."""
-    b, t = y_aug.shape[:2]
+    skip term takes ``xh`` = q, as the reference's does.  The RMSNorm
+    spans the whole d_model and ``out_proj`` may hold a block of rows: on
+    a mesh both combine over ``model``."""
+    b, t, held = y_aug.shape[:3]
     y, nrm = y_aug[..., :-1], y_aug[..., -1:]
     y = y / torch.clamp(nrm.abs(), min=1.0)
     y = y + params["skip"][:, None].to(y.dtype) * xh
-    y = rmsnorm_apply(params["norm"], y.reshape(b, t, cfg.d_model))
-    return y @ params["out_proj"].to(y.dtype)
+    lo = _span(held, cfg.n_heads)[0] * (cfg.d_model // cfg.n_heads)
+    y = _norm_cols(params["norm"], y.reshape(b, t, -1), lo, cfg.d_model)
+    return _rows_product(y, lo, params["out_proj"], cfg.d_model)
 
 
 def _ones_column(v):
@@ -336,15 +415,29 @@ def slstm_init(gen: torch.Generator, cfg) -> Dict:
     }
 
 
-def _slstm_cell(params, cfg, carry, zx):
-    """One recurrent step. carry: (h, c, n); zx: (B, 4D) pre-activations.
-    The bias ``b`` is added in f32, after the cast."""
+def _slstm_pre(params, cfg, h_prev, zx):
+    """The cell's pre-activations (B, 4D), f32: ``zx`` plus the recurrent
+    term of ``h_prev`` (head-major, as the reference reshapes it) plus
+    ``b``, added after the cast.  On a mesh ``zx`` and ``b`` hold a block
+    of the columns and ``r`` the block of heads whose terms are those
+    columns (or all heads): the rank forms its block, and the blocks are
+    gathered."""
     d, nh = cfg.d_model, cfg.n_heads
     dh = d // nh
+    c0, c1 = _span(params["b"].shape[0], 4 * d)
+    g0, g1 = _span(params["r"].shape[0], nh)
+    hr = torch.einsum("bhd,hde->bhe", h_prev.reshape(-1, nh, dh)[:, g0:g1],
+                      params["r"].to(h_prev.dtype)).reshape(h_prev.shape[0],
+                                                            -1)
+    hr = hr[:, c0 - 4 * dh * g0:c1 - 4 * dh * g0]
+    return _whole(((zx + hr).float() + params["b"], 4 * d))[0]
+
+
+def _slstm_cell(params, cfg, carry, zx):
+    """One recurrent step. carry: (h, c, n); zx: (B, 4D) pre-activations
+    (the rank's block of them on a mesh)."""
     h_prev, c_prev, n_prev = carry
-    hr = torch.einsum("bhd,hde->bhe", h_prev.reshape(-1, nh, dh),
-                      params["r"].to(h_prev.dtype)).reshape(-1, 4 * d)
-    pre = (zx + hr).float() + params["b"]
+    pre = _slstm_pre(params, cfg, h_prev, zx)
     z, ig, fg, og = pre.chunk(4, dim=-1)
     z = torch.tanh(z)
     i = torch.exp(torch.clamp(ig, max=0.0))  # stabilized exponential gate

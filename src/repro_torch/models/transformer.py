@@ -51,13 +51,15 @@ import contextlib
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.instrument import named_scope
+from repro_torch.core.api import pause_dispatch
+from repro_torch.core.instrument import named_scope, pause_selects
 from repro_torch.core.layers import add_partition_major, drop_partition_major
-from repro_torch.sharding.context import (UnitSpec, map_specs,
-                                          param_sharding)
-from repro_torch.sharding.serving import serving
-from repro_torch.obs.sparsity import observe_site
+from repro_torch.sharding.context import (UnitSpec, get_rules, map_specs,
+                                          param_sharding, use_rules)
+from repro_torch.sharding.serving import serving, use_serving
+from repro_torch.obs.sparsity import observe_site, pause_capture
 from repro_torch.runtime.kvcache.layout import copy_page
 from repro_torch.tree import map_tree
 from . import attention as A
@@ -249,12 +251,19 @@ def _check_blocks(blocks, whole):
 
 def _check_mesh(cfg, rules) -> None:
     """Raise where the model's blocks on ``rules``' mesh are not whole
-    heads of MLA (its heads attend rank by rank)."""
+    heads of MLA (its heads attend rank by rank), or where MLA's latent
+    rows would shard over the DP axes (``decode_long``: its sharded
+    softmax combines over ``model``)."""
     m = rules.mesh.shape.get("model", 1)
     if cfg.use_mla and m > 1 and cfg.n_heads % m:
         raise NotImplementedError(
             f"MLA's {cfg.n_heads} heads on a model axis of {m}: a rank's "
             "block of q, uk, uv and o would cut a head")
+    rows = rules.mesh.ordered(rules.table.get("kvseq"))
+    if cfg.use_mla and any(a != "model" and rules.mesh.shape[a] > 1
+                           for a in rows):
+        raise NotImplementedError(
+            "MLA's latent cache rows over the DP axes (decode_long)")
 
 
 def _blocks_of(piece, specs, rules):
@@ -517,19 +526,60 @@ def _logits(params, x, cfg, ct, rows_split: bool = False):
     return sh.gather(logits, dims)
 
 
+@contextlib.contextmanager
+def _recompute(rules, shards):
+    """The context of a block's recompute in the backward: the sharding
+    rules and serving shards in force when the block first ran (on the
+    card autograd runs the backward on its device thread, whose
+    thread-locals hold neither), with this thread's Select counters,
+    support capture and dispatch observers paused, so a step counts each
+    block once, as the reference, which traces a block once, does."""
+    with use_rules(rules), use_serving(shards), pause_selects(), \
+            pause_capture(), pause_dispatch():
+        yield
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of a block): its activations are not kept for the
+    backward, which runs it again under :func:`_recompute`.  The first
+    call of ``run`` is the forward, any later one the recompute
+    (checkpoint's ``context_fn`` would say so too, but under ``make_fx``,
+    as the linter traces a training step, it takes only dispatch
+    modes)."""
+    rules, shards = get_rules(), serving()
+    state = {"forward": True}
+
+    def run(*a):
+        if state.pop("forward", False):
+            return fn(*a)
+        with _recompute(rules, shards):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def forward(params, batch, cfg):
     """Full-sequence forward. batch: ``tokens`` (B, S), or ``embeds`` (B,
     S, D) for the ``embed`` frontend, with ``patch_embeds`` for
     ``vision_prefix``.  Returns (logits, aux_loss), aux_loss the sum of
-    every MoE block's load-balancing loss (0 without MoE)."""
+    every MoE block's load-balancing loss (0 without MoE).
+
+    With ``cfg.remat``, where autograd records, each block runs under
+    :func:`_remat`: the backward keeps each block's input and recomputes
+    one block at a time."""
     ct = dtype_of(cfg.compute_dtype)
     x = _embed_inputs(params, batch, cfg, ct)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for j, (kind, layer) in enumerate(_layers(params, cfg)):
         with _block_scope(cfg, j):
-            x, a = _block_apply(kind, layer, x, cfg, positions)
+            if remat:
+                x, a = _remat(_block_apply, kind, layer, x, cfg, positions)
+            else:
+                x, a = _block_apply(kind, layer, x, cfg, positions)
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg, ct), aux

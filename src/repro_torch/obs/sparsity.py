@@ -50,9 +50,10 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["SupportCapture", "capture_supports", "observe_site",
-           "observe_support", "observe_activation", "capture_active",
-           "SparsityStats", "DispatchStats", "est_path_flops"]
+__all__ = ["SupportCapture", "capture_supports", "pause_capture",
+           "observe_site", "observe_support", "observe_activation",
+           "capture_active", "SparsityStats", "DispatchStats",
+           "est_path_flops"]
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +144,16 @@ def capture_supports() -> Iterator[SupportCapture]:
         yield cap
     finally:
         _TLS.capture = prev
+
+
+@contextlib.contextmanager
+def pause_capture() -> Iterator[None]:
+    """No support capture of this thread records while the block runs."""
+    saved, _TLS.capture = _TLS.capture, None
+    try:
+        yield
+    finally:
+        _TLS.capture = saved
 
 
 @contextlib.contextmanager

@@ -18,7 +18,18 @@ Under those rules each rank holds (the reference's specs, leaf for leaf):
   ``pod`` on a multi-pod mesh) and a block of rows
   (``kvseq`` -> ``model``), or of kv heads where the rows do not divide;
   the page pools: every page, and a block of kv heads (``model``) where
-  they divide.
+  they divide;
+* Mamba2: a block of ``in_proj``'s columns, of the conv's channels (its
+  weights and its cache) and of the heads (``A_log``, ``dt_bias``, ``D``,
+  the state ``S``), ``out_proj``'s rows of those heads; mLSTM: blocks of
+  ``qkv``'s and ``gates``' columns, of the heads (``skip``, ``S``) and of
+  ``out_proj``'s rows; sLSTM: blocks of ``wx``'s columns, ``r``'s heads
+  and ``b``, its state and ``out_proj`` whole.  Where a dimension does not
+  divide over ``model`` its leaf is whole (:meth:`Rules.resolve`).
+
+Under ``make_rules(mesh, "decode_long")`` (a batch of one) the slots are
+whole and the contiguous cache's rows shard over the DP axes and
+``model`` together (:meth:`Shards.rows_axes`).
 
 A step then moves activations and never a weight: the vocab-parallel
 lookup sums one non-zero term over ``model``; the q/k/v columns, the FFN
@@ -27,7 +38,11 @@ are gathered over ``model``; a sequence-sharded cache's softmax combines
 each rank's maximum, sum of exponentials and weighted values over
 ``model``; row-parallel partial outputs (MLA's o, the MoE's experts) are
 summed with :meth:`Shards.reduce_model`; the logits are gathered over
-the DP axes and ``model``.
+the DP axes and ``model``.  The SSM mixers gather their projections'
+column blocks, take the sum of squares of a norm over the whole width
+over ``model``, and sum their row-parallel out projections; an sLSTM
+rank gathers its block of the cell's pre-activations and runs the cell
+on the whole state.
 
 :class:`Shards` answers the model code's questions (which rows of the
 batch, which block of an axis) and runs those collectives.  The engine
@@ -46,15 +61,16 @@ import torch
 
 from .axes import dp_axes, make_rules
 from .collectives import all_gather, all_reduce_
-from .context import MeshAxes, Rules
+from .context import MeshAxes, Rules, _flat
 
 _STATE = threading.local()
 
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """One rank of a serving mesh of more than one rank, with the decode
-    rules and the engine's ``max_seq`` (the contiguous cache's rows)."""
+    """One rank of a serving mesh of more than one rank, with the serving
+    rules (``decode``, or ``decode_long`` for a batch of one) and the
+    engine's ``max_seq`` (the contiguous cache's rows)."""
     rules: Rules
     max_seq: int
 
@@ -72,11 +88,15 @@ class Shards:
     def size(self, axis: str) -> int:
         return self.mesh.shape.get(axis, 1)
 
-    def block(self, axis: str, n: int) -> Tuple[int, int]:
-        """This rank's block [lo, hi) of ``n`` split evenly over ``axis``."""
-        k = n // self.size(axis)
-        lo = self.mesh.coords.get(axis, 0) * k
-        return lo, lo + k
+    def block(self, axes: MeshAxes, n: int) -> Tuple[int, int]:
+        """This rank's block [lo, hi) of ``n`` split evenly over ``axes``
+        (an axis, or a tuple of axes, major first)."""
+        idx, parts = 0, 1
+        for a in _flat(axes):
+            idx = idx * self.size(a) + self.mesh.coords.get(a, 0)
+            parts *= self.size(a)
+        k = n // parts
+        return idx * k, idx * k + k
 
     @property
     def dp(self) -> Tuple[str, ...]:
@@ -92,23 +112,38 @@ class Shards:
             return None
         return sharding.block((b,))[0]
 
-    def kv_split(self, paged: bool, n_kv_heads: int) -> Optional[str]:
-        """What the cache's ``model`` block holds: ``"rows"`` (the
-        contiguous cache's sequence), ``"heads"`` (kv heads) or None
-        (all of it), as the cache's spec resolves."""
-        if self.size("model") == 1:
-            return None
+    def _kv_spec(self, paged: bool, n_kv_heads: int) -> tuple:
         logical = (None, None, "kv", None) if paged else \
             ("batch", "kvseq", "kv", None)
-        spec = self.rules.spec_for(logical, (1, self.max_seq, n_kv_heads, 1))
-        if spec[1] == "model":
+        return self.rules.spec_for(logical, (1, self.max_seq, n_kv_heads, 1))
+
+    def rows_axes(self, paged: bool, n_kv_heads: int) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank (major first) the cache's
+        rows shard over: ``model`` under the decode rules, the DP axes and
+        ``model`` under ``decode_long``; () where the rows are whole."""
+        return tuple(a for a in _flat(self._kv_spec(paged, n_kv_heads)[1])
+                     if self.size(a) > 1)
+
+    def kv_split(self, paged: bool, n_kv_heads: int) -> Optional[str]:
+        """What the rank's cache block holds: ``"rows"`` (a block of the
+        contiguous cache's sequence, over :meth:`rows_axes`), ``"heads"``
+        (kv heads, over ``model``) or None (all of it), as the cache's
+        spec resolves."""
+        if self.rows_axes(paged, n_kv_heads):
             return "rows"
-        return "heads" if spec[2] == "model" else None
+        spec = self._kv_spec(paged, n_kv_heads)
+        return "heads" if spec[2] == "model" and self.size("model") > 1 \
+            else None
 
     # -- collectives ----------------------------------------------------------
     def reduce_model(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In place: ``x`` summed (or maximised) over ``model``."""
-        return all_reduce_(x, self.mesh.group("model"), op)
+        return self.reduce(x, "model", op)
+
+    def reduce(self, x: torch.Tensor, axes: MeshAxes, op: str = "sum"
+               ) -> torch.Tensor:
+        """In place: ``x`` summed (or maximised) over ``axes``."""
+        return all_reduce_(x, self.mesh.group(axes), op)
 
     def gather(self, x: torch.Tensor, dims: Dict[int, MeshAxes]
                ) -> torch.Tensor:
@@ -136,13 +171,14 @@ class Shards:
 
     def gather_last(self, *xs: torch.Tensor):
         """Tensors whose last dimension is a ``model`` block, each made
-        whole, through one all_gather of their concatenation."""
+        whole, through one all_gather of their concatenation (in the
+        widest of their types; each comes back in its own)."""
         widths = [x.shape[-1] for x in xs]
         stacked = all_gather(torch.cat(xs, dim=-1), self.mesh.group("model"))
         out = []
-        for part, w in zip(stacked.split(widths, dim=-1), widths):
+        for part, x in zip(stacked.split(widths, dim=-1), xs):
             part = part.movedim(0, -2)
-            out.append(part.reshape(*part.shape[:-2], -1))
+            out.append(part.reshape(*part.shape[:-2], -1).to(x.dtype))
         return out
 
 

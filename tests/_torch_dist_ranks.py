@@ -171,3 +171,55 @@ def reshard_restore(rank, directory):
             {"w": sh})
         out[spec] = (tree["w"].numpy(), sh.block((8, 8)))
     return mesh.coords, out, np.asarray(x)
+
+
+def sharded_remat(rank, arch, kw, np_params, batch):
+    """One sharded step on mesh (2, 2) from the same state with and
+    without remat: the loss and the full params after each (rank 0)."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    rules = make_rules(mesh, "train")
+    tcfg = TrainConfig()
+    out = {}
+    for remat in (False, True):
+        cfg = get_config(arch).reduced(**kw, remat=remat)
+        full = train_params_from_jax(np_params, cfg, device="cpu")
+        params, opt, shardings, shapes = St.shard_train_state(
+            full, cfg, tcfg, rules)
+        step, _ = St.make_sharded_train_step(cfg, tcfg, rules, shardings,
+                                             shapes)
+        rows = {k: rules.sharding_for(("batch", None), v.shape).take(
+            torch.from_numpy(v)) for k, v in batch.items()}
+        params, opt, m = step(params, opt, rows)
+        state = St.gather_state({"params": params, "opt": opt}, shardings,
+                                shapes)
+        out[remat] = {"loss": float(m["loss"]),
+                      "params": _np(state["params"]) if rank == 0 else None}
+    return out
+
+
+def remat_other_thread(rank, arch, kw, batch):
+    """The loss of the rank's rows of ``batch`` under the training rules
+    of mesh (2, 1), with remat and without, its backward run on a thread
+    of its own, outside the rules (as autograd runs a CUDA backward on
+    its device thread): the loss and every gradient leaf."""
+    import threading
+    mesh = make_mesh((2, 1), ("data", "model"), "cpu")
+    rules = make_rules(mesh, "train")
+    rows = {k: rules.sharding_for(("batch", None), v.shape).take(
+        torch.from_numpy(v)) for k, v in batch.items()}
+    out = {}
+    for remat in (False, True):
+        cfg = get_config(arch).reduced(**kw, remat=remat)
+        params = T.init_train_params(cfg, seed=0, device="cpu")
+        views = [t.detach().requires_grad_() if t.is_floating_point() else t
+                 for t in leaves(params)]
+        with use_rules(rules):
+            loss, _ = T.loss_fn(unflatten(params, views), rows, cfg)
+        got = {}
+        worker = threading.Thread(target=lambda: got.update(g=[
+            g.numpy() for g in torch.autograd.grad(
+                loss, [v for v in views if v.requires_grad])]))
+        worker.start()
+        worker.join()
+        out[remat] = {"loss": float(loss.detach()), "grads": got["g"]}
+    return out

@@ -213,3 +213,66 @@ def pod_serve(rank, dims, np_params, cfg_kw, spec):
     return {"coords": mesh.coords,
             "greedy": {u: list(v) for u, v in toks.items()},
             "cache": [tuple(leaf.shape) for leaf in leaves(eng.new_cache(4))]}
+
+
+def mesh_serve_ssm(rank, dims, jobs, static, long=None):
+    """One mesh, the SSM/hybrid patterns: for each job ``(arch,
+    np_params, cfg_kw)``, under ``arch``, ``generate_static``'s tokens of
+    ``static`` (prompts, new tokens; every collective recorded), the
+    rank's param blocks and fresh cache blocks, its cache blocks and the
+    logits after stepping through the prompts, and what ``Engine.serve``
+    raises.  With ``long`` ``(arch, np_params, cfg_kw, prompt)``, under
+    "long", the logits of stepping through ``prompt`` (one row) under
+    the ``decode_long`` rules and the rank's cache shapes."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    from repro_torch.sharding.serving import Shards
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    out = {"coords": mesh.coords}
+    prompts, gen = static
+    for arch, np_params, cfg_kw in jobs:
+        cfg = get_config(arch).reduced(**cfg_kw)
+        eng = Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh,
+                     params=params_from_jax(np_params, cfg, device="cpu"))
+        rec = Recorder(eng)
+        rec.in_step = True
+        with observe_collectives(rec):
+            toks = eng.generate_static(prompts, gen)
+        res = {"static": toks,
+               "collectives": rec.summary(prompts.shape[1] + gen),
+               "params": _np(drop_partition_major(eng.params)),
+               "cache": _np(eng.new_cache(4))}
+        res["written"], res["step_logits"] = _stepped(
+            eng.params, eng.new_cache(prompts.shape[0]), prompts, cfg,
+            eng.shards)
+        try:
+            eng.serve(requests([(prompts[0].tolist(), 2)], False))
+        except NotImplementedError as e:
+            res["serve_error"] = str(e)
+        out[arch] = res
+    if long is not None:
+        arch, np_params, cfg_kw, prompt = long
+        cfg = get_config(arch).reduced(**cfg_kw)
+        shards = Shards(make_rules(mesh, "decode_long"), 32)
+        params = T.param_blocks(params_from_jax(np_params, cfg,
+                                                device="cpu"),
+                                cfg, shards.rules)
+        cache = T.init_cache(cfg, 1, 32, "cpu", shards.rules)
+        cache, logits = _stepped(params, cache, prompt, cfg, shards)
+        out["long"] = {"logits": logits, "cache": {
+            k: v.shape for k, v in cache.items()}}
+    return out
+
+
+def _stepped(params, cache, prompts, cfg, shards):
+    """The cache (as numpy) and the logits after stepping every column of
+    ``prompts`` through ``serve_step`` on the rank's blocks."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.serving import use_serving
+    tokens = torch.from_numpy(np.asarray(prompts, np.int64))
+    with torch.no_grad(), use_serving(shards):
+        for pos in range(tokens.shape[1]):
+            logits, cache = T.serve_step(params, cache,
+                                         {"tokens": tokens[:, pos:pos + 1]},
+                                         pos, cfg)
+    return _np(cache), logits.numpy()

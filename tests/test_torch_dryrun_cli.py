@@ -65,9 +65,11 @@ def test_the_cli_writes_the_reference_records(tmp_path, capsys):
     assert D.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                    "--mesh", "pod1", "--device", "cpu", "--out",
                    str(out)]) == 0
+    # a cell that raises (here: a block kind no model knows) is recorded
     assert D.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k",
                    "--mesh", "pod1", "--device", "cpu", "--out", str(out),
-                   "--no-accounting"]) == 0
+                   "--no-accounting", "--override", "block_pattern=x"]
+                  ) == 0
     log = capsys.readouterr().out
     assert "[OK  ] smollm_360m|decode_32k|pod1" in log
     assert "[FAIL] zamba2_1p2b|decode_32k|pod1" in log
@@ -82,7 +84,7 @@ def test_the_cli_writes_the_reference_records(tmp_path, capsys):
         "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes_est"}
     assert rec["n_params"] == _ref_floats("smollm-360m")
     failed = results["zamba2_1p2b|decode_32k|pod1"]
-    assert failed["ok"] is False and "item 5" in failed["error"]
+    assert failed["ok"] is False and "unknown block kind" in failed["error"]
     # a second run skips what is done, as the reference's does
     D.main(["--arch", "smollm-360m", "--shape", "decode_32k", "--mesh",
             "pod1", "--device", "cpu", "--out", str(out)])

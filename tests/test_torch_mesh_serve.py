@@ -32,6 +32,7 @@ from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.launch.serve import Engine
 from repro_torch.models import attention as A
 from repro_torch.models.common import embedding_apply, embedding_block_apply
+from repro_torch.runtime.scheduler import Request
 
 
 @pytest.fixture(scope="module")
@@ -139,19 +140,33 @@ def test_a_mesh_without_a_process_group_is_refused():
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-1.2b",
                                   "musicgen-large", "xlstm-350m"])
 def test_other_families_raise_on_a_mesh(arch, monkeypatch):
-    """The SSM/hybrid patterns are not served on a mesh of more than one
-    rank yet (a mesh whose groups are stand-ins: the engine refuses
-    before any collective); the attention patterns, MLA and MoE
-    (deepseek-v2-lite) and the frontends (musicgen) among them, build
-    there, rank 0 holding its blocks."""
+    """Every family builds on a mesh of more than one rank (a mesh whose
+    groups are stand-ins), rank 0 holding its blocks: MLA and MoE
+    (deepseek-v2-lite), the frontends (musicgen) and the SSM/hybrid
+    patterns (zamba2, xLSTM), whose ``Engine.serve`` raises the
+    reference's "no fused prefill" there as on one device, before any
+    collective (they serve through ``generate_static``)."""
     monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
     cfg = get_config(arch).reduced()
     mesh = Mesh((1, 2), ("data", "model"), torch.device("cpu"),
                 groups={("model",): None})
-    if any(k != "attn" for k in cfg.block_pattern):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)
-        return
     eng = Engine(cfg, max_seq=32, n_slots=4, device="cpu", mesh=mesh)
     table = eng.params["embed"]["table"]
     assert table.shape[0] == cfg.padded_vocab // 2
+    if any(k != "attn" for k in cfg.block_pattern):
+        with pytest.raises(NotImplementedError, match="no fused prefill"):
+            eng.serve([Request(uid=0, prompt=[1, 2], max_new_tokens=2)])
+
+
+def test_mla_refuses_its_latent_rows_over_the_dp_axes():
+    """Under ``decode_long`` the contiguous cache's rows shard over the DP
+    axes and ``model``; MLA's sharded softmax combines over ``model``
+    alone, so its blocks are refused there (and drawn under ``decode``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    mesh = Mesh((2, 2), ("data", "model"), torch.device("cpu"))
+    T._check_mesh(cfg, make_rules(mesh, "decode"))
+    with pytest.raises(NotImplementedError, match="decode_long"):
+        T.init_model(cfg, device="cpu",
+                     rules=make_rules(mesh, "decode_long"))
