@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    them), and the least time the card could take for the same bytes and
    flops.
 4. serve — ``Engine.serve`` on the shipped smollm-360m config at full
-   width (bf16, 4 slots, 8 requests, prompt 16, gen 16, the engine's
-   random weights from seed 0); the kernel launch counts show the decode
+   width, cut to ``SMOLLM_LAYERS`` (8) of its 32 layers, as phases 5-11
+   and 16 run it (bf16, 4 slots, 8 requests, prompt 16, gen 16, the
+   engine's random weights from seed 0); the kernel launch counts show the decode
    steps went through the kernels.  Then one decode step's device time
    alone, from a CUDA-graph replay of it, against the eager step's wall
    time, and the eager step's device activities under torch.profiler (the
@@ -45,8 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    that run; then each kernel's time, L2-cold and warm, beside its plain
    version, one library call and its bound (the products at T=128 and T=4
    on the up and the down projection).
-7. paged — the paged KV cache (``Engine(kv_layout="paged")``) on the
-   shipped smollm-360m config at full width: in float32, a 40-token prompt
+7. paged — the paged KV cache (``Engine(kv_layout="paged")``) on phase
+   4's smollm-360m config: in float32, a 40-token prompt
    chunk-prefilled over scattered page chains and three decode steps
    through the page tables give the logits of the contiguous prefill and
    decode with every k-WTA selection held to the contiguous run's (and,
@@ -70,9 +71,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the serving shapes in bf16 and f32, which must find nothing; the
    six kernels' launch counts of that run; each shipped case's launch
    geometry as ``torch.profiler`` saw it against the ``launch_geometry``
-   the linter reads; ``lint_config`` of the shipped
-   smollm-360m config at full width on fake CUDA tensors (zero findings,
-   32 ``repro_torch::topk_gather`` nodes in the decode graph); one
+   the linter reads; ``lint_config`` of phase 4's
+   smollm-360m config on fake CUDA tensors (zero findings, one
+   ``repro_torch::topk_gather`` node a layer in the decode graph); one
    contiguous and one paged decode step, their inputs already on the
    card, under ``torch.cuda.set_sync_debug_mode("error")``; the host
    time of a ``topk_gather`` call through the custom op against the bare
@@ -88,14 +89,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version, one library call and its bound.  The guarded decode
    steps also run with the dispatch observer on and probed (under a
    support capture), the capture read back after the guard.
-9. telemetry — ``repro_torch.obs`` on the shipped smollm-360m config at
-   full width (bf16, 4 slots, phase 4's workload) with
+9. telemetry — ``repro_torch.obs`` on phase 4's smollm-360m config
+   (bf16, 4 slots, phase 4's workload) with
    ``Telemetry.on(jsonl, sparsity_every=1)``, on the contiguous and the
    paged layout: the tokens equal a telemetry-off run's (a token may part
    only between the top two, by phase 7's rule); every FFN layer reports
-   ``realized_k_frac`` in [K/d_ff, 1]; the dispatch summary holds 32
-   ``topk[cuda]`` sites with the shared memory of the launch;
-   ``topk_gather`` runs 32 times a step; the JSONL passes
+   ``realized_k_frac`` in [K/d_ff, 1]; the dispatch summary holds one
+   ``topk[cuda]`` site a layer with the shared memory of the launch;
+   ``topk_gather`` runs once a layer a step; the JSONL passes
    ``validate_jsonl`` with every event kind.  Under ``torch.profiler``
    the decode step issues the same device activities with telemetry off
    and on but unprobed (the probed step's extra activities are printed).
@@ -103,8 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host-clock step with telemetry off and on, in turns off, on, on,
    off (the overhead row: no limit, no claim).
 10. moe — the MoE + MLA family and the int8 KV cache: deepseek-v2-lite-16b
-   as shipped (27 layers, d_model 2048, MLA kv_lora 512, 64 routed
-   experts top-6 + 2 shared), bf16, random weights from seed 0, serves
+   at its shipped widths, ``MOE_LAYERS`` (8) of its 27 layers (d_model
+   2048, MLA kv_lora 512, 64 routed experts top-6 + 2 shared), bf16, random weights from seed 0, serves
    phase 4's workload on the contiguous and the paged layout (tok/s,
    TTFT, host-clock step); ``topk_gather`` (the shared experts' decode
    down projection) runs once a layer a decode step and never in a
@@ -119,8 +120,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    layouts: the cache's bytes against bf16's, paged tokens equal to
    contiguous ones but at ties.
 11. train — the training path (``repro_torch.launch.train.Trainer``),
-   which launches none of the kernels, as in the reference: (a) the
-   shipped smollm-360m at full width (float32 masters, bf16 compute) for
+   which launches none of the kernels, as in the reference: (a) phase
+   4's smollm-360m (float32 masters, bf16 compute) for
    20 steps of ``lm_batch`` at batch 8, seq 128 (every loss finite, the
    loss guard silent, the last five losses below the first; host-clock
    step, tokens/s, peak memory; the four kernels' launches in the steps,
@@ -129,8 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    while training goes on in place, restored into a fresh Trainer equal
    to a host copy taken at the save; serving params made from the
    step-20 weights (every ``packed_p`` equal to ``partition_major`` of
-   its ``packed``) serve phase 4's workload through ``topk_gather`` (32
-   launches a decode step), and an f32 decode step through the kernel
+   its ``packed``) serve phase 4's workload through ``topk_gather`` (one
+   launch a layer a decode step), and an f32 decode step through the kernel
    gives the formula's logits with the k-WTA selections held; (c) in a
    fresh process under ``torch.use_deterministic_algorithms``, 10
    straight steps against 5, a restart and 5 more on the reference
@@ -138,9 +139,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    its three variants, 60 steps of AdamW at batch 32 each (last loss
    below 0.7 of the first), held-out accuracy, step time, the compression
    ratio and the realized k-WTA sparsity, and one f32 forward and
-   backward of each variant against the port on the CPU; (e) in a fresh
-   process under ``torch.use_deterministic_algorithms``, the full-width
-   step with the shipped ``remat=True`` (each block's activations
+   backward of each variant against the port on the CPU; (e) after (c)
+   in its process, (a)'s step with
+   the shipped ``remat=True`` (each block's activations
    recomputed in the backward) beside ``remat=False``: one loss and
    backward from the same weights and batch, every gradient bit-equal,
    then each one's peak memory and host-clock step.
@@ -175,13 +176,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    comparison's ``TrainConfig(lr=1e-3)`` (a 100-step warmup), under
    ``use_deterministic_algorithms``; every part in fresh processes
    (``spawn``).  (b) four gloo ranks sharing the card on mesh 2x2 (data x
-   model): 5 steps through ``Trainer.run`` (every rank the same loss; each
-   rank's param and moment bytes equal to the reference's per-device
+   model), each step computing on the rank's param blocks (no param
+   gathered): 5 steps through ``Trainer.run`` (every rank the same loss;
+   each rank's param and moment bytes equal to the reference's per-device
    shards reckoned from the rule table on its stacked layout; the
-   host-clock step; the params' gather and the gradient mean alone; peak
-   memory), the run's step-5 checkpoint, the uninterrupted step 6 (the
-   k-WTA selections of all 6 steps kept, the forward's and remat's
-   recompute's), and the checkpoint restored
+   host-clock step; the gradient mean of the blocks alone; peak memory
+   over the steps and the checkpoint, and in a step alone, printed; no
+   param block handed to a collective), the run's step-5 checkpoint, the
+   uninterrupted step 6 (its collectives by kind and bytes; the k-WTA
+   selections of all 6 steps kept, the forward's and remat's
+   recompute's), one loss and backward on the blocks against one on the
+   params gathered whole (peaks, 0.5 GiB apart at least; losses 1e-5
+   relative, selections held), and the checkpoint restored
    onto 4x1 (params and moments gathered whole bit-equal to the
    checkpoint's) for one more step; (c) on the same
    ranks, ``make_compressed_grad_sync`` on mesh 2x2 (pod x data) over a
@@ -191,10 +197,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks in sequence on each microbatch (1e-5), and which collectives
    gloo runs on CUDA tensors; (d) on the same ranks, deepseek-v2-lite-16b
    at its shipped widths, 1 of its 27 MoE layers, f32: one loss of each
-   rank's rows under the training rules of mesh 2x2 and its backward, with
-   remat and without, every gradient leaf bit-equal (the card runs the
-   backward, and remat's recompute, on autograd's device thread, which
-   must still sum the MoE load-balancing loss over the DP group); (a) in
+   rank's rows on its blocks under the training rules of mesh 2x2 and its
+   backward, with remat and without, every gradient leaf bit-equal (the
+   card runs the backward, and remat's recompute, on autograd's device
+   thread, which must still sum the MoE load-balancing loss over the DP
+   group), and every rank's DP-mean gradient blocks within
+   1e-4·(1+max|g|) of one device's, its k-WTA sets and router choices
+   held; (e) the same gradient check for zamba2-1.2b at its shipped
+   widths, one unit (18 Mamba2 blocks and the shared attention); (a) in
    a fresh process, the single-device
    Trainer and the Trainer on mesh 1x1 over NCCL at world size 1 (1e-6:
    bit-equal expected), (b)'s losses (1e-5 relative) and step-5 params
@@ -229,7 +239,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    numbers {...}`` JSON line.
 15. mesh-moe — ``Engine(mesh=...)`` on the MoE + MLA family:
    deepseek-v2-lite-16b at its shipped widths (MLA's 16 heads, 64 routed
-   experts top-6 + 2 shared), 4 of 27 layers in float32 and 8 in bf16
+   experts top-6 + 2 shared), 2 of 27 layers in float32 and 4 in bf16
    (to keep the script within its time limit), random weights from seed
    0, max_seq 48, on
    four gloo ranks sharing the card (one torch thread each), meshes 1x4
@@ -255,8 +265,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    {...}`` JSON line.
 16. roofline — the port's census and roofline (``repro_torch.launch.hlo``,
    ``roofline``, ``dryrun``): (a) the census of phase 4's bf16 decode step
-   (full width, 4 slots, every slot at position 16) run on the card: 32
-   ``topk_gather`` nodes and as many launches, no host transfer, no
+   (4 slots, every slot at position 16) run on the card: one
+   ``topk_gather`` node a layer and as many launches, no host transfer, no
    collective, and the same FLOPs and bytes as a trace of the step on
    fake CUDA tensors; (b) its bound (``cell_roofline``: bf16 products on
    the tensor cores, the rest outside them, against HBM) and the bound's
@@ -376,6 +386,11 @@ TIE_MARGIN = 1e-3
 # The long-prompt workload: three short requests decode while one prompt
 # of this many tokens is prefilled.
 LONG_PROMPT = 512
+# Phases 4-11 and 16 run smollm-360m at its shipped widths, cut to this
+# many of its 32 layers (every layer is the same block).  A step's host
+# dispatch grows with the depth, and the whole depth kept the script near
+# its time limit.
+SMOLLM_LAYERS = 8
 
 
 def fail(msg: str):
@@ -632,11 +647,18 @@ def read_counts():
 SERVE_STEP_MS = {}
 
 
-def phase_serve():
+def smollm_config():
+    """smollm-360m at its shipped widths, SMOLLM_LAYERS deep: the model
+    of phases 4-11 and 16."""
     from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-360m"),
+                               n_layers=SMOLLM_LAYERS)
+
+
+def phase_serve():
     from repro_torch.launch.serve import Engine
     from repro_torch.runtime.scheduler import Request
-    cfg = get_config("smollm-360m")
+    cfg = smollm_config()
     prompt_len, gen, n_req = 16, 16, 8
     engine = Engine(cfg, max_seq=prompt_len + gen + 1, n_slots=4,
                     device="cuda")
@@ -651,7 +673,8 @@ def phase_serve():
     counts = read_counts()
     launches = counts["topk_gather"]
     steps = stats["decode_steps"]
-    print(f"[serve] smollm-360m full width bf16: {n_req} requests, "
+    print(f"[serve] smollm-360m full width bf16, {cfg.n_layers} of 32 "
+          f"layers: {n_req} requests, "
           f"{steps} decode steps, {stats['prefill_calls']} prefill calls, "
           f"kernel launches {counts}")
     if stats["prefill_calls"] != n_req:
@@ -762,12 +785,10 @@ def step_profile(engine):
 
 
 def f32_model():
-    """smollm-360m in float32 with random weights from SEED (the parity
-    phases' model)."""
-    from repro_torch.configs import get_config
+    """Phase 4's smollm-360m in float32 with random weights from SEED (the
+    parity phases' model)."""
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(get_config("smollm-360m"),
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(smollm_config(), compute_dtype="float32")
     return cfg, T.init_model(cfg, seed=SEED, device="cuda")
 
 
@@ -797,7 +818,7 @@ def phase_parity():
         fail("non-finite logits")
     err = float((runs["auto"] - runs["off"]).abs().max())
     # f32 throughout; the kernel and the formula differ only in the order
-    # of their sums, which 32 layers carry into the logits
+    # of their sums, which the layers carry into the logits
     tol = 1e-3
     print(f"[parity] f32 prefill + 3 decode steps, kernel vs formula: "
           f"max_abs_err={err:.3e} (max |logit| "
@@ -1990,9 +2011,10 @@ def phase_analysis(engine_c):
                    check=True, timeout=600)
 
     t = time.perf_counter()
-    report = lint_config("smollm-360m", device="cuda")
-    print(f"[analysis] lint_config('smollm-360m') full width on fake CUDA "
-          f"tensors in {time.perf_counter() - t:.1f} s: "
+    report = lint_config(smollm_config(), device="cuda")
+    print(f"[analysis] lint_config('smollm-360m') full width, "
+          f"{SMOLLM_LAYERS} layers, on fake CUDA tensors in "
+          f"{time.perf_counter() - t:.1f} s: "
           + report.render().splitlines()[0])
     if not report.ok:
         print(report.render())
@@ -2005,7 +2027,7 @@ def phase_analysis(engine_c):
     if not report.ok or report.entries != ["decode"]:
         print(report.render())
         fail(f"lint_config({HYBRID_ARCH!r}) decode found faults")
-    cfg = resolve_config("smollm-360m")
+    cfg = resolve_config(smollm_config())
     fn, args = entry_args(cfg, "decode", "cuda")
     ops = collections.Counter(op_name(nd) for nd, _ in iter_nodes(
         trace(fn, *args)))
@@ -2201,9 +2223,8 @@ def activity_window(layout):
     by the host clock alone.  A pad call at each end of the window takes
     what the window's edges may lose."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine
-    eng = Engine(get_config("smollm-360m"), max_seq=33, n_slots=4,
+    eng = Engine(smollm_config(), max_seq=33, n_slots=4,
                  device="cuda", **layout_kw(layout))
     variants = step_variants(eng)
     order = (["pad"] + [v for _ in range(ACTIVITY_ROUNDS) for v in variants]
@@ -2259,22 +2280,23 @@ def telemetry_activities():
     """Device activities of the decode step with telemetry off and on but
     unprobed must be the same; the probed step's extra ones (and any it
     lacks) are printed.  Each layout's window runs in a fresh process
-    (``activity_window``)."""
-    for layout in ("contiguous", "paged"):
+    (``activity_window``), the two at once: they count activities and
+    time nothing."""
+    layouts = ("contiguous", "paged")
+    for layout in layouts:
+        (ROOT / "build" / f"activities_{layout}.json").unlink(missing_ok=True)
+    t = time.perf_counter()
+    run_fresh(*(f"activity_window({layout!r})" for layout in layouts))
+    took = time.perf_counter() - t
+    for layout in layouts:
         path = ROOT / "build" / f"activities_{layout}.json"
-        path.unlink(missing_ok=True)
-        t = time.perf_counter()
-        subprocess.run([sys.executable, "-c", "import sys; sys.path[:0] = "
-                        f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import "
-                        f"chip_smoke; chip_smoke.activity_window("
-                        f"{layout!r})"], check=True, timeout=600)
         windows = {v: [collections.Counter(c) for c in calls]
                    for v, calls in json.loads(path.read_text()).items()}
         per_call = {v: [sum(c.values()) for c in w]
                     for v, w in windows.items()}
         print(f"[telemetry] {layout} decode step under torch.profiler, "
-              f"activities a call: {json.dumps(per_call)} (the window's "
-              f"process took {time.perf_counter() - t:.1f} s)")
+              f"activities a call: {json.dumps(per_call)} (the two "
+              f"windows' processes, run together, took {took:.1f} s)")
         acts = {v: settled(w) for v, w in windows.items()}
         unsettled = [v for v, a in acts.items() if a is None]
         if unsettled:
@@ -2350,6 +2372,10 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 # Its shared experts' down projection at decode with 4 slots (d_ff
 # 2·1408 = 2816 -> 2048): B=4, K=k_for(2816)=352, P=704, G=512, N=4, R=G.
 MOE_SHAPE = dict(b=4, k=352, p=704, g=512, n=4, r=512)
+# Its depth in this phase: 8 of its 27 layers (each the same MLA and MoE
+# block), as phase 15 serves it in bf16, to keep the script within its
+# time limit.
+MOE_LAYERS = 8
 
 
 @contextlib.contextmanager
@@ -2608,11 +2634,12 @@ def phase_moe(engine_c):
     and the launches and decode steps of its serving runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     t = time.perf_counter()
     params = T.init_model(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"[moe] {MOE_ARCH} as shipped: {cfg.n_layers} layers, d_model "
+    print(f"[moe] {MOE_ARCH} at its shipped widths, {cfg.n_layers} of "
+          f"{get_config(MOE_ARCH).n_layers} layers, d_model "
           f"{cfg.d_model}, MLA kv_lora {cfg.kv_lora_rank}, {cfg.n_experts} "
           f"routed experts top-{cfg.experts_per_token} + "
           f"{cfg.n_shared_experts} shared, bf16, "
@@ -2647,20 +2674,32 @@ GSC_VARIANTS = ("dense", "sparse_dense", "sparse_sparse")
 GSC_BATCH, GSC_STEPS, GSC_HELD_OUT = 32, 60, 5
 
 
-def run_fresh(call: str, env=None, timeout: int = 600):
-    """``chip_smoke.<call>`` in a process of its own (a profiler window,
-    or a determinism mode that must be set before CUDA starts)."""
+def run_fresh(*calls: str, env=None, timeout: int = 600):
+    """Each ``chip_smoke.<call>`` in a process of its own (a profiler
+    window, or a determinism mode that must be set before CUDA starts),
+    all started together; raises if one fails or outlasts ``timeout``
+    seconds, and leaves none running."""
     import os
-    subprocess.run([sys.executable, "-c", "import sys; sys.path[:0] = "
-                    f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import "
-                    f"chip_smoke; chip_smoke.{call}"], check=True,
-                   timeout=timeout, env=dict(os.environ, **(env or {})))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path[:0] = "
+         f"[{str(ROOT / 'src')!r}, {str(ROOT)!r}]; import chip_smoke; "
+         f"chip_smoke.{call}"], env=dict(os.environ, **(env or {})))
+        for call in calls]
+    try:
+        codes = [proc.wait(timeout=timeout) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(codes):
+        fail(f"fresh processes {list(calls)} exited with {codes}")
 
 
 def lm_train_setup(device="cuda"):
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import TrainConfig
     from repro_torch.configs.base import ShapeConfig
-    cfg = get_config("smollm-360m")
+    cfg = smollm_config()
     shape = ShapeConfig("phase11", TRAIN_SEQ, TRAIN_BATCH, "train")
     ckpt_dir = ROOT / "build" / "train_ckpt"
     tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
@@ -2676,7 +2715,7 @@ def host_tree(tree):
 
 
 def train_lm():
-    """(a) the port's ``Trainer`` on the shipped smollm-360m at full width;
+    """(a) the port's ``Trainer`` on phase 4's smollm-360m;
     (b)'s checkpoint at step TRAIN_SAVE, restored into a fresh Trainer.
     Returns (trainer, median host-clock step ms)."""
     import shutil
@@ -2692,7 +2731,8 @@ def train_lm():
     if {t.device.type for _, t in flatten(trainer.state_tree())} != {"cuda"}:
         fail("train: the trainer's state is not all on the card")
     sp = cfg.ffn_sparsity
-    print(f"[train] smollm-360m as shipped: {cfg.n_layers} layers, d_model "
+    print(f"[train] smollm-360m at its shipped widths, {cfg.n_layers} of "
+          f"32 layers, d_model "
           f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.param_dtype} masters, {cfg.compute_dtype} compute, n={sp.n}"
           f", k_frac={sp.k_frac}, {sp.kwta_impl}; "
@@ -2974,15 +3014,28 @@ def resume_window():
     shutil.rmtree(root, ignore_errors=True)
 
 
-def train_resume():
-    path = ROOT / "build" / "train_resume.json"
-    path.unlink(missing_ok=True)
+def deterministic_windows():
+    """(c) and (e), one after the other in one fresh process."""
+    resume_window()
+    remat_window()
+
+
+def train_deterministic():
+    """Runs (c) and (e) in a fresh process under
+    ``torch.use_deterministic_algorithms``; returns its seconds."""
+    for name in ("train_resume.json", "train_remat.json"):
+        (ROOT / "build" / name).unlink(missing_ok=True)
     t = time.perf_counter()
-    run_fresh("resume_window()", env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
-    r = json.loads(path.read_text())
+    run_fresh("deterministic_windows()",
+              env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    return time.perf_counter() - t
+
+
+def train_resume(took):
+    r = json.loads((ROOT / "build" / "train_resume.json").read_text())
     tol = 1e-5
-    print(f"[train] resume determinism (reduced smollm, a fresh process "
-          f"under use_deterministic_algorithms, {time.perf_counter() - t:.1f}"
+    print(f"[train] resume determinism (reduced smollm, in (c) and (e)'s "
+          f"fresh process under use_deterministic_algorithms, {took:.1f}"
           f" s): 10 straight steps vs 5 + restart + 5 on {r['device']}: "
           f"resumed at step 5 {r['resumed']}, max_abs_diff "
           f"{r['max_abs_diff']:.3e} over {r['leaves']} float leaves "
@@ -3040,16 +3093,12 @@ def remat_window():
     (ROOT / "build" / "train_remat.json").write_text(json.dumps(out))
 
 
-def train_remat():
-    path = ROOT / "build" / "train_remat.json"
-    path.unlink(missing_ok=True)
-    t = time.perf_counter()
-    run_fresh("remat_window()", env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
-    r = json.loads(path.read_text())
+def train_remat(took):
+    r = json.loads((ROOT / "build" / "train_remat.json").read_text())
     off, on = r["False"], r["True"]
     print(f"[train] remat (full-width smollm-360m, batch {TRAIN_BATCH} x "
-          f"seq {TRAIN_SEQ}, a fresh process under "
-          f"use_deterministic_algorithms, {time.perf_counter() - t:.1f} s; "
+          f"seq {TRAIN_SEQ}, in (c) and (e)'s fresh process under "
+          f"use_deterministic_algorithms, {took:.1f} s; "
           f"shipped remat={r['remat_shipped']}): one loss and backward from "
           f"the same weights, remat on vs off: loss bit-equal "
           f"{r['loss_equal']}, {r['equal']} of {r['leaves']} gradient leaves "
@@ -3169,8 +3218,9 @@ def phase_train():
     serve_trained(trainer)
     del trainer
     torch.cuda.empty_cache()
-    train_resume()
-    train_remat()
+    took = train_deterministic()
+    train_resume(took)
+    train_remat(took)
     nbytes = {v: gsc_train(v) for v in GSC_VARIANTS}
     ratio = nbytes["dense"] / nbytes["sparse_sparse"]
     print(f"[train] gsc parameter compression dense / sparse-sparse: "
@@ -3543,8 +3593,22 @@ MESH_LAYERS = 32
 MESH_SELECTS = 2 * MESH_LAYERS
 #: (d): deepseek-v2-lite-16b at its shipped widths, cut to this many of
 #: its 27 MoE layers, in float32, one loss and backward of 4 rows of
-#: MESH_REMAT_SEQ tokens
+#: MESH_REMAT_SEQ tokens; (e) zamba2-1.2b at its shipped widths, one unit
+#: of its pattern (18 Mamba2 blocks and the shared attention), the same
+#: rows
 MESH_REMAT_LAYERS, MESH_REMAT_SEQ = 1, 64
+#: (d) and (e): every rank's DP-mean gradient block against the single
+#: device's, the k-WTA sets (and router choices) held, within this times
+#: (1 + max|g|) of the leaf
+MESH_GRAD_TOL = 1e-4
+#: (b): PR 25's peak max_memory_allocated of a rank in the gathered steps
+#: (GiB; its last run of phase 13, steps 1-5 and the step-5 checkpoint,
+#: whose gather of the whole tree sets that peak), printed beside this
+#: run's over the same window; and how far a loss and backward on blocks
+#: must fall below one on the params gathered whole in the same run (the
+#: whole copies of the sharded leaves and their whole gradients, ~1.0 GiB
+#: a rank, are gone)
+MESH_PEAK_GATHERED_GIB, MESH_PEAK_FALL_GIB = 5.53, 0.5
 
 
 def mesh_setup(ckpt_dir):
@@ -3587,9 +3651,7 @@ def mesh_steps(trainer, steps):
 
 def mesh_rows(trainer):
     """This rank's rows of the global batch (its DP block)."""
-    return trainer.rules.sharding_for(
-        ("batch", None), (TRAIN_BATCH, TRAIN_SEQ)).block(
-        (TRAIN_BATCH, TRAIN_SEQ))[0]
+    return mesh_rows_of(trainer.rules, (TRAIN_BATCH, TRAIN_SEQ))
 
 
 def mesh_held(masks, steps, rows, device):
@@ -3692,16 +3754,13 @@ def step_moves(before, after):
 
 
 def collective_times(trainer, reps=3):
-    """Host-clock times of two of the step's collectives alone at its
-    sizes, median of ``reps``: the params gathered over ``model`` (the
-    step's first act) and the gradient mean's ``all_reduce`` over the DP
-    group (one float32 buffer of every float leaf)."""
+    """Host-clock time of the step's gradient mean alone at its size,
+    median of ``reps``: the ``all_reduce`` over the DP group of one float32
+    buffer of every float leaf's block (the step gathers no param)."""
     from repro_torch.sharding import dp_axes
-    from repro_torch.sharding.collectives import gather_leaves, summed
+    from repro_torch.sharding.collectives import summed
     from repro_torch.tree import leaves
-    params = leaves(trainer.params)
-    p_sh = leaves(trainer.shardings["params"])
-    floats = [s for s, t in zip(trainer.shapes, params)
+    floats = [tuple(t.shape) for t in leaves(trainer.params)
               if t.is_floating_point()]
     group = trainer.mesh.group(dp_axes(trainer.mesh))
 
@@ -3715,10 +3774,89 @@ def collective_times(trainer, reps=3):
             times.append((time.perf_counter() - t) * 1e3)
         return float(np.median(times))
 
-    return {"gather_model": timed(lambda: gather_leaves(params, p_sh,
-                                                        trainer.shapes)),
-            "grad_mean": timed(lambda: summed(floats, lambda i, b: None,
-                                              group, trainer.device))}
+    return {"grad_mean": timed(lambda: summed(floats, lambda i, b: None,
+                                              group, trainer.device)),
+            "grad_mean_bytes": 4 * sum(math.prod(s) for s in floats)}
+
+
+@contextlib.contextmanager
+def param_collectives(params):
+    """Watch every collective made inside (the backward's too, on any
+    thread): yields ``(seen, handed)``, each a list of ``(op, bytes)``,
+    ``bytes`` the largest tensor the collective took; ``handed`` those
+    given a tensor sharing storage with a block of ``params``."""
+    from repro_torch.sharding.collectives import observe_collectives
+    from repro_torch.tree import leaves
+    held = {t.untyped_storage().data_ptr() for t in leaves(params)}
+    seen, handed = [], []
+
+    def watch(op, tensors):
+        rec = (op, max(t.numel() * t.element_size() for t in tensors))
+        seen.append(rec)
+        if any(t.untyped_storage().data_ptr() in held for t in tensors):
+            handed.append(rec)
+
+    with observe_collectives(watch):
+        yield seen, handed
+
+
+def collective_census(seen):
+    """``{op: [count, bytes]}`` and the largest ``(op, bytes)`` of
+    :func:`param_collectives`' list."""
+    kinds = {}
+    for op, n in seen:
+        k = kinds.setdefault(op, [0, 0])
+        k[0] += 1
+        k[1] += n
+    return kinds, max(seen, key=lambda r: r[1]) if seen else None
+
+
+def fwd_bwd_peaks(trainer):
+    """The loss and backward of the rank's rows of step 6's batch alone:
+    on the rank's blocks (the step's own, ``steps.sharded_value_and_grad``)
+    and on the params gathered whole (the step of PRs 21-25:
+    ``gather_leaves``, then ``loss_fn`` under the rules), the second
+    holding the first's k-WTA selections (the parity rule: two
+    partitionings part at near-ties); each's loss, host-clock ms and peak
+    ``max_memory_allocated`` above the state it starts from."""
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.collectives import gather_leaves
+    from repro_torch.tree import leaves, unflatten
+    cfg, rules, device = trainer.cfg, trainer.rules, trainer.device
+    rows = mesh_rows(trainer)
+    batch = {k: v[rows] for k, v in mesh_batch(
+        cfg, trainer.shape, MESH_STEPS, device).items()}
+    out, masks = {}, []
+    for name in ("blocks", "gathered"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t = time.perf_counter()
+        if name == "blocks":
+            with kwta_selections() as masks:
+                (loss, _), grads = St.sharded_value_and_grad(
+                    cfg, rules, trainer.params, batch)
+        else:
+            whole = gather_leaves(leaves(trainer.params),
+                                  leaves(trainer.shardings["params"]),
+                                  trainer.shapes)
+            with use_rules(rules), kwta_selections(iter(masks)):
+                (loss, _), grads = St.value_and_grad(
+                    lambda p: T.loss_fn(p, batch, cfg),
+                    unflatten(trainer.params, whole))
+            del whole
+        loss = float(loss)
+        torch.cuda.synchronize()
+        out[name] = {"loss": loss, "ms": (time.perf_counter() - t) * 1e3,
+                     "peak": torch.cuda.max_memory_allocated(device),
+                     "above": torch.cuda.max_memory_allocated(device) - base}
+        del grads
+    del masks
+    torch.cuda.empty_cache()
+    return out
 
 
 def max_diff(a, b):
@@ -3838,10 +3976,12 @@ def pipeline_check(device):
 
 
 def mesh_gloo(rank):
-    """(b) and (c) on one of four gloo ranks sharing the card: 6 steps on
-    mesh 2x2 keeping their k-WTA selections (its rows) for (a), the
-    step-5 checkpoint restored onto 4x1 for one more step holding them,
-    the int8 sync and GPipe."""
+    """(b) to (e) on one of four gloo ranks sharing the card: 6 steps on
+    mesh 2x2 keeping their k-WTA selections (its rows) for (a), their
+    collectives and peaks, one loss and backward on the blocks against one
+    on the gathered params, the step-5 checkpoint restored onto 4x1 for
+    one more step holding them, the int8 sync and GPipe, and (d) and (e)'s
+    gradient blocks against one device."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import Trainer
@@ -3862,17 +4002,26 @@ def mesh_gloo(rank):
     losses, check = [], trainer.guard.check
     trainer.guard.check = lambda loss: losses.append(loss) or check(loss)
     t = time.perf_counter()
-    with kwta_selections() as flat:
+    with kwta_selections() as flat, \
+            param_collectives(trainer.params) as (seen, handed):
         # Trainer.run, which checkpoints the step-5 state at its end
         trainer.run(MESH_STEPS, lambda s: batch_for_cfg(cfg, shape, s),
                     log=lambda *a: None)
         out["run_s"] = time.perf_counter() - t
         out["launches"] = read_counts()
+        # the run's window ends with the step-5 checkpoint, which gathers
+        # the whole tree
         out["peak"] = torch.cuda.max_memory_allocated(device)
-        # the uninterrupted step 6
+        # the uninterrupted step 6, its collectives and peak alone
+        before = len(seen)
+        torch.cuda.reset_peak_memory_stats(device)
         out["loss6"] = mesh_steps(trainer, MESH_STEPS + 1)[0]
+        out["peak_step"] = torch.cuda.max_memory_allocated(device)
+        out["census"] = collective_census(seen[before:])
+    out["handed"] = handed
     trainer.guard.check = check
     out["collectives_ms"] = collective_times(trainer)
+    out["fwd_bwd"] = fwd_bwd_peaks(trainer)
     out["losses"] = losses
     out["step_ms"] = [e.duration * 1e3 for e in trainer.monitor.events]
     if len(flat) != MESH_SELECTS * (MESH_STEPS + 1):
@@ -3921,7 +4070,9 @@ def mesh_gloo(rank):
     del holder
     torch.cuda.empty_cache()
     out["pipe"] = pipeline_check(device)
-    out["moe_remat"] = moe_remat_check(mesh_remat_cfg(), device)
+    out["moe_remat"] = block_grads_check(mesh_remat_cfg(), device,
+                                         remat_pair=True)
+    out["ssm_grads"] = block_grads_check(mesh_ssm_grads_cfg(), device)
     out["gloo_cuda"] = gloo_cuda_probe(device)
     out["peak_all"] = torch.cuda.max_memory_allocated(device)
     dist.barrier()
@@ -3936,43 +4087,105 @@ def mesh_remat_cfg():
                                n_layers=MESH_REMAT_LAYERS)
 
 
-def moe_remat_check(cfg, device):
-    """(d) on mesh 2x2 (data x model): the loss of the rank's rows of 4
-    sequences under the training rules and its gradient, remat off then
-    on, from the same weights.  Autograd runs a CUDA backward on its
-    device thread, outside the thread-locals of the forward, and with
-    remat each block runs again there: its MoE load-balancing loss must
-    still sum over the DP group.  Returns the leaves compared and equal
-    and the largest difference."""
+def mesh_ssm_grads_cfg():
+    """(e)'s zamba2-1.2b: its shipped widths, one unit of its pattern,
+    float32 compute, remat as shipped."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               n_layers=len(cfg.block_pattern))
+
+
+def block_grads_check(cfg, device, remat_pair=False):
+    """(d) and (e) on mesh 2x2 (data x model): 4 sequences of
+    MESH_REMAT_SEQ tokens, first on the single device (whole params, the
+    whole batch; its k-WTA sets and MoE router choices recorded), then the
+    rank's rows on its param blocks under the training rules and shards
+    (``steps.sharded_value_and_grad``, the step's own) holding them,
+    backward on autograd's device thread.  Every rank's gradient blocks,
+    their mean over the DP group as the step takes it, against the single
+    device's cut to the block; with ``remat_pair``, the same without remat
+    against with it.  Returns the leaves, the largest error over (1 +
+    max|g|) of its leaf and where, the losses, the collectives handed a
+    param block, and the remat comparison."""
     from repro_torch.data import canonical, lm_batch
     from repro_torch.launch import steps as St
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
-    from repro_torch.sharding import make_rules, use_rules
-    rules = make_rules(make_mesh((2, 2), ("data", "model"), device), "train")
-    rows = {k: rules.sharding_for(("batch", None), v.shape).take(
-        torch.from_numpy(canonical(v)).to(device)) for k, v in lm_batch(
-        SEED, 0, 4, MESH_REMAT_SEQ, cfg.vocab_size).items()}
-    got = {}
-    for remat in (False, True):
+    from repro_torch.sharding import make_rules, param_sharding, use_rules
+    from repro_torch.sharding.collectives import dp_group, group_size, summed
+    from repro_torch.tree import flatten, leaves, map_tree
+    mesh = make_mesh((2, 2), ("data", "model"), device)
+    rules = make_rules(mesh, "train")
+    batch = {k: torch.from_numpy(canonical(v)).to(device) for k, v in
+             lm_batch(SEED, 0, 4, MESH_REMAT_SEQ, cfg.vocab_size).items()}
+    rows = mesh_rows_of(rules, batch["tokens"].shape)
+    mine = {k: v[rows] for k, v in batch.items()}
+    params = T.init_train_params(cfg, seed=SEED, device=device)
+    t = time.perf_counter()
+    with kwta_selections() as masks, router_choices() as choices:
+        (loss1, _), g1 = St.value_and_grad(lambda p: T.loss_fn(p, batch, cfg),
+                                           params)
+    single_ms = (time.perf_counter() - t) * 1e3
+    shs = param_sharding(T.layer_specs(T.param_specs(cfg), cfg), params,
+                         rules)
+    blocks = map_tree(lambda sh, p: sh.take(p), shs, params)
+    want = [None if g is None else g[sh.block(p.shape)].clone()
+            for g, sh, p in zip(g1, leaves(shs), leaves(params))]
+    keys = [k for k, _ in flatten(params)]
+    del params, g1
+    torch.cuda.empty_cache()
+    experts = None
+    if cfg.is_moe:
+        lo = mesh.coords["model"] * (cfg.n_experts // 2)
+        experts = (lo, lo + cfg.n_experts // 2)
+    got, out = {}, {"loss_single": float(loss1), "single_ms": single_ms}
+    with use_rules(rules):
+        group = dp_group()
+    for remat in ((True, False) if remat_pair else (True,)):
         c = dataclasses.replace(cfg, remat=remat)
-        params = T.init_train_params(c, seed=SEED, device=device)
         t = time.perf_counter()
-        with use_rules(rules):
-            (loss, _), grads = St.value_and_grad(
-                lambda p: T.loss_fn(p, rows, c), params)
-        float(loss)
-        got[remat] = loss, grads, (time.perf_counter() - t) * 1e3
-        del params
-    (l0, g0, ms0), (l1, g1, ms1) = got[False], got[True]
-    pairs = [(a, b) for a, b in zip(g0, g1, strict=True) if a is not None]
-    out = {"loss_equal": bool(torch.equal(l0, l1)), "leaves": len(pairs),
-           "equal": sum(bool(torch.equal(a, b)) for a, b in pairs),
-           "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs),
-           "ms": [ms0, ms1]}
-    del got, g0, g1, pairs
+        with kwta_selections(iter(masks), rows=rows, experts=experts), \
+                router_choices(iter(choices), rows=rows), \
+                param_collectives(blocks) as (seen, handed):
+            (loss, _), grads = St.sharded_value_and_grad(c, rules, blocks,
+                                                         mine)
+            float(loss)
+        got[remat] = (loss, grads, (time.perf_counter() - t) * 1e3)
+        out.setdefault("handed", []).extend(handed)
+        out.setdefault("collectives", []).append(len(seen))
+    loss, grads, ms = got[True]
+    floats = [i for i, g in enumerate(grads) if g is not None]
+    mean = summed([tuple(grads[i].shape) for i in floats],
+                  lambda j, buf: buf.copy_(grads[floats[j]]), group, device)
+    worst, where = 0.0, None
+    for i, g in zip(floats, mean):
+        w = want[i]
+        err = float((g / group_size(group) - w).abs().max()) / (
+            1 + float(w.abs().max()))
+        if err >= worst:
+            worst, where = err, keys[i]
+    out.update(loss=float(loss), leaves=len(floats), worst=worst,
+               worst_leaf=where, ms=[ms], missing=sum(
+                   want[i] is not None for i in range(len(grads))
+                   if grads[i] is None))
+    if remat_pair:
+        l0, g0, ms0 = got[False]
+        pairs = [(a, b) for a, b in zip(g0, grads, strict=True)
+                 if a is not None]
+        out.update(loss_equal=bool(torch.equal(l0, loss)),
+                   equal=sum(bool(torch.equal(a, b)) for a, b in pairs),
+                   max_abs_diff=max(float((a - b).abs().max())
+                                    for a, b in pairs),
+                   ms=[ms0, ms])
+    del got, grads, mean, want, blocks
     torch.cuda.empty_cache()
     return out
+
+
+def mesh_rows_of(rules, shape):
+    """The rank's rows of a batch input of ``shape`` (its DP block)."""
+    return rules.sharding_for(("batch", None), shape).block(shape)[0]
 
 
 def batch_for_cfg(cfg, shape, step):
@@ -4049,7 +4262,7 @@ def mesh_single():
 
 
 def phase_mesh():
-    """Phase 13: (b) and (c) on four gloo ranks sharing the card, and (a)
+    """Phase 13: (b) to (e) on four gloo ranks sharing the card, and (a)
     with the restore onto 1x1 in a fresh process at NCCL world size 1,
     started beside the ranks once (b) has written its selections, its
     checkpoint and its step 6 (the 4x1 restore's, the sync's and GPipe's
@@ -4143,19 +4356,50 @@ def phase_mesh():
               f"moment bytes {r['bytes'][1]} (1x1 {one_m}, reckoned "
               f"{r['reckoned'][1]}); on 4x1 {r['bytes_4x1']} (reckoned "
               f"{r['reckoned_4x1']}); peak max_memory_allocated "
-              f"{r['peak'] / 2**30:.2f} GiB in the steps, "
+              f"{r['peak'] / 2**30:.2f} GiB in steps 1-5 with the step-5 "
+              f"checkpoint (its gather of the whole tree; the gathered "
+              f"step's run: {MESH_PEAK_GATHERED_GIB:.2f}), "
+              f"{r['peak_step'] / 2**30:.2f} GiB in step 6 alone, "
               f"{r['peak_all'] / 2**30:.2f} GiB in the phase")
         if tuple(r["bytes"]) != tuple(r["reckoned"]) or tuple(
                 r["bytes_4x1"]) != tuple(r["reckoned_4x1"]):
             failed.append("a rank's bytes are not the reckoned shard's")
+    fb = [r["fwd_bwd"] for r in ranks]
+    print(f"[mesh] (b) one loss and backward of step 6's rows alone, on the "
+          f"blocks / on the params gathered whole (the step of PRs 21-25): "
+          f"peak max_memory_allocated a rank "
+          f"{[round(f['blocks']['peak'] / 2**30, 3) for f in fb]} / "
+          f"{[round(f['gathered']['peak'] / 2**30, 3) for f in fb]} GiB "
+          f"(above the state {fb[0]['blocks']['above'] / 2**30:.3f} / "
+          f"{fb[0]['gathered']['above'] / 2**30:.3f}; limit: "
+          f"{MESH_PEAK_FALL_GIB} GiB below the gathered); host clock "
+          f"{fb[0]['blocks']['ms']:.1f} / {fb[0]['gathered']['ms']:.1f} ms; "
+          f"losses {fb[0]['blocks']['loss']:.6f} / "
+          f"{fb[0]['gathered']['loss']:.6f}")
+    for f in fb:
+        if f["blocks"]["peak"] + MESH_PEAK_FALL_GIB * 2**30 > \
+                f["gathered"]["peak"]:
+            failed.append("the loss and backward on blocks hold as much as "
+                          "on the gathered params")
+        if abs(f["blocks"]["loss"] - f["gathered"]["loss"]) > \
+                MESH_TOL["loss_rel"] * abs(f["gathered"]["loss"]):
+            failed.append("the loss on blocks parts from the gathered one")
     steps = r0["step_ms"][1:]
+    kinds, largest = r0["census"]
     print(f"[mesh] (b) host-clock step (steps 2-{MESH_STEPS}, loss read "
           f"back): median {np.median(steps):.1f} ms, min {min(steps):.1f}, "
           f"max {max(steps):.1f}; first {r0['step_ms'][0]:.1f} ms; Trainer "
           f"built in {r0['build_s']:.1f} s; run with its step-5 checkpoint "
-          f"{r0['run_s']:.1f} s; alone, the params' gather over model "
-          f"{r0['collectives_ms']['gather_model']:.1f} ms and the gradient "
-          f"mean over data {r0['collectives_ms']['grad_mean']:.1f} ms")
+          f"{r0['run_s']:.1f} s; no param gathered; alone, the gradient "
+          f"mean over data of the blocks "
+          f"({r0['collectives_ms']['grad_mean_bytes']} B) "
+          f"{r0['collectives_ms']['grad_mean']:.1f} ms")
+    print(f"[mesh] (b) collectives of step 6 (forward, backward and "
+          f"update) on rank 0, by kind [count, bytes]: {kinds}; the "
+          f"largest {largest}; handed a param block on any rank in the 6 "
+          f"steps: {sum(len(r['handed']) for r in ranks)}")
+    if any(r["handed"] for r in ranks):
+        failed.append("a param block was handed to a collective")
     d1 = abs(r1["loss6_1x1"] - r0["loss6"]) / abs(r0["loss6"])
     d4 = abs(r0["loss6_4x1"] - r0["loss6"]) / abs(r0["loss6"])
     print(f"[mesh] (b) the step-5 checkpoint restored (resumed at "
@@ -4196,15 +4440,39 @@ def phase_mesh():
         failed.append("the pipeline parts from the blocks in sequence")
     mr = [r["moe_remat"] for r in ranks]
     print(f"[mesh] (d) {MOE_ARCH} at its shipped widths, {MESH_REMAT_LAYERS} "
-          f"of 27 layers, f32, 4 rows of {MESH_REMAT_SEQ} on mesh 2x2 under "
-          f"the training rules: one loss and backward (on autograd's device "
-          f"thread), remat on vs off: loss bit-equal on every rank "
-          f"{all(m['loss_equal'] for m in mr)}, gradient leaves bit-equal "
-          f"{[m['equal'] for m in mr]} of {mr[0]['leaves']} (largest |diff| "
+          f"of 27 layers, f32, 4 rows of {MESH_REMAT_SEQ} on mesh 2x2, the "
+          f"rank's blocks under the training rules: one loss and backward "
+          f"(on autograd's device thread), remat on vs off: loss bit-equal "
+          f"on every rank {all(m['loss_equal'] for m in mr)}, gradient "
+          f"leaves bit-equal {[m['equal'] for m in mr]} of "
+          f"{mr[0]['leaves']} (largest |diff| "
           f"{max(m['max_abs_diff'] for m in mr):.3e}); host clock off / on "
           f"{mr[0]['ms'][0]:.1f} / {mr[0]['ms'][1]:.1f} ms")
     if not all(m["loss_equal"] and m["equal"] == m["leaves"] for m in mr):
         failed.append("remat's recompute parts from the forward on a mesh")
+    sg = [r["ssm_grads"] for r in ranks]
+    for label, rs, what in (
+            ("(d)", mr, "k-WTA sets and router choices"),
+            ("(e)", sg, "k-WTA sets")):
+        arch = MOE_ARCH if label == "(d)" else (
+            f"{HYBRID_ARCH} at its shipped widths, one unit (19 blocks), "
+            f"f32, 4 rows of {MESH_REMAT_SEQ} on mesh 2x2")
+        worst = max(rs, key=lambda m: m["worst"])
+        print(f"[mesh] {label} {arch}: every rank's DP-mean gradient blocks "
+              f"against the single device's with its {what} held: largest "
+              f"|diff| / (1 + max|g|) {worst['worst']:.3e} "
+              f"({worst['worst_leaf']}; tol {MESH_GRAD_TOL:.0e}) over "
+              f"{rs[0]['leaves']} leaves, unreached {rs[0]['missing']}; "
+              f"losses {[m['loss'] for m in rs]} against "
+              f"{rs[0]['loss_single']:.6f}; collectives a loss and backward "
+              f"{rs[0]['collectives']}, handed a param block "
+              f"{sum(len(m['handed']) for m in rs)}; host clock single "
+              f"{rs[0]['single_ms']:.1f} ms, blocks {rs[0]['ms'][-1]:.1f} ms")
+        if not all(m["worst"] <= MESH_GRAD_TOL and not m["missing"]
+                   for m in rs):
+            failed.append(f"{label}'s gradient blocks part from one device")
+        if any(m["handed"] for m in rs):
+            failed.append(f"{label} handed a param block to a collective")
     print(f"[mesh] gloo on CUDA tensors: {r0['gloo_cuda']}")
     numbers = {
         "step_ms_median": float(np.median(steps)),
@@ -4214,7 +4482,13 @@ def phase_mesh():
         "moment_bytes": [r["bytes"][1] for r in ranks],
         "param_bytes_1x1": one_p, "moment_bytes_1x1": one_m,
         "peak_gib": [r["peak"] / 2**30 for r in ranks],
+        "peak_step6_gib": [r["peak_step"] / 2**30 for r in ranks],
+        "fwd_bwd": fb[0],
         "collectives_ms": r0["collectives_ms"],
+        "collectives_step6": kinds,
+        "grads_err": {"d": max(m["worst"] for m in mr),
+                      "e": max(m["worst"] for m in sg)},
+        "e_ms": [sg[0]["single_ms"], sg[0]["ms"][-1]],
         "params_diff_2x2": r1["diff_b_a"], "step5_move": a["step5_move"],
         "sync_ms": syncs[0]["ms"], "pipe_ms": pipes[0]["ms"],
         "gloo_s": t_b, "single_s": t_a,
@@ -4247,7 +4521,7 @@ LAYOUTS = ("contiguous", "paged")
 #: the depth of phase 14's smollm-360m (32 shipped), cut to keep the
 #: whole script within its time limit beside phase 15: a decode step of
 #: four gloo ranks on one card is mostly its collectives, four a layer
-MESH_SERVE_LAYERS = 8
+MESH_SERVE_LAYERS = 4
 
 
 def mesh_serve_cfg():
@@ -4696,13 +4970,13 @@ MESH_MOE_DIR = ROOT / "build" / "mesh_moe"
 #: the shared experts' decode down projection on a rank of 2x2's
 #: contiguous layout (2 slots a rank): B=2, K=352, P=704, G=512, N=4
 MESH_MOE_SHAPE = dict(MOE_SHAPE, b=2)
-#: the depth of check (a), in float32 (every other check runs all 27
-#: layers): a decode step of four gloo ranks on one card takes ~2 s at
-#: full depth, most of it their ~160 collectives
-MESH_MOE_F32_LAYERS = 4
+#: the depth of check (a), in float32 (27 shipped): a decode step of
+#: four gloo ranks on one card takes ~2 s at full depth, most of it their
+#: ~160 collectives
+MESH_MOE_F32_LAYERS = 2
 #: the depth of checks (b)-(f), in bf16 (27 shipped), cut as phase 14's
-#: is to keep the script within its time limit beside phase 17
-MESH_MOE_LAYERS = 8
+#: is to keep the script within its time limit
+MESH_MOE_LAYERS = 4
 #: the tokens of the single-device serve's logits kept at every step, to
 #: tell a tie from a parting
 MESH_MOE_TOPS = 8
@@ -5105,14 +5379,13 @@ def phase_roofline(kernel_rows):
     device-alone and host-clock step; (c) rows 1-4's bounds from the
     modules; (d) the dry run of three decode_32k cells and zamba2's
     long_500k on 16x16."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import compile_cell
     from repro_torch.launch.hlo import census
     from repro_torch.launch.roofline import cell_roofline
     from repro_torch.launch.serve import Engine
     from repro_torch.tree import fake
     from repro_torch.models import transformer as T
-    cfg = get_config("smollm-360m")
+    cfg = smollm_config()
     engine = Engine(cfg, max_seq=33, n_slots=4, device="cuda")
 
     def step(p, c, b, q):

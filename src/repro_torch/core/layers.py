@@ -87,6 +87,14 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int,
     return params
 
 
+def out_width(params) -> int:
+    """The output columns a dense or packed linear layer's params hold (a
+    mesh rank's block of them, or all)."""
+    if "packed" in params:
+        return params["packed"].shape[0] * params["packed"].shape[2]
+    return params["w"].shape[-1]
+
+
 def linear_apply(params, x: torch.Tensor) -> torch.Tensor:
     y = x @ params["w"].to(x.dtype)
     if "b" in params:

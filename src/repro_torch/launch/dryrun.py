@@ -18,7 +18,9 @@ mesh (:func:`repro_torch.launch.mesh.make_production_mesh` and
 ``make_rules(mesh, kind)``):
 
 * train: :func:`repro_torch.launch.steps.make_sharded_train_step` on the
-  rank's training state (ZeRO-1 moments) and its rows of the batch;
+  rank's training state (ZeRO-1 moments) and its rows of the batch: the
+  forward and backward on the rank's param blocks, their collectives (the
+  backward's included) counted;
 * prefill: :func:`repro_torch.launch.steps.make_prefill_step` (the
   forward's last-position logits, as the reference counts it) of the
   rank's rows on the serving params a rank of the engine holds, under the
@@ -213,19 +215,18 @@ def _train_cell(cfg, tcfg, shape, rules, whole, mode, device, accounting):
                           params, opt, batch)}
     if not accounting:
         return out
-    # the step computes on whole leaves (it gathers the blocks) and on the
-    # rank's rows of the batch
+    # the step computes on the rank's blocks and its rows of the batch
     labels = batch["labels"]
     rows, s, ct = labels.shape[0], shape.seq_len, dtype_of(cfg.compute_dtype)
     x, positions = fake(lambda: (
         torch.empty((rows, s, cfg.d_model), dtype=ct),
         torch.arange(s).expand(rows, s)), device, mode)
-    with use_rules(rules):
+    with use_rules(rules), use_serving(Shards(rules, 0)):
         out["unit"] = census(St.make_unit_train_step(cfg),
-                             _unit(whole["layers"], cfg), whole.get("shared"),
-                             x, positions)
+                             _unit(params["layers"], cfg),
+                             params.get("shared"), x, positions)
         out["head"] = census(St.make_head_train_step(cfg),
-                             whole["embed"]["table"],
+                             params["embed"]["table"],
                              batch.get("tokens", labels), labels,
                              x[:, :labels.shape[1]])
     acfg = AdamWConfig(moment_dtype=dtype_of(tcfg.moment_dtype))

@@ -31,7 +31,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
-from repro_torch.models.common import cross_entropy, dtype_of
+from repro_torch.models.common import (cross_entropy, dtype_of,
+                                       embedding_block_apply)
 from repro_torch.optim import (AdamWConfig, apply_updates, global_norm,
                                warmup_cosine)
 from repro_torch.sharding import (NamedSharding, Rules, UnitSpec, dp_axes,
@@ -39,6 +40,8 @@ from repro_torch.sharding import (NamedSharding, Rules, UnitSpec, dp_axes,
 from repro_torch.sharding.collectives import (gather_leaves, gather_pieces,
                                              group_size, summed)
 from repro_torch.sharding.context import map_specs
+from repro_torch.sharding.serving import (Shards, enter_blocks, serving,
+                                          use_serving)
 from repro_torch.tree import fake, flatten, leaves, map_tree, unflatten
 
 
@@ -186,6 +189,16 @@ def gather_state(state, shardings, shapes):
                     "step": opt["step"]}}
 
 
+def sharded_value_and_grad(cfg: ModelConfig, rules: Rules, params, batch):
+    """:func:`value_and_grad` of the loss of the rank's rows ``batch`` on
+    the rank's param blocks ``params`` under ``rules`` and the training
+    shards (:class:`Shards`; none on one rank): the gradient of every
+    leaf is the gradient of its block, as the mesh step takes it."""
+    shards = Shards(rules, 0) if rules.mesh.size > 1 else None
+    with use_rules(rules), use_serving(shards):
+        return value_and_grad(lambda p: T.loss_fn(p, batch, cfg), params)
+
+
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             rules: Rules, shardings, shapes):
     """Returns ``(train_step, acfg)``: the training step on a mesh, where
@@ -194,27 +207,45 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     of the batch.
 
     ``train_step(params, opt_state, batch)``:
-      1. gathers the sharded params into full tensors (a leaf no axis of
-         more than one rank shards is its block, updated in place);
-      2. runs forward and backward on the rank's rows under ``rules``, so
-         the batch statistics are the global batch's
+      1. runs forward and backward on the rank's param blocks and rows
+         under ``rules`` and the training shards
+         (:class:`repro_torch.sharding.serving.Shards`), as the
+         reference's GSPMD step partitions it: no param is gathered, each
+         gradient comes out as the param's block, the loss is
+         vocab-parallel and the batch statistics are the global batch's
          (:func:`repro_torch.sharding.collectives.batch_sum`);
-      3. takes the gradients' mean over the DP group, and their global
-         norm for the clip;
-      4. updates the slice of each leaf its moment block covers, as
-         :func:`repro_torch.optim.apply_updates` updates whole leaves;
-      5. puts the params back as blocks, gathering each DP group's
-         updated slices where ZeRO-1 split a block over the group.
-    At a one-rank mesh without a process group no collective runs
-    (:func:`make_train_step`)."""
+      2. takes the gradient blocks' mean over the DP group, and their
+         global norm for the clip (a block's squares summed over the axes
+         that split its leaf, a whole leaf's counted once);
+      3. updates, in place, the slice of each param block that its moment
+         block covers, as :func:`repro_torch.optim.apply_updates` updates
+         whole leaves;
+      4. gathers each DP group's updated slices into the blocks where
+         ZeRO-1 split a block over the group.
+    At a one-rank mesh without a process group no collective runs and the
+    model runs on whole tensors (:func:`make_train_step`)."""
     acfg = adamw_config(tcfg)
     mesh = rules.mesh
     dp = dp_axes(mesh)
     dp_group = mesh.group(dp) if dp else None
     p_sh = leaves(shardings["params"])
     m_sh = leaves(shardings["opt"]["mu"])
+    # the group each float leaf's squares sum over (None: whole on every
+    # rank, counted once)
+    norm_groups = [mesh.group(sh.axes) if sh.axes else None for sh in p_sh]
 
-    def mean_over_dp(grads, floats):
+    def rel(i, coords=None):
+        """The slice of the rank's param block ``i`` that the moment block
+        of the member at ``coords`` (this rank by default) covers: the two
+        differ on the moments' extra axes alone.  None where that member
+        holds none of the leaf's moments."""
+        m_blk = m_sh[i].block(shapes[i], coords)
+        if m_blk is None:
+            return None
+        return tuple(slice(m.start - p.start, m.stop - p.start)
+                     for m, p in zip(m_blk, p_sh[i].block(shapes[i])))
+
+    def mean_over_dp(grads, flat_p, floats):
         if dp_group is None:
             return grads
 
@@ -222,7 +253,7 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if grads[floats[j]] is not None:
                 buf.copy_(grads[floats[j]])
 
-        bufs = summed([shapes[i] for i in floats], fill, dp_group,
+        bufs = summed([flat_p[i].shape for i in floats], fill, dp_group,
                       mesh.device)
         out = list(grads)
         n = group_size(dp_group)
@@ -231,54 +262,42 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                                   else buf.dtype)
         return out
 
-    def put_back(flat_p, full, floats):
-        """The updated params into the rank's blocks."""
+    def put_back(flat_p, floats):
+        """Each DP member's updated slices into the rank's param blocks,
+        where ZeRO-1 split a block over the DP axes."""
         by_key = {}
         for i in floats:
             extra = tuple(a for a in m_sh[i].axes if a not in p_sh[i].axes)
             if extra:
                 by_key.setdefault((mesh.ordered(extra), flat_p[i].dtype),
                                   []).append(i)
-            elif full[i] is not flat_p[i]:
-                flat_p[i].copy_(full[i][p_sh[i].block(shapes[i])])
         for (axes, _), idx in by_key.items():
-            def place(j, coords, idx=idx):
-                # a member's slice of the rank's param block: the members
-                # differ on the moments' extra axes alone
-                i = idx[j]
-                m_blk = m_sh[i].block(shapes[i], coords)
-                if m_blk is None:
-                    return None
-                return tuple(slice(m.start - p.start, m.stop - p.start)
-                             for m, p in zip(m_blk,
-                                             p_sh[i].block(shapes[i])))
-
-            mine = [m_sh[i].block(shapes[i]) for i in idx]
-            gather_pieces(mesh, axes, [None if b is None else full[i][b]
+            mine = [rel(i) for i in idx]
+            gather_pieces(mesh, axes, [None if b is None else flat_p[i][b]
                                        for i, b in zip(idx, mine)],
-                          [flat_p[i] for i in idx], place)
+                          [flat_p[i] for i in idx],
+                          lambda j, coords, idx=idx: rel(idx[j], coords))
 
     def train_step(params, opt_state, batch):
         flat_p = leaves(params)
-        full = gather_leaves(flat_p, p_sh, shapes)
-        with use_rules(rules):
-            (_, metrics), grads = value_and_grad(
-                lambda p: T.loss_fn(p, batch, cfg), unflatten(params, full))
-        floats = [i for i, t in enumerate(full) if t.is_floating_point()]
-        grads = mean_over_dp(grads, floats)
-        norm = global_norm(grads)
+        (_, metrics), grads = sharded_value_and_grad(cfg, rules, params,
+                                                     batch)
+        floats = [i for i, t in enumerate(flat_p) if t.is_floating_point()]
+        grads = mean_over_dp(grads, flat_p, floats)
+        norm = global_norm(grads, norm_groups)
         mu, nu = leaves(opt_state["mu"]), leaves(opt_state["nu"])
-        own = [i for i in floats if m_sh[i].block(shapes[i]) is not None]
-        blocks = {i: m_sh[i].block(shapes[i]) for i in own}
+        own = {i: rel(i) for i in floats}
+        own = {i: b for i, b in own.items() if b is not None}
         lr_scale = warmup_cosine(opt_state["step"], tcfg.warmup_steps,
                                  tcfg.total_steps)
         _, _, om = apply_updates(
-            [full[i][blocks[i]] for i in own],
-            [None if grads[i] is None else grads[i][blocks[i]] for i in own],
+            [flat_p[i][b] for i, b in own.items()],
+            [None if grads[i] is None else grads[i][b]
+             for i, b in own.items()],
             {"mu": [mu[i] for i in own], "nu": [nu[i] for i in own],
              "step": opt_state["step"]}, acfg, lr_scale, norm=norm)
         with torch.no_grad():
-            put_back(flat_p, full, floats)
+            put_back(flat_p, floats)
         metrics.update(om)
         return params, opt_state, metrics
 
@@ -418,15 +437,24 @@ def make_unit_fwd_step(cfg: ModelConfig):
 def make_head_train_step(cfg: ModelConfig):
     """The embedding lookup, the LM head and the loss, forward and backward
     (the vocabulary's part of a training step): the gradients of the table
-    and of x."""
+    and of x.  Under training shards whose table is a block of the
+    vocabulary's rows, the lookup, the head and the loss are
+    vocab-parallel, as the training step's."""
     ct = dtype_of(cfg.compute_dtype)
 
     def step(table, tokens, labels, x):
         def lf(p):
-            t = p["table"].to(ct)
-            emb = t[tokens]
-            logits = p["x"] @ t.T
-            return (cross_entropy(logits[:, :-1], labels[:, 1:])
+            t, h, sh = p["table"].to(ct), p["x"], serving()
+            vocab = None if sh is None else sh.vocab(cfg.padded_vocab,
+                                                     t.shape[0])
+            if vocab is None:
+                emb = t[tokens]
+            else:
+                emb = sh.reduce_model(embedding_block_apply(
+                    p["table"], tokens, ct, vocab[0]))
+                h = enter_blocks(h)
+            logits = h @ t.T
+            return (cross_entropy(logits[:, :-1], labels[:, 1:], vocab=vocab)
                     + 0.0 * torch.sum(emb.float() ** 2)), {}
 
         return value_and_grad(lf, {"table": table, "x": x})[1]

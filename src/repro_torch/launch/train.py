@@ -20,9 +20,11 @@ layout of the params (float32 masters, no ``packed_p``;
 mesh each rank stores the reference's per-device block of every param
 (``param_sharding`` of the ``train`` rules) and of every moment (ZeRO-1,
 ``zero1_specs``), takes its rows of the batch, and steps through
-:func:`repro_torch.launch.steps.make_sharded_train_step`: the params are
-gathered whole, the gradients averaged over the DP axes, each rank updates
-the slices its moments cover, and the blocks are put back.  The int8
+:func:`repro_torch.launch.steps.make_sharded_train_step`: the forward
+and backward run on the rank's param blocks (no param is gathered; the
+loss is vocab-parallel), the gradient blocks are averaged over the DP
+axes, each rank updates the slices of its blocks that its moments cover,
+and each DP group's updated slices are gathered into the blocks.  The int8
 error-feedback sync (``TrainConfig.grad_compression``) is not wired into
 the step, as in the reference.
 

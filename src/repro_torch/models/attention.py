@@ -22,7 +22,10 @@ rows is written by the rank that owns ``pos`` and attended through the
 sharded softmax (each rank's maximum, sum of exponentials and weighted
 values over its rows, combined over ``model`` in float32); a cache that
 holds a block of kv heads is attended for those heads' queries, the head
-outputs gathered before ``o``, which every rank runs whole.
+outputs gathered before ``o``, which every rank runs whole.  In a
+training step on a mesh ``x`` enters the column blocks alone (its
+gradient summed over ``model`` in the backward; a whole k or v beside a
+block of q takes its whole gradient on every rank).
 
 MLA on a serving mesh holds the rank's heads (``q``, ``uk``, ``uv``: a
 block of columns; ``o``: the rows of those heads) and the whole ``dkv``
@@ -30,6 +33,8 @@ and ``kpe``: its heads attend, and their products through ``o`` are
 summed over ``model`` (row parallel).  A contiguous latent cache that
 holds a block of rows is attended through the absorbed queries and the
 sharded softmax (:func:`_mla_rows_attn`); the page pools hold every row.
+In a training step the whole ``x``, latent and rope key enter the rank's
+heads (:func:`_enter_heads`).
 """
 
 from __future__ import annotations
@@ -41,12 +46,13 @@ import torch.nn.functional as tF
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
-                                     linear_specs, packed_linear_apply,
-                                     packed_linear_init, packed_linear_specs)
+                                     linear_specs, out_width,
+                                     packed_linear_apply, packed_linear_init,
+                                     packed_linear_specs)
 from repro_torch.obs.sparsity import observe_site
 from repro_torch.runtime.kvcache.layout import (paged_view, paged_write_chunk,
                                                 paged_write_rows)
-from repro_torch.sharding.serving import serving
+from repro_torch.sharding.serving import enter_blocks, serving
 from .common import apply_rope, normal_init
 
 
@@ -142,18 +148,22 @@ def _mask_dummy_heads(out, cfg):
 
 def _qkv(params, x, cfg, positions):
     """Roped queries (B, S, H, Dh) and keys (B, S, Hkv, Dh), and values.
-    On a serving mesh a projection whose weight is a block of columns is
-    gathered over ``model`` first, all of them in one collective."""
+    On a mesh a projection whose weight is a block of columns is gathered
+    over ``model`` first, all of them in one collective, and ``x`` enters
+    those blocks alone: a whole projection beside them (k and v where the
+    kv heads do not divide) takes all of its gradient on every rank."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sp = cfg.proj_sparsity
-    outs = [_proj_apply(params[n], x, sp) for n in ("q", "k", "v")]
-    sh = serving()
-    if sh is not None:
-        part = [i for i, n in enumerate((h, hkv, hkv))
-                if outs[i].shape[-1] < n * dh]
-        if part:
-            for i, t in zip(part, sh.gather_last(*(outs[i] for i in part))):
-                outs[i] = t
+    names, sh = ("q", "k", "v"), serving()
+    part = [] if sh is None else [
+        i for i, n in enumerate((h, hkv, hkv))
+        if out_width(params[names[i]]) < n * dh]
+    xe = enter_blocks(x) if part else x
+    outs = [_proj_apply(params[n], xe if i in part else x, sp)
+            for i, n in enumerate(names)]
+    if part:
+        for i, t in zip(part, sh.gather_last(*(outs[i] for i in part))):
+            outs[i] = t
     q, k, v = (_split_heads(t, n, dh) for t, n in zip(outs, (h, hkv, hkv)))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -609,13 +619,23 @@ def _mla_qkv(params, x, cfg, positions):
     :func:`repro_torch.models.transformer.prepare_params` cast once; the
     training layout's masters are float32)."""
     dh, dr = cfg.head_dim, cfg.rope_head_dim
-    q = (x @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], -1, dh + dr)
+    xq = _enter_heads(params, x, cfg)
+    q = (xq @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], -1, dh + dr)
     q_nope, q_pe = q[..., :dh], q[..., dh:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     c_kv = x @ params["dkv"].to(x.dtype)
     k_pe = apply_rope(x @ params["kpe"].to(x.dtype), positions,
                       cfg.rope_theta)
     return q_nope, q_pe, c_kv, k_pe
+
+
+def _enter_heads(params, x, cfg):
+    """``x`` where it feeds the rank's heads (``uk`` holds a block of
+    columns: a mesh): it enters them (:func:`enter_blocks`), so the whole
+    weights beside them (``dkv``, ``kpe``) keep all of their gradient."""
+    if params["uk"].shape[1] < cfg.n_heads * cfg.head_dim:
+        return enter_blocks(x)
+    return x
 
 
 def _mla_expand(params, c_kv, cfg):
@@ -630,7 +650,9 @@ def _mla_expand(params, c_kv, cfg):
 
 def _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg):
     """(q, k, v): the queries and the expanded keys with the shared rope
-    key broadcast over the heads; v from the latent."""
+    key broadcast over the heads; v from the latent.  On a mesh the whole
+    latent and rope key enter the rank's heads."""
+    c_kv, k_pe = (_enter_heads(params, t, cfg) for t in (c_kv, k_pe))
     k_nope, v = _mla_expand(params, c_kv, cfg)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k_pe = k_pe[..., None, :].expand(*k_pe.shape[:-1], q.shape[-2],

@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
+from repro_torch.sharding.collectives import (batch_sum, dp_group,
+                                              group_size, reduce)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -129,15 +130,42 @@ def lm_head_apply(params, x: torch.Tensor, compute_dtype):
 # Loss
 # ---------------------------------------------------------------------------
 
+def _vocab_parallel_nll(logits, labels, start: int, group):
+    """Each token's ``logsumexp - gold logit`` where ``logits`` is this
+    rank's block of vocabulary columns [start, start + width) and
+    ``group`` the ranks holding the other blocks: the detached maximum
+    over the group, the sums of exponentials under it summed over the
+    group, and the gold logit from the rank that holds its column, summed
+    over the group (the others' terms are zeros)."""
+    m = reduce(logits.detach().amax(dim=-1), group, "max")
+    sumexp = reduce(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    local = labels.long() - start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)
+                          [..., None])[..., 0]
+    gold = reduce(torch.where(inside, picked, torch.zeros_like(picked)),
+                  group)
+    return torch.log(sumexp) + m - gold
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  vocab=None) -> torch.Tensor:
     """Mean token cross-entropy in fp32; with ``mask``, the mean over the
     masked-in tokens.  Under rules with a DP group the mean is the global
-    batch's: numerator and count are summed over the group."""
+    batch's: numerator and count are summed over the group.
+
+    ``vocab`` = ``(start, group)`` where ``logits`` is a block of the
+    vocabulary's columns from ``start`` and ``group`` holds the others
+    (a training step on a mesh, whose logits never leave their block): the
+    vocab-parallel loss (:func:`_vocab_parallel_nll`)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    if vocab is not None:
+        nll = _vocab_parallel_nll(logits, labels, *vocab)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     group = dp_group()
     if mask is not None:
         m = mask.float()

@@ -19,7 +19,10 @@ On a serving mesh (:mod:`repro_torch.sharding.serving`) up and gate are
 the rank's block of output groups, so ``h`` comes out as a block of
 columns: it is gathered over ``model`` before the k-WTA, which picks K of
 the whole row, and the down projection (whole on every rank) runs as on
-one device.
+one device.  A training step on a mesh runs the same, ``x`` entering the
+up and gate blocks (its gradient summed over ``model`` in the backward)
+and the gather's backward handing each rank its block of the hidden's
+gradient.
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ import torch.nn.functional as tF
 from repro_torch.core.api import SparsityConfig
 from repro_torch.core.instrument import named_scope
 from repro_torch.core.layers import (apply_kwta, linear_apply, linear_init,
-                                     linear_specs, packed_linear_apply,
-                                     packed_linear_init, packed_linear_specs)
+                                     linear_specs, out_width,
+                                     packed_linear_apply, packed_linear_init,
+                                     packed_linear_specs)
 from repro_torch.obs.sparsity import observe_site
-from repro_torch.sharding.serving import serving
+from repro_torch.sharding.serving import enter_blocks, serving
 
 
 def _act(name: str):
@@ -99,9 +103,12 @@ def hidden_width(p) -> int:
 
 def ffn_hidden(params, x: torch.Tensor, cfg_sp: SparsityConfig,
                act: str = "silu"):
-    """``act(gate x) * (up x)`` (or ``act(up x)``): on a serving mesh the
-    rank's block of the hidden's columns where up and gate are blocks."""
+    """``act(gate x) * (up x)`` (or ``act(up x)``): on a mesh the rank's
+    block of the hidden's columns where up and gate are blocks, which
+    ``x`` enters."""
     a = _act(act)
+    if out_width(params["up"]) < hidden_width(params):
+        x = enter_blocks(x)
     with named_scope("ffn_up"):
         up = _apply_one(params["up"], x, cfg_sp)
     if "gate" in params:

@@ -32,6 +32,15 @@ ranks and drops are global); each computes its block of the buffer and
 combines its experts' terms only, and the partial outputs are summed
 over ``model`` in float32.  The shared experts then run as the FFN does on a mesh:
 k-WTA over the whole hidden row, down whole on every rank.
+
+A training step on a mesh runs the same forward through autograd: ``x``
+enters the router's columns and the rank's experts (the dispatch buffer
+is a linear function of ``x``, computed whole on every rank and cut to
+the rank's experts), and ``top_p`` enters the combine of the rank's
+experts, so each one's gradient is summed over ``model`` in the
+backward; the gathered logits hand each rank its columns' gradient, and
+the partial outputs' sum passes the whole gradient to every rank.  The
+aux loss's loads are summed over the DP group only.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from repro_torch.core.api import SparsityConfig
 from repro_torch.core.layers import _uniform, apply_kwta
 from repro_torch.core.masks import CSLayout, make_routes
 from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
-from repro_torch.sharding.serving import serving
+from repro_torch.sharding.serving import enter_blocks, serving
 from .common import normal_init
 from .ffn import ffn_down, ffn_hidden, ffn_init, ffn_specs, hidden_width
 
@@ -199,13 +208,16 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
     groups = b
+    held = next(iter(params["up"].values())).shape[0]     # experts held
+    sh = serving()
+    # a block of experts (and of the router's columns, which divide as
+    # they do): x enters them, through the dispatch and the router
     tg = t // groups
-    xg = x.reshape(groups, tg, d)
+    xg = (enter_blocks(x) if held < e else x).reshape(groups, tg, d)
     logits = xg @ params["router"].to(x.dtype)            # (G, Tg, E)
     hidden = None
     if "shared" in params:
         hidden = ffn_hidden(params["shared"], x, cfg_sp, "silu")
-    sh = serving()
     if sh is not None:
         logits, hidden = _gather_columns(
             sh, logits, e, hidden,
@@ -230,11 +242,11 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
 
     cap = int(np.ceil(tg * k / e * cfg.capacity_factor))
     buf, rank, keep = _dispatch(xg, top_e, e, k, cap)     # (G, E, C, d)
-    held = next(iter(params["up"].values())).shape[0]     # experts held
     lo = None
-    if held < e:                # a serving mesh's block of experts
+    if held < e:                # a mesh's block of experts
         lo = sh.block("model", e)[0]
         buf = buf[:, lo:lo + held]
+        top_p = enter_blocks(top_p)
 
     up = _expert_matmul(params["up"], buf)
     if "gate" in params:

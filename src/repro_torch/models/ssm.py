@@ -32,6 +32,15 @@ norm over the whole width takes its sum of squares over ``model``, and
 an out projection that holds a block of rows is a row-parallel product
 summed over ``model`` in float32.  sLSTM gathers its pre-activations and
 runs the cell on the whole state on every rank.
+
+A training step on a mesh runs the same forward through autograd
+(:mod:`repro_torch.sharding.serving`): every tensor that every rank holds
+whole enters (:func:`repro_torch.sharding.serving.enter_blocks`) where it
+is cut to, or broadcast over, the rank's block of work (the input of a
+column block, the gathered projections before their heads or channels
+are cut, sLSTM's state before its heads), and a norm's sum of squares,
+used on each rank's own columns, is summed over ``model`` in the
+backward too.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import torch
 import torch.nn.functional as tF
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.serving import serving
+from repro_torch.sharding.serving import enter_blocks, serving
 from .common import normal_init, rmsnorm_apply, rmsnorm_init
 
 #: the mixers' leaves that every use casts to the compute dtype; the rest
@@ -83,14 +92,17 @@ def _whole(*pairs):
 def _norm_cols(params, y, lo: int, n: int):
     """RMSNorm over the whole width ``n`` of which ``y`` holds the columns
     [lo, lo + w): the sum of squares summed over ``model`` in float32,
-    times the scale's columns."""
+    times the scale's columns.  The sum and the (whole) scale each meet
+    the rank's own columns: both enter them."""
     w = y.shape[-1]
     if w == n:
         return rmsnorm_apply(params, y)
     y32 = y.float()
-    ss = serving().reduce_model((y32 * y32).sum(dim=-1, keepdim=True))
+    ss = enter_blocks(serving().reduce_model(
+        (y32 * y32).sum(dim=-1, keepdim=True)))
     out = y32 * torch.rsqrt(ss / n + 1e-5)
-    return (out * params["scale"][lo:lo + w].float()).to(y.dtype)
+    scale = enter_blocks(params["scale"])[lo:lo + w]
+    return (out * scale.float()).to(y.dtype)
 
 
 def _rows_product(y, lo: int, w, n: int):
@@ -98,8 +110,11 @@ def _rows_product(y, lo: int, w, n: int):
     ``n`` and ``w`` all ``n`` rows or a block of them over ``model`` (a
     row-parallel product, summed over ``model`` in float32).  ``y`` is a
     block of heads only where the heads divide over ``model``, and then
-    so do ``w``'s rows: its rows are ``y``'s, or ``y`` is whole."""
+    so do ``w``'s rows: its rows are ``y``'s, or ``y`` is whole (and then
+    enters the rank's rows)."""
     r0, r1 = _span(w.shape[0], n)
+    if y.shape[-1] == n and r1 - r0 < n:
+        y = enter_blocks(y)
     out = y[..., r0 - lo:r1 - lo] @ w.to(y.dtype)
     if r1 - r0 < n:
         out = serving().reduce_model(out.float()).to(y.dtype)
@@ -232,17 +247,21 @@ def _mamba2_mix(params, x, cfg, conv_cache=None):
     channels (its weights and its cache), gathered again."""
     d_inner, nh, ds = _mamba2_dims(cfg)
     hd, conv_dim = cfg.ssm_head_dim, d_inner + 2 * ds
-    (zxbcdt,) = _whole((x @ params["in_proj"].to(x.dtype),
-                        conv_dim + nh + d_inner))
-    xin, B, C, dt, z = torch.split(zxbcdt, [d_inner, ds, ds, nh, d_inner],
-                                   dim=-1)
+    width = conv_dim + nh + d_inner
+    if params["in_proj"].shape[1] < width:
+        x = enter_blocks(x)
+    (zxbcdt,) = _whole((x @ params["in_proj"].to(x.dtype), width))
+    xbc, dt, z = torch.split(zxbcdt, [conv_dim, nh, d_inner], dim=-1)
     c0, c1 = _span(params["conv_b"].shape[0], conv_dim)
-    xbc, conv_new = _causal_conv(torch.cat([xin, B, C], dim=-1)[..., c0:c1],
-                                 params["conv_w"], params["conv_b"],
-                                 conv_cache)
-    (xbc,) = _whole((xbc, conv_dim))
-    xin, B, C = torch.split(xbc, [d_inner, ds, ds], dim=-1)
     h0, h1 = _span(params["A_log"].shape[0], nh)
+    if c1 - c0 < conv_dim:
+        xbc = enter_blocks(xbc)
+    xbc, conv_new = _causal_conv(xbc[..., c0:c1], params["conv_w"],
+                                 params["conv_b"], conv_cache)
+    (xbc,) = _whole((xbc, conv_dim))
+    if h1 - h0 < nh:
+        xbc, dt, z = (enter_blocks(t) for t in (xbc, dt, z))
+    xin, B, C = torch.split(xbc, [d_inner, ds, ds], dim=-1)
     dt = tF.softplus(dt[..., h0:h1].float() + params["dt_bias"])
     return (xin[..., h0 * hd:h1 * hd], B, C, dt, z[..., h0 * hd:h1 * hd],
             conv_new)
@@ -335,10 +354,14 @@ def _mlstm_qkvg(params, x, cfg):
     b, t, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    gates = (x @ params["gates"].to(x.dtype)).float() + params["gate_b"]
-    qkv, gates = _whole((x @ params["qkv"].to(x.dtype), 3 * d),
+    xg = enter_blocks(x) if params["gates"].shape[1] < 2 * h else x
+    xq = enter_blocks(x) if params["qkv"].shape[1] < 3 * d else x
+    gates = (xg @ params["gates"].to(x.dtype)).float() + params["gate_b"]
+    qkv, gates = _whole((xq @ params["qkv"].to(x.dtype), 3 * d),
                         (gates, 2 * h))
     h0, h1 = _span(params["skip"].shape[0], h)
+    if h1 - h0 < h:
+        qkv, gates = enter_blocks(qkv), enter_blocks(gates)
     q, k, v = (z.reshape(b, t, h, dh)[:, :, h0:h1]
                for z in qkv.chunk(3, dim=-1))
     k = k / math.sqrt(dh)
@@ -426,9 +449,14 @@ def _slstm_pre(params, cfg, h_prev, zx):
     dh = d // nh
     c0, c1 = _span(params["b"].shape[0], 4 * d)
     g0, g1 = _span(params["r"].shape[0], nh)
+    if g1 - g0 < nh:
+        h_prev = enter_blocks(h_prev)
     hr = torch.einsum("bhd,hde->bhe", h_prev.reshape(-1, nh, dh)[:, g0:g1],
                       params["r"].to(h_prev.dtype)).reshape(h_prev.shape[0],
                                                             -1)
+    # a whole r's product is whole on every rank: it enters the block
+    if g1 - g0 == nh and c1 - c0 < 4 * d:
+        hr = enter_blocks(hr)
     hr = hr[:, c0 - 4 * dh * g0:c1 - 4 * dh * g0]
     return _whole(((zx + hr).float() + params["b"], 4 * d))[0]
 
@@ -451,7 +479,8 @@ def _slstm_cell(params, cfg, carry, zx):
 
 def slstm_apply(params, x, cfg):
     b, t, d = x.shape
-    zx = x @ params["wx"].to(x.dtype)                       # (B, T, 4D)
+    xe = enter_blocks(x) if params["wx"].shape[1] < 4 * d else x
+    zx = xe @ params["wx"].to(x.dtype)                      # (B, T, 4D)
     carry = (x.new_zeros((b, d)), _zeros((b, d), x.device),
              _zeros((b, d), x.device))
     hs = []

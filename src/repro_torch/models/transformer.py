@@ -42,7 +42,11 @@ engine) the serving entry points run on the rank's blocks:
 ``init_paged_cache`` with ``rules`` make the rank's cache blocks; the
 lookup is vocab-parallel, a decode step on the contiguous cache computes
 the rank's slots (where they shard over the DP axes), and the logits come
-back whole on every rank.
+back whole on every rank.  Under a training step's shards
+(:func:`repro_torch.launch.steps.sharded_value_and_grad`) :func:`loss_fn`
+runs the same forward on the rank's param blocks through autograd and
+takes the vocab-parallel loss of its block of the logits; remat's
+recompute re-enters those shards.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from repro_torch.core.instrument import named_scope, pause_selects
 from repro_torch.core.layers import add_partition_major, drop_partition_major
 from repro_torch.sharding.context import (UnitSpec, get_rules, map_specs,
                                           param_sharding, use_rules)
-from repro_torch.sharding.serving import serving, use_serving
+from repro_torch.sharding.serving import enter_blocks, serving, use_serving
 from repro_torch.obs.sparsity import observe_site, pause_capture
 from repro_torch.runtime.kvcache.layout import copy_page
 from repro_torch.tree import map_tree
@@ -493,11 +497,11 @@ def _embed(params, batch, cfg, ct):
     if cfg.frontend == "embed":
         return batch["embeds"].to(ct)
     table, sh = params["embed"]["table"], serving()
-    if sh is None or table.shape[0] == cfg.padded_vocab:
+    vocab = None if sh is None else sh.vocab(cfg.padded_vocab, table.shape[0])
+    if vocab is None:
         return embedding_apply(params["embed"], batch["tokens"], ct)
-    start = sh.block("model", cfg.padded_vocab)[0]
     return sh.reduce_model(embedding_block_apply(table, batch["tokens"], ct,
-                                                 start))
+                                                 vocab[0]))
 
 
 def _embed_inputs(params, batch, cfg, ct):
@@ -509,19 +513,24 @@ def _embed_inputs(params, batch, cfg, ct):
     return x
 
 
-def _logits(params, x, cfg, ct, rows_split: bool = False):
-    """The logits of ``x``; on a serving mesh gathered whole from the
-    head's vocabulary blocks (over ``model``) and, with ``rows_split``,
-    from the rank's rows of the batch (over the DP axes), in one
-    collective."""
+def _logits(params, x, cfg, ct, rows_split: bool = False,
+            blocks: bool = False):
+    """The logits of ``x``; on a mesh the head's block of vocabulary rows
+    gives a block of their columns (the normed ``x`` enters it: its
+    gradient sums over ``model``), gathered whole over ``model`` and, with
+    ``rows_split``, from the rank's rows of the batch (over the DP axes),
+    in one collective; with ``blocks`` the block itself (a training
+    step's vocab-parallel loss reads it)."""
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = lm_head_apply(head, x, ct)
     sh = serving()
-    if sh is None:
+    vocab = None if sh is None else sh.vocab(cfg.padded_vocab,
+                                             head["table"].shape[0])
+    logits = lm_head_apply(head, x if vocab is None else enter_blocks(x), ct)
+    if sh is None or blocks:
         return logits
     dims = {0: sh.dp} if rows_split else {}
-    if head["table"].shape[0] < cfg.padded_vocab:
+    if vocab is not None:
         dims[-1] = "model"
     return sh.gather(logits, dims)
 
@@ -559,7 +568,7 @@ def _remat(fn, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
-def forward(params, batch, cfg):
+def forward(params, batch, cfg, vocab_blocks: bool = False):
     """Full-sequence forward. batch: ``tokens`` (B, S), or ``embeds`` (B,
     S, D) for the ``embed`` frontend, with ``patch_embeds`` for
     ``vision_prefix``.  Returns (logits, aux_loss), aux_loss the sum of
@@ -567,7 +576,11 @@ def forward(params, batch, cfg):
 
     With ``cfg.remat``, where autograd records, each block runs under
     :func:`_remat`: the backward keeps each block's input and recomputes
-    one block at a time."""
+    one block at a time.
+
+    On a mesh (:func:`serving`) it runs on the rank's blocks; the logits
+    come back whole, or with ``vocab_blocks`` as the rank's block of the
+    vocabulary's columns (:func:`loss_fn`)."""
     ct = dtype_of(cfg.compute_dtype)
     x = _embed_inputs(params, batch, cfg, ct)
     b, s, _ = x.shape
@@ -582,7 +595,7 @@ def forward(params, batch, cfg):
                 x, a = _block_apply(kind, layer, x, cfg, positions)
         if a is not None:
             aux = aux + a
-    return _logits(params, x, cfg, ct), aux
+    return _logits(params, x, cfg, ct, blocks=vocab_blocks), aux
 
 
 def unit_step_fn(cfg):
@@ -609,12 +622,18 @@ def loss_fn(params, batch, cfg):
     """Next-token LM loss: the cross-entropy of ``logits[:, :-1]`` against
     ``labels[:, 1:]`` (over the text positions, after a vision prefix)
     plus ``router_aux_weight`` times the MoE aux loss.
-    Returns (loss, {"loss", "lm_loss", "aux_loss"})."""
-    logits, aux = forward(params, batch, cfg)
+    Returns (loss, {"loss", "lm_loss", "aux_loss"}).
+
+    On a mesh (a training step's :func:`serving` shards) the loss is
+    vocab-parallel: the logits stay the rank's block of the vocabulary."""
+    logits, aux = forward(params, batch, cfg, vocab_blocks=True)
     if cfg.frontend == "vision_prefix":
         # logits cover [prefix + text]; predict text tokens only
         logits = logits[:, batch["patch_embeds"].shape[1]:]
-    lm = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    sh = serving()
+    vocab = None if sh is None else sh.vocab(cfg.padded_vocab,
+                                             logits.shape[-1])
+    lm = cross_entropy(logits[:, :-1], batch["labels"][:, 1:], vocab=vocab)
     loss = lm + cfg.router_aux_weight * aux
     return loss, {"loss": loss, "lm_loss": lm, "aux_loss": aux}
 

@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.sharding.collectives import all_reduce_
 from repro_torch.tree import is_float, leaves, map_tree
 
 
@@ -51,10 +52,23 @@ def init_state(params, cfg: AdamWConfig) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(grads) -> torch.Tensor:
-    """fp32 global norm over the float leaves (``None`` grads count 0)."""
-    total = sum(torch.sum(g.float() ** 2) for g in leaves(grads)
-                if is_float(g))
+def global_norm(grads, groups=None) -> torch.Tensor:
+    """fp32 global norm over the float leaves (``None`` grads count 0).
+
+    ``groups`` (one a leaf of ``grads``, in :func:`repro_torch.tree.
+    leaves`' order) where the leaves are a mesh rank's blocks: a leaf's
+    process group holds the ranks with its other blocks, and the squares
+    of the leaves of one group are summed over it; a leaf whose group is
+    None is whole on every rank and counts once."""
+    flat = leaves(grads)
+    groups = [None] * len(flat) if groups is None else list(groups)
+    parts = {}
+    for g, group in zip(flat, groups, strict=True):
+        if is_float(g):
+            parts.setdefault(group, []).append(torch.sum(g.float() ** 2))
+    total = sum(parts.pop(None, []))
+    for group, squares in parts.items():
+        total = total + all_reduce_(torch.stack(squares).sum(), group)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

@@ -17,18 +17,31 @@ NCCL takes CUDA tensors for all three, gloo CPU tensors.  Gloo also runs
 memory itself); its point-to-point sends are given host tensors, so a
 CUDA tensor is sent through a host copy.
 
-The serving engine on a mesh (:mod:`repro_torch.sharding.serving`) runs
-two more: :func:`all_gather` (every member's block stacked into one
-preallocated buffer: the q/k/v columns, the FFN hidden, the head outputs,
-the logits) and :func:`all_reduce_` with ``MAX`` and ``SUM`` (the
-vocab-parallel embedding and the sharded softmax).
+The model on a mesh (:mod:`repro_torch.sharding.serving`, serving and
+training alike) runs three more, each through autograd where it records:
+
+* :func:`gather`: every member's block stacked into one new buffer (the
+  q/k/v columns, the FFN hidden, the head outputs, the logits); its
+  backward is the rank's slice of the gradient;
+* :func:`reduce`: a sum (the vocab-parallel embedding, row-parallel
+  partial outputs, the sharded softmax) whose backward is the identity,
+  or a maximum, which carries no gradient;
+* :func:`enter`: the identity, whose backward sums the gradient over the
+  group.  It marks a tensor that every member holds whole (replicated)
+  where it feeds the member's own block of work: each member's gradient
+  of it is then a part, and the parts add up to the whole.
+
+So a replicated activation holds its whole gradient on every member, and
+a split one (a block) its block's.  Without autograd (serving, under
+``no_grad``) they are the plain collectives, a sum in place.
 
 Without a process group (a one-rank mesh) every collective is the
 identity and none is called.  A collective that fails raises; nothing is
 retried on another device or backend.  :func:`observe_collectives` hands
 an observer every collective this module runs with the tensors it was
-given and fills (the serving tests check that none is a weight; the
-census of :mod:`repro_torch.launch.hlo` counts them).
+given and fills, the backward's included (the serving and training tests
+check that none is a weight; the census of :mod:`repro_torch.launch.hlo`
+counts them).
 """
 
 from __future__ import annotations
@@ -88,15 +101,91 @@ def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """Every member's ``x`` (one shape on all) stacked in group-rank order
-    into one new buffer, ``(members, *x.shape)``; ``x[None]`` for None."""
+    into one new buffer, ``(members, *x.shape)``; ``x[None]`` for None.
+    Not differentiable (:func:`gather` is)."""
     if group is None:
         return x[None]
+    return _all_gather(x, group)
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     n = dist.get_world_size(group)
     out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
     _notify("all_gather", x, out)
     _gather_into(out, x.view(-1), group)
     return out.view(n, *x.shape)
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.member = dist.get_rank(group)
+        return _all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.member], None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+def gather(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_gather`; where autograd records, the gradient of ``x`` is
+    this member's slice of the (whole, replicated) gradient of the
+    result."""
+    if group is not None and _records(x):
+        return _Gather.apply(x, group)
+    return all_gather(x, group)
+
+
+def reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (or maximised) over ``group``.  Where autograd records,
+    a sum is a new tensor whose gradient passes to ``x`` as it is (the
+    consumer is replicated; see :func:`enter` for a split one) and a
+    maximum is detached (a softmax's shift, whose gradient cancels);
+    elsewhere ``x`` itself, in place."""
+    if group is None:
+        return x
+    if _records(x):
+        if op == "max":
+            return all_reduce_(x.detach().clone(), group, op)
+        return _Sum.apply(x, group)
+    return all_reduce_(x, group, op)
+
+
+def enter(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over ``group``, where it feeds work split over the
+    group: the identity, whose backward sums the gradient over ``group``
+    (``x`` itself where autograd does not record)."""
+    if group is not None and _records(x):
+        return _Enter.apply(x, group)
+    return x
 
 
 def summed(shapes: Sequence[Sequence[int]],

@@ -25,8 +25,8 @@ sharded (ZeRO-1 puts the DP axes there when they divide the unit count)
 gives each rank the reference's units, whole.
 
 ``constrain`` (the reference's ``with_sharding_constraint``) returns its
-tensor unchanged: the port's step computes on whole tensors (see
-:mod:`repro_torch.launch.train`).
+tensor unchanged: the port places its activations by the blocks the
+params hold (:mod:`repro_torch.sharding.serving`).
 """
 
 from __future__ import annotations
@@ -209,7 +209,7 @@ def use_rules(rules: Optional[Rules]):
 
 def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """The reference's activation annotation: checks the rank and returns
-    ``x`` (the port computes on whole tensors)."""
+    ``x`` (the port's blocks follow the params')."""
     if get_rules() is not None and len(logical_axes) != x.ndim:
         raise ValueError(f"{len(logical_axes)} axes for rank-{x.ndim} array")
     return x

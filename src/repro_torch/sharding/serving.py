@@ -1,6 +1,6 @@
-"""The rank's place on a serving mesh: what the port runs where the
-reference's decode rules (``make_rules(mesh, "decode")``) shard a serving
-step and GSPMD partitions it.
+"""The rank's place on a mesh: what the port runs where the reference's
+rules (``make_rules(mesh, "decode")`` for a serving step, ``"train"`` for
+a training step) shard a step and GSPMD partitions it.
 
 Under those rules each rank holds (the reference's specs, leaf for leaf):
 
@@ -44,10 +44,21 @@ over ``model``, and sum their row-parallel out projections; an sLSTM
 rank gathers its block of the cell's pre-activations and runs the cell
 on the whole state.
 
+A training step (``make_rules(mesh, "train")``: the same blocks of the
+weights, the batch's rows over the DP axes, no cache) runs the same
+forward on the rank's blocks and its backward through autograd: each of
+those collectives is differentiable (:mod:`repro_torch.sharding.
+collectives`: a gather's backward is the rank's slice, a sum's the
+identity), and :func:`enter_blocks` marks every replicated tensor that
+feeds the rank's block of work (its backward sums the gradient over
+``model``).  The head's logits stay vocabulary blocks and the loss is
+vocab-parallel (:func:`repro_torch.models.common.cross_entropy`).
+
 :class:`Shards` answers the model code's questions (which rows of the
 batch, which block of an axis) and runs those collectives.  The engine
-installs it with :func:`use_serving` around its model calls; outside,
-:func:`serving` is None and every model function runs on whole tensors.
+and the training step install it with :func:`use_serving` around their
+model calls; outside, :func:`serving` is None and every model function
+runs on whole tensors.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .axes import dp_axes, make_rules
-from .collectives import all_gather, all_reduce_
+from .collectives import enter, gather, reduce
 from .context import MeshAxes, Rules, _flat
 
 _STATE = threading.local()
@@ -68,9 +79,10 @@ _STATE = threading.local()
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """One rank of a serving mesh of more than one rank, with the serving
-    rules (``decode``, or ``decode_long`` for a batch of one) and the
-    engine's ``max_seq`` (the contiguous cache's rows)."""
+    """One rank of a mesh of more than one rank, with the serving rules
+    (``decode``, or ``decode_long`` for a batch of one) and the engine's
+    ``max_seq`` (the contiguous cache's rows), or the training rules and
+    no cache rows."""
     rules: Rules
     max_seq: int
 
@@ -102,6 +114,15 @@ class Shards:
     def dp(self) -> Tuple[str, ...]:
         """The axes a batch's rows shard over (``pod`` and ``data``)."""
         return dp_axes(self.mesh)
+
+    def vocab(self, padded_vocab: int, width: int):
+        """``(start, group)`` where ``width`` (a table's rows or the
+        logits' columns) is the rank's block of the vocabulary: its first
+        row and the ``model`` group holding the others; None where it is
+        whole."""
+        if width == padded_vocab:
+            return None
+        return self.block("model", padded_vocab)[0], self.mesh.group("model")
 
     def batch_rows(self, b: int) -> Optional[slice]:
         """The rank's slots of a batch of ``b`` where the batch shards over
@@ -137,13 +158,16 @@ class Shards:
 
     # -- collectives ----------------------------------------------------------
     def reduce_model(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """In place: ``x`` summed (or maximised) over ``model``."""
+        """``x`` summed (or maximised) over ``model``."""
         return self.reduce(x, "model", op)
 
     def reduce(self, x: torch.Tensor, axes: MeshAxes, op: str = "sum"
                ) -> torch.Tensor:
-        """In place: ``x`` summed (or maximised) over ``axes``."""
-        return all_reduce_(x, self.mesh.group(axes), op)
+        """``x`` summed (or maximised) over ``axes``: in place without
+        autograd; through it a new tensor, the sum's gradient passed back
+        as it is (:func:`repro_torch.sharding.collectives.reduce`)."""
+        return reduce(x, self.mesh.group(axes), op)
+
 
     def gather(self, x: torch.Tensor, dims: Dict[int, MeshAxes]
                ) -> torch.Tensor:
@@ -158,7 +182,7 @@ class Shards:
         axes = self.mesh.ordered({a for part in on.values() for a in part})
         if not axes:
             return x
-        stacked = all_gather(x, self.mesh.group(axes)).view(
+        stacked = gather(x, self.mesh.group(axes)).view(
             *(self.size(a) for a in axes), *x.shape)
         perm, shape = [], []
         for j, n in enumerate(x.shape):
@@ -174,7 +198,7 @@ class Shards:
         whole, through one all_gather of their concatenation (in the
         widest of their types; each comes back in its own)."""
         widths = [x.shape[-1] for x in xs]
-        stacked = all_gather(torch.cat(xs, dim=-1), self.mesh.group("model"))
+        stacked = gather(torch.cat(xs, dim=-1), self.mesh.group("model"))
         out = []
         for part, x in zip(stacked.split(widths, dim=-1), xs):
             part = part.movedim(0, -2)
@@ -184,6 +208,17 @@ class Shards:
 
 def serving() -> Optional[Shards]:
     return getattr(_STATE, "shards", None)
+
+
+def enter_blocks(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whole on every rank, where it feeds the rank's block of work
+    over ``model``: its gradient summed over ``model`` in the backward
+    where autograd records (:func:`repro_torch.sharding.collectives.
+    enter`), ``x`` itself where it does not (serving, whose shards are
+    not asked for a group)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return enter(x, serving().mesh.group("model"))
 
 
 @contextlib.contextmanager

@@ -12,6 +12,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.bridge import train_params_from_jax
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import canonical
 from repro_torch.launch import steps as St
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.train import Trainer, parse_mesh
@@ -52,17 +53,21 @@ def sharded_step(rank, cases, kwta_impl):
                                              shapes)
         rows = {k: rules.sharding_for(("batch", None), v.shape).take(
             torch.from_numpy(v)) for k, v in batch.items()}
-        # the gradients the step averages (for the first-update bound)
-        whole = gather_leaves(leaves(params), leaves(shardings["params"]),
-                              shapes)
+        # the gradients the step averages (for the first-update bound):
+        # the blocks', their DP mean made whole.  They come from the code
+        # under test, so this bound cannot see a fault in the block
+        # gradients: those are held against the reference's in
+        # tests/_tp_train_cases.check_grads.
+        _, grads = St.sharded_value_and_grad(cfg, rules, params, rows)
         with use_rules(rules):
-            _, grads = St.value_and_grad(
-                lambda p: T.loss_fn(p, rows, cfg), unflatten(params, whole))
             group = dp_group()
         floats = [i for i, g in enumerate(grads) if g is not None]
-        mean = summed([shapes[i] for i in floats],
-                      lambda j, buf: buf.copy_(grads[floats[j]]), group,
-                      "cpu")
+        blocks = summed([tuple(grads[i].shape) for i in floats],
+                        lambda j, buf: buf.copy_(grads[floats[j]]), group,
+                        "cpu")
+        mean = gather_leaves(blocks, [leaves(shardings["params"])[i]
+                                      for i in floats],
+                             [shapes[i] for i in floats])
         local = {"params": {k: tuple(v.shape) for k, v in flatten(params)}}
         params, opt, m = step(params, opt, rows)
         # the float leaves' moments (an int leaf's is a scalar placeholder,
@@ -222,4 +227,121 @@ def remat_other_thread(rank, arch, kw, batch):
         worker.start()
         worker.join()
         out[remat] = {"loss": float(loss.detach()), "grads": got["g"]}
+    return out
+
+
+def _tp_mesh(dims):
+    axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    return make_mesh(dims, axes, "cpu")
+
+
+def tp_train(rank, dims, cases, remat_check):
+    """The training step on the rank's blocks on mesh ``dims`` ((data,
+    model) or (pod, data, model)), for each (arch, cfg kwargs, reference
+    params as numpy, global batch): the loss and gradient of the rank's
+    rows on its blocks (:func:`steps.sharded_value_and_grad`, the step's
+    own), their DP mean, two steps, and what the tests hold them to.
+    Returns, per case: the rank's coordinates, each leaf's block slices
+    and whether a mesh axis splits it, the loss, the DP-mean gradient
+    blocks, the local gradients and the params after two steps of the
+    whole leaves, the steps' grad norms, the collectives handed a tensor
+    sharing storage with a param block, the calls of ``gather_leaves``
+    inside the steps, and (with ``remat_check``) whether the loss and
+    gradients without remat are bit-equal to those with it."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.collectives import observe_collectives
+    mesh = _tp_mesh(dims)
+    rules = make_rules(mesh, "train")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=20, zero1=True)
+    out = []
+    for arch, kw, np_params, batch in cases:
+        cfg = get_config(arch).reduced(**kw)
+        cfg = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+            cfg.ffn_sparsity, kwta_impl="topk"))
+        full = train_params_from_jax(np_params, cfg, device="cpu")
+        params, opt, shardings, shapes = St.shard_train_state(
+            full, cfg, tcfg, rules)
+        del full
+        p_sh = leaves(shardings["params"])
+        rows = {k: rules.sharding_for(("batch",) + (None,) * (v.ndim - 1),
+                                      v.shape).take(torch.from_numpy(
+                                          canonical(v)))
+                for k, v in batch.items()}
+        held = {t.untyped_storage().data_ptr() for t in leaves(params)}
+        handed = []
+
+        def watch(op, tensors):
+            handed.extend(op for t in tensors
+                          if t.untyped_storage().data_ptr() in held)
+
+        with observe_collectives(watch):
+            (loss, _), grads = St.sharded_value_and_grad(cfg, rules, params,
+                                                         rows)
+        floats = [i for i, g in enumerate(grads) if g is not None]
+        with use_rules(rules):
+            group = dp_group()
+        mean = summed([tuple(grads[i].shape) for i in floats],
+                      lambda j, buf: buf.copy_(grads[floats[j]]), group,
+                      "cpu")
+        keys = [k for k, _ in flatten(params)]
+        rec = {"coords": mesh.coords, "loss": float(loss),
+               "blocks": {keys[i]: p_sh[i].block(shapes[i]) for i in floats},
+               "split": {keys[i]: bool(p_sh[i].axes) for i in floats},
+               "grads": {keys[i]: (g / group_size(group)).numpy()
+                         for i, g in zip(floats, mean)},
+               "local_whole": {keys[i]: grads[i].numpy() for i in floats
+                               if not p_sh[i].axes}}
+        if remat_check:
+            (loss0, _), grads0 = St.sharded_value_and_grad(
+                dataclasses.replace(cfg, remat=False), rules, params, rows)
+            rec["remat_equal"] = bool(torch.equal(loss0, loss)) and all(
+                torch.equal(grads0[i], grads[i]) for i in floats)
+        del grads, mean
+        step, _ = St.make_sharded_train_step(cfg, tcfg, rules, shardings,
+                                             shapes)
+        calls = []
+        real = C.gather_leaves
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        St.gather_leaves = C.gather_leaves = counted
+        norms = []
+        try:
+            with observe_collectives(watch):
+                for _ in range(2):
+                    params, opt, m = step(params, opt, rows)
+                    norms.append(float(m["grad_norm"]))
+        finally:
+            St.gather_leaves = C.gather_leaves = real
+        flat = leaves(params)
+        rec.update(norms=norms, handed=handed, gathers=len(calls),
+                   params_whole={keys[i]: flat[i].numpy().copy()
+                                 for i in floats if not p_sh[i].axes},
+                   step=int(opt["step"]))
+        out.append(rec)
+    return out
+
+
+def vocab_parallel_ce(rank, dims, logits, labels, mask):
+    """:func:`repro_torch.models.common.cross_entropy` of the rank's block
+    of ``logits``' vocabulary columns (and its rows, over the DP axes)
+    with ``vocab=``, without and with ``mask``: the losses and the
+    gradient of the block."""
+    from repro_torch.models.common import cross_entropy
+    mesh = _tp_mesh(dims)
+    rules = make_rules(mesh, "train")
+    sh = rules.sharding_for(("batch", None, "vocab"), logits.shape)
+    blk = sh.block(logits.shape)
+    x = torch.from_numpy(logits)[blk].clone().requires_grad_()
+    lab = torch.from_numpy(labels)[blk[0]]
+    m = torch.from_numpy(mask)[blk[0]]
+    vocab = (blk[2].start, mesh.group("model"))
+    out = {"block": blk}
+    with use_rules(rules):
+        for name, kw in (("mean", {}), ("masked", {"mask": m})):
+            loss = cross_entropy(x, lab, vocab=vocab, **kw)
+            out[name] = float(loss)
+            out[f"{name}_grad"] = torch.autograd.grad(loss, x)[0].numpy()
     return out
