@@ -20,7 +20,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    them), and the least time the card could take for the same bytes and
    flops.
 4. serve — ``Engine.serve`` on the shipped smollm-360m config at full
-   width, cut to ``SMOLLM_LAYERS`` (8) of its 32 layers, as phases 5-11
+   width, cut to ``SMOLLM_LAYERS`` (4) of its 32 layers, as phases 5-10
    and 16 run it (bf16, 4 slots, 8 requests, prompt 16, gen 16, the
    engine's random weights from seed 0); the kernel launch counts show the decode
    steps went through the kernels.  Then one decode step's device time
@@ -104,7 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host-clock step with telemetry off and on, in turns off, on, on,
    off (the overhead row: no limit, no claim).
 10. moe — the MoE + MLA family and the int8 KV cache: deepseek-v2-lite-16b
-   at its shipped widths, ``MOE_LAYERS`` (8) of its 27 layers (d_model
+   at its shipped widths, ``MOE_LAYERS`` (4) of its 27 layers (d_model
    2048, MLA kv_lora 512, 64 routed experts top-6 + 2 shared), bf16, random weights from seed 0, serves
    phase 4's workload on the contiguous and the paged layout (tok/s,
    TTFT, host-clock step); ``topk_gather`` (the shared experts' decode
@@ -120,8 +120,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    layouts: the cache's bytes against bf16's, paged tokens equal to
    contiguous ones but at ties.
 11. train — the training path (``repro_torch.launch.train.Trainer``),
-   which launches none of the kernels, as in the reference: (a) phase
-   4's smollm-360m (float32 masters, bf16 compute) for
+   which launches none of the kernels, as in the reference: (a)
+   smollm-360m at its shipped widths, ``TRAIN_LAYERS`` (8) of its 32
+   layers (float32 masters, bf16 compute) for
    20 steps of ``lm_batch`` at batch 8, seq 128 (every loss finite, the
    loss guard silent, the last five losses below the first; host-clock
    step, tokens/s, peak memory; the four kernels' launches in the steps,
@@ -226,7 +227,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    layouts; the pools replicate on both): tokens equal on every rank and
    equal to the single-device engine's but where they part between its
    top two, closer than twice the bf16 forced-logits difference (phase
-   7's rule); (c) 32 ``topk_gather`` launches a decode step on every
+   7's rule); (c) one ``topk_gather`` launch a layer a decode step on every
    rank, none in a prefill; (d) each rank's param and cache bytes equal
    to its block reckoned from the specs (``shard_shape``), beside the
    single device's; (e) no tensor handed to a collective is (or views) a
@@ -239,7 +240,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    numbers {...}`` JSON line.
 15. mesh-moe — ``Engine(mesh=...)`` on the MoE + MLA family:
    deepseek-v2-lite-16b at its shipped widths (MLA's 16 heads, 64 routed
-   experts top-6 + 2 shared), 2 of 27 layers in float32 and 4 in bf16
+   experts top-6 + 2 shared), 2 of 27 layers in float32 and in bf16
    (to keep the script within its time limit), random weights from seed
    0, max_seq 48, on
    four gloo ranks sharing the card (one torch thread each), meshes 1x4
@@ -310,6 +311,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens and every step's logits bit-equal to the engine without a
    mesh.  ``[mesh-ssm]`` lines and a ``[mesh-ssm] numbers {...}`` JSON
    line.
+18. examples — ``examples/*_torch.py`` through each one's ``main`` in this
+   process on the card: quickstart (both max errors within 1e-4, the
+   FLOPs and the packing dict the reference prints, the MLP's step-100
+   loss below its step-0 loss); serve_lm on smollm-360m and
+   deepseek-v2-lite-16b reduced, the counts at 0 just before each (every
+   request served, one prefill a request, one ``topk_gather`` launch a
+   topk layer a decode step as ``topk_ffn_layers`` counts them from the
+   config, none in a prefill, the first launch at each operand shape held
+   against the plain version on its own operands, every routed experts'
+   k-WTA row keeping a count within bisect's bounds from its K-th largest
+   value, each FFN layer's realized k/N in [K/d_ff, 1] and the routed
+   experts' in [0, the most a row kept / d_ff]; tok/s and TTFT p50/p95,
+   no limit); train_gsc's three variants at the example's 300 steps of
+   batch 64 (the last loss below 0.7 of the first; held-out accuracy and
+   seconds).  Then each as ``python examples/<name>_torch.py``
+   in a fresh process (quickstart as shipped, serve_lm ``--requests 2
+   --gen 6``, the others ``--steps 5``), all four together, each exiting
+   0, and meanwhile sparse_sparse_lm's ``main`` here at its 60 steps (both
+   losses finite, the census's FLOP ratio; it prints no time).
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -386,11 +406,11 @@ TIE_MARGIN = 1e-3
 # The long-prompt workload: three short requests decode while one prompt
 # of this many tokens is prefilled.
 LONG_PROMPT = 512
-# Phases 4-11 and 16 run smollm-360m at its shipped widths, cut to this
+# Phases 4-10 and 16 run smollm-360m at its shipped widths, cut to this
 # many of its 32 layers (every layer is the same block).  A step's host
 # dispatch grows with the depth, and the whole depth kept the script near
-# its time limit.
-SMOLLM_LAYERS = 8
+# its time limit (8 layers until the examples' phase 18 came).
+SMOLLM_LAYERS = 4
 
 
 def fail(msg: str):
@@ -492,12 +512,16 @@ def topk_check_shapes():
     the last with B*K < d_ff), the faithful per-group routes (R=1) and two
     groups a route (R=2), f32 weights, the same FFN at every other pack
     factor, a G whose row is not a whole number of the kernel's strips
-    (G=200 at N=4: 100 vectors of 16 B, the last strip 4 of 32), and the
+    (G=200 at N=4: 100 vectors of 16 B, the last strip 4 of 32), the
+    reduced configs' decode down projection that phase 18's serve_lm runs
+    (B <= 4, K=k_for(128)=16, P=32, G=16, N=4, one route) in bf16, and the
     reference's sweep (kernels/registry.py) in f32 with all groups sharing
     one route."""
     from repro_torch.kernels.registry import TOPK_GATHER_SWEEP
     bf16 = torch.bfloat16
     return ([(dict(MAIN_SHAPE, b=b), bf16) for b in (4, 1, 2, 3, 7)]
+            + [(dict(b=b, k=16, p=32, g=16, n=4, r=16), bf16)
+               for b in (1, 2, 3, 4)]
             + [(dict(MAIN_SHAPE, r=r), bf16) for r in (1, 2)]
             + [(dict(MAIN_SHAPE), torch.float32)]
             + [(dict(MAIN_SHAPE, p=2560 // n, g=960 // n, n=n, r=960 // n),
@@ -647,12 +671,11 @@ def read_counts():
 SERVE_STEP_MS = {}
 
 
-def smollm_config():
+def smollm_config(n_layers=SMOLLM_LAYERS):
     """smollm-360m at its shipped widths, SMOLLM_LAYERS deep: the model
-    of phases 4-11 and 16."""
+    of phases 4-10 and 16 (phase 11's is TRAIN_LAYERS deep)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config("smollm-360m"),
-                               n_layers=SMOLLM_LAYERS)
+    return dataclasses.replace(get_config("smollm-360m"), n_layers=n_layers)
 
 
 def phase_serve():
@@ -2372,10 +2395,10 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 # Its shared experts' down projection at decode with 4 slots (d_ff
 # 2·1408 = 2816 -> 2048): B=4, K=k_for(2816)=352, P=704, G=512, N=4, R=G.
 MOE_SHAPE = dict(b=4, k=352, p=704, g=512, n=4, r=512)
-# Its depth in this phase: 8 of its 27 layers (each the same MLA and MoE
+# Its depth in this phase: 4 of its 27 layers (each the same MLA and MoE
 # block), as phase 15 serves it in bf16, to keep the script within its
-# time limit.
-MOE_LAYERS = 8
+# time limit (8 until the examples' phase 18 came).
+MOE_LAYERS = 4
 
 
 @contextlib.contextmanager
@@ -2666,6 +2689,10 @@ def phase_moe(engine_c):
 # (a)-(b): the shipped smollm-360m trained at batch 8, seq 128 for 20 steps,
 # checkpointed (asynchronously) at step 10.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE = 8, 128, 20, 10
+# its depth: 8 of smollm-360m's 32 layers, deeper than SMOLLM_LAYERS: (e)
+# requires remat to lower a step's peak, and at 4 layers the activations
+# it drops no longer outweigh what it adds (2.791 against 2.788 GiB)
+TRAIN_LAYERS = 8
 # (c): the reference test's reduced config (tests/test_train_loop.py:20-23)
 RESUME_CUT = dict(d_model=64, d_ff=128, vocab_size=128, n_heads=4,
                   n_kv_heads=2, head_pad=0, n_layers=2)
@@ -2699,7 +2726,7 @@ def run_fresh(*calls: str, env=None, timeout: int = 600):
 def lm_train_setup(device="cuda"):
     from repro_torch.configs import TrainConfig
     from repro_torch.configs.base import ShapeConfig
-    cfg = smollm_config()
+    cfg = smollm_config(TRAIN_LAYERS)
     shape = ShapeConfig("phase11", TRAIN_SEQ, TRAIN_BATCH, "train")
     ckpt_dir = ROOT / "build" / "train_ckpt"
     tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS,
@@ -4521,7 +4548,7 @@ LAYOUTS = ("contiguous", "paged")
 #: the depth of phase 14's smollm-360m (32 shipped), cut to keep the
 #: whole script within its time limit beside phase 15: a decode step of
 #: four gloo ranks on one card is mostly its collectives, four a layer
-MESH_SERVE_LAYERS = 4
+MESH_SERVE_LAYERS = 2
 
 
 def mesh_serve_cfg():
@@ -4677,7 +4704,8 @@ class CollectiveLog:
 
 def prefill_launches(engine):
     """A box counting ``topk_gather`` launches inside the engine's
-    prefills (fused or chunked)."""
+    prefills (fused or chunked); given the ``Engine`` class, inside every
+    engine's."""
     from repro_torch.kernels import topk_gather
     box = [0]
     for name in ("_prefill", "_prefill_chunk"):
@@ -4976,7 +5004,7 @@ MESH_MOE_SHAPE = dict(MOE_SHAPE, b=2)
 MESH_MOE_F32_LAYERS = 2
 #: the depth of checks (b)-(f), in bf16 (27 shipped), cut as phase 14's
 #: is to keep the script within its time limit
-MESH_MOE_LAYERS = 4
+MESH_MOE_LAYERS = 2
 #: the tokens of the single-device serve's logits kept at every step, to
 #: tell a tie from a parting
 MESH_MOE_TOPS = 8
@@ -5864,6 +5892,325 @@ def phase_mesh_ssm():
                                     numbers["x".join(map(str, d))]["kernel"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples"
+#: each example's run in a fresh process (quickstart at the reference's
+#: defaults, the others cut to a few steps or requests)
+EXAMPLE_FRESH_ARGV = {"quickstart": [],
+                      "serve_lm": ["--requests", "2", "--gen", "6"],
+                      "sparse_sparse_lm": ["--steps", "5"],
+                      "train_gsc": ["--steps", "5"]}
+EXAMPLE_SERVE_ARCHS = ("smollm-360m", "deepseek-v2-lite-16b")
+#: the quickstart's numbers, as the reference prints them
+QUICKSTART_FLOPS = {"dense": 2097152, "sparse_dense": 262144,
+                    "sparse_sparse": 262144}
+QUICKSTART_PACKING = {"dense_bytes": 524288, "packed_weight_bytes": 65536,
+                      "route_bytes_random": 32768, "route_bytes_cyclic": 4096}
+QUICKSTART_TOL = 1e-4
+#: the GSC variants' last loss below this share of the first (phase 11 (d))
+GSC_FALL = 0.7
+EXAMPLE_DEVICE = ["--device", "cuda"]
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (its ``__main__`` block
+    not run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def topk_ffn_layers(cfg, rows):
+    """The layers whose FFN down projection takes the topk path (one
+    ``topk_gather`` launch each) at a decode batch of ``rows``: an
+    attention block's FFN of d_ff, or an MoE layer's shared experts of
+    n_shared·d_ff, weight- and activation-sparse, whose rows·K lies below
+    its padded width; counted from the config, as phase 10 counts its
+    layers, and not by the dispatcher under test."""
+    from repro_torch.core.masks import pad_to_multiple
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
+    sp = cfg.ffn_sparsity
+    if not (sp.weight_sparse and sp.activation_sparse):
+        return 0
+    n = 0
+    for kind in layer_kinds(cfg):
+        width = pad_to_multiple(cfg.n_shared_experts * cfg.d_ff
+                                if cfg.is_moe and kind == "attn"
+                                else cfg.d_ff, sp.n)
+        if kind in ATTN_KINDS and width and rows * sp.k_for(width) < width:
+            n += 1
+    return n
+
+
+@contextlib.contextmanager
+def captured_topk_launches():
+    """``{operand shapes and types: (output, operands)}``: the first
+    ``topk_gather`` launch at each shape made while the context is open,
+    its output and operands cloned just after it on its stream (the
+    module's ``launch_into`` wrapped, and put back after)."""
+    tg = importlib.import_module("repro_torch.kernels.topk_gather")
+    launch, seen = tg.launch_into, {}
+
+    def spy(out, *operands):
+        launch(out, *operands)
+        key = tuple((tuple(t.shape), t.dtype) for t in (out, *operands))
+        if key not in seen:
+            seen[key] = (out.clone(), [t.clone() for t in operands])
+    tg.launch_into = spy
+    try:
+        yield seen
+    finally:
+        tg.launch_into = launch
+
+
+@contextlib.contextmanager
+def checked_expert_kwta():
+    """Every routed experts' k-WTA made while the context is open, held
+    row by row against ``torch.topk`` of its input.  The ``bisect``
+    k-WTA keeps the values at or above a threshold within its final
+    interval, (max - min)·2^-iters wide, below the K-th largest value: a
+    row keeps at least the non-zeros at or above its K-th largest and at
+    most those above it less twice that width (slack for the float32
+    probes); an empty capacity slot, a row of zeros, keeps none.  Yields
+    ``[rows out of bounds, filled rows, rows, calls, most kept in a
+    row]``, all but the third and fourth on the card (``moe.apply_kwta``
+    wrapped, and put back after)."""
+    import inspect
+
+    from repro_torch.core.kwta import kwta_bisect
+    moe = importlib.import_module("repro_torch.models.moe")
+    iters = inspect.signature(kwta_bisect).parameters["iters"].default
+    kwta, tally = moe.apply_kwta, [0, 0, 0, 0, 0]
+
+    def spy(h, cfg_sp, *args, **kwargs):
+        y = kwta(h, cfg_sp, *args, **kwargs)
+        if cfg_sp.kwta_impl != "bisect":
+            fail(f"routed experts' k-WTA is {cfg_sp.kwta_impl!r}; the row "
+                 "check holds bisect's bounds")
+        x = h.float()
+        kth = torch.topk(x, cfg_sp.k_for(h.shape[-1])).values[..., -1:]
+        width = (x.amax(-1, keepdim=True) - x.amin(-1, keepdim=True)) \
+            * 2.0 ** (1 - iters)
+        nonzero = x != 0
+        kept = ((y[0] if isinstance(y, tuple) else y) != 0).sum(-1)
+        least = (nonzero & (x >= kth)).sum(-1)
+        most = (nonzero & (x >= kth - width)).sum(-1)
+        tally[0] = tally[0] + ((kept < least) | (kept > most)).sum()
+        tally[1] = tally[1] + nonzero.any(-1).sum()
+        tally[2] += kept.numel()
+        tally[3] += 1
+        tally[4] = torch.maximum(torch.as_tensor(tally[4]).to(kept),
+                                 kept.max())
+        return y
+    moe.apply_kwta = spy
+    try:
+        yield tally
+    finally:
+        moe.apply_kwta = kwta
+
+
+@contextlib.contextmanager
+def counted_prefills():
+    """:func:`prefill_launches` of every engine made while the context is
+    open (the class's prefills wrapped, and put back after)."""
+    from repro_torch.launch.serve import Engine
+    saved = {name: Engine.__dict__[name]
+             for name in ("_prefill", "_prefill_chunk")}
+    try:
+        yield prefill_launches(Engine)
+    finally:
+        for name, fn in saved.items():
+            setattr(Engine, name, fn)
+
+
+def example_quickstart():
+    got = load_example("quickstart").main(EXAMPLE_DEVICE)
+    losses = got["losses"]
+    print(f"[examples] quickstart: max errors {got['sparse_dense_err']:.3e} "
+          f"(sparse-dense), {got['sparse_sparse_err']:.3e} "
+          f"(sparse-sparse); FLOPs {got['flops']}; MLP loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {len(losses)} steps")
+    if max(got["sparse_dense_err"], got["sparse_sparse_err"]) > \
+            QUICKSTART_TOL:
+        fail(f"quickstart: max errors {got['sparse_dense_err']}, "
+             f"{got['sparse_sparse_err']} above {QUICKSTART_TOL}")
+    if got["flops"] != QUICKSTART_FLOPS:
+        fail(f"quickstart: FLOPs {got['flops']}")
+    packing = {k: got["packing"][k] for k in QUICKSTART_PACKING}
+    if packing != QUICKSTART_PACKING:
+        fail(f"quickstart: packing {got['packing']}")
+    if not losses[-1] < losses[0]:
+        fail(f"quickstart: MLP loss {losses[0]} -> {losses[-1]}")
+
+
+def example_serve(arch):
+    """serve_lm on ``arch`` reduced, the counts at 0 just before: every
+    request served, one prefill a request, one ``topk_gather`` launch a
+    topk layer a decode step and none in a prefill, every layer's
+    realized k/N in its bounds, and the kernel held against its plain
+    version on the operands the decode steps gave it.  Returns the
+    launches and that largest error."""
+    from repro_torch.core.masks import pad_to_multiple
+    from repro_torch.kernels.topk_gather import (topk_gather,
+                                                 topk_gather_plain)
+    mod = load_example("serve_lm")
+    reset_counts()
+    with counted_prefills() as in_prefill, captured_topk_launches() as \
+            seen, checked_expert_kwta() as experts:
+        got = mod.main(["--arch", arch] + EXAMPLE_DEVICE)
+    counts = read_counts()
+    cfg, stats, tel = got["cfg"], got["stats"], got["telemetry"]
+    args = mod.build_parser().parse_args([])
+    steps, launches = stats["decode_steps"], counts["topk_gather"]
+    layers = topk_ffn_layers(cfg, args.slots)
+    ttft = np.percentile(list(stats["ttft_s"].values()), [50, 95]) * 1e3
+    print(f"[examples] serve_lm {arch} reduced ({cfg.n_layers} layers, "
+          f"d_ff {cfg.d_ff}): {len(got['out'])} of {len(got['requests'])} "
+          f"requests, {stats['prefill_calls']} prefill calls, {steps} "
+          f"decode steps; topk_gather launches {launches} ({layers} topk "
+          f"layers x {steps} steps), {in_prefill[0]} in prefills; "
+          f"{stats['tok_s']:.2f} tok/s, TTFT p50 {ttft[0]:.3f} ms, p95 "
+          f"{ttft[1]:.3f} ms (host clock; the telemetry histogram's "
+          f"buckets: {tel['ttft_p50'] * 1e3:.0f}, {tel['ttft_p95'] * 1e3:.0f} "
+          "ms)")
+    for req in got["requests"]:
+        toks = got["out"].get(req.uid, [])
+        if len(toks) != req.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"serve_lm {arch}: request {req.uid} returned {toks}")
+    if stats["prefill_calls"] != len(got["requests"]):
+        fail(f"serve_lm {arch}: {stats['prefill_calls']} prefill calls")
+    if layers == 0 or launches != layers * steps or in_prefill[0]:
+        fail(f"serve_lm {arch}: topk_gather launched {launches} times, "
+             f"{in_prefill[0]} in prefills; want {layers} x {steps} and 0")
+    # the kernel on the operands the decode steps gave it (the shared
+    # route, the compute dtype): the path's own output against the plain
+    # version, and equal to a float32 launch rounded once
+    worst = 0.0
+    for out, operands in seen.values():
+        b, k = operands[0].shape
+        p, g, n = operands[3].shape
+        label = (f"serve_lm {arch} topk_gather b={b} k={k} p={p} g={g} "
+                 f"n={n} r={g // operands[4].shape[0]} "
+                 f"{str(operands[3].dtype)[6:]}, decode step's operands")
+        f32 = topk_gather(*operands)
+        worst = max(worst, check(label, f32, topk_gather_plain(*operands),
+                                 phase="examples"))
+        if not torch.equal(out, f32.to(out.dtype)):
+            fail(f"{label}: the path's output is not a float32 launch "
+                 "rounded once")
+    if not seen:
+        fail(f"serve_lm {arch}: no topk_gather launch captured")
+    # the routed experts' k-WTA, every call of the run, row by row
+    mismatched, filled, most = map(int, (experts[0], experts[1], experts[4]))
+    if cfg.is_moe:
+        print(f"[examples]   routed experts' k-WTA: {experts[3]} calls, "
+              f"{experts[2]} capacity rows ({filled} filled, at most {most} "
+              f"kept in a row), {mismatched} rows keeping a count outside "
+              "the bounds from their K-th largest value")
+        if not experts[3] or mismatched:
+            fail(f"serve_lm {arch}: the routed experts' k-WTA kept the "
+                 f"wrong count in {mismatched} of {experts[2]} rows")
+    # an FFN's k-WTA row (the dense FFN's, the shared experts') keeps at
+    # least K of its width; a routed experts' capacity row keeps what the
+    # row check above bounds where a token fills it and none where it is
+    # empty, so their mean lies in [0, the most a row kept / d_ff]
+    sp = cfg.ffn_sparsity
+    width = pad_to_multiple(cfg.n_shared_experts * cfg.d_ff if cfg.is_moe
+                            else cfg.d_ff, sp.n)
+    expert_width = pad_to_multiple(cfg.d_ff, sp.n)
+    for name, frac in sorted(tel["layers"].items()):
+        lo, hi = ((sp.k_for(width) / width, 1.0) if ".ffn." in name else
+                  (0.0, most / expert_width))
+        print(f"[examples]   {name}: realized k/N {frac:.6f} "
+              f"(bounds [{lo:.6f}, {hi:.6f}])")
+        if frac is None or not lo <= frac <= hi:
+            fail(f"serve_lm {arch}: {name} realized k/N {frac} outside "
+                 f"[{lo}, {hi}]")
+    if not any(".ffn." in name for name in tel["layers"]):
+        fail(f"serve_lm {arch}: no FFN layer reports its sparsity")
+    return launches, worst
+
+
+def example_sparse_sparse_lm():
+    got = load_example("sparse_sparse_lm").main(EXAMPLE_DEVICE)
+    losses = {tag: got[tag]["loss"] for tag in ("dense", "sparse_sparse")}
+    print(f"[examples] sparse_sparse_lm: final losses {losses}; census "
+          f"FLOPs a step {got['dense']['flops']:.6e} / "
+          f"{got['sparse_sparse']['flops']:.6e}, ratio {got['ratio']:.4f}")
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"sparse_sparse_lm: losses {losses}")
+
+
+def example_train_gsc(smi):
+    mod = load_example("train_gsc")
+    steps = mod.build_parser().parse_args([]).steps     # the example's 300
+    for variant in mod.VARIANTS:
+        got = mod.train(variant, steps, device="cuda")
+        first, last = got["printed"][0][0], got["printed"][steps - 1][0]
+        print(f"[examples] train_gsc {variant}: {steps} steps at batch 64, "
+              f"loss {first:.4f} -> {last:.4f}, held-out accuracy "
+              f"{got['heldout']:.4f}, {got['seconds']:.3f} s ({smi})")
+        if not last < GSC_FALL * first:
+            fail(f"train_gsc {variant}: last loss {last} not below "
+                 f"{GSC_FALL} x {first}")
+
+
+def examples_fresh(meanwhile):
+    """Each example as a user runs it, ``python examples/<name>_torch.py``,
+    all four processes started together, ``meanwhile()`` called while they
+    run; each must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(EXAMPLES_DIR / f"{name}_torch.py"), *argv],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, argv in EXAMPLE_FRESH_ARGV.items()}
+    try:
+        meanwhile()
+        outs = {name: proc.communicate(timeout=300)
+                for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (out, err) in outs.items():
+        code = procs[name].returncode
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"[examples] python examples/{name}_torch.py "
+              f"{' '.join(EXAMPLE_FRESH_ARGV[name])}: exit {code}; last "
+              f"line: {last[:160]}")
+        if code:
+            print(err[-2000:])
+            fail(f"examples/{name}_torch.py exited with {code}")
+    print(f"[examples] the four fresh processes took "
+          f"{time.perf_counter() - t:.1f} s together, sparse_sparse_lm "
+          "in this process beside them")
+
+
+def phase_examples():
+    """Phase 18.  The runs that print a time go first, alone on the card;
+    sparse_sparse_lm, which prints none, runs beside the fresh processes.
+    Returns row 1's key of the examples' serving runs."""
+    smi = device_line()
+    t = time.perf_counter()
+    example_quickstart()
+    served = [example_serve(arch) for arch in EXAMPLE_SERVE_ARCHS]
+    example_train_gsc(smi)
+    print(f"[examples] quickstart, serve_lm and train_gsc took "
+          f"{time.perf_counter() - t:.1f} s ({smi})")
+    examples_fresh(example_sparse_sparse_lm)
+    return {"launches_examples_serve_lm": sum(n for n, _ in served),
+            "examples_max_abs_err": max(e for _, e in served)}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -5955,6 +6302,10 @@ def main():
     t = time.perf_counter()
     row.update(phase_mesh_ssm())
     print(f"[mesh-ssm] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_examples())
+    print(f"[examples] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

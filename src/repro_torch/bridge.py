@@ -16,8 +16,11 @@ bytes).  Every weight is cast to the compute dtype, as
 :func:`repro_torch.models.transformer.init_model` does.
 
 :func:`train_params_from_jax` makes the training layout instead (float
-leaves in ``param_dtype``, no partition-major copies), and
-:func:`gsc_params_from_jax` the GSC CNN's tree.
+leaves in ``param_dtype``, no partition-major copies),
+:func:`gsc_params_from_jax` the GSC CNN's tree, and
+:func:`packed_params_from_jax` any tree of packed linear layers
+(``repro.core.layers.packed_linear_init``'s params, as the quickstart's
+MLP holds them).
 """
 
 from __future__ import annotations
@@ -95,3 +98,13 @@ def gsc_params_from_jax(params: Dict, device=None) -> Dict:
     device = resolve_device(device)
     return _tensors({k: params[k] for k in ("conv1", "conv2", "linear",
                                             "out")}, device)
+
+
+def packed_params_from_jax(params: Dict, device=None) -> Dict:
+    """A tree of packed linear layers (each ``{"packed", "route"[, "b"]}``
+    of ``repro.core.layers.packed_linear_init``; numpy leaves) as
+    :func:`repro_torch.core.layers.packed_linear_apply` takes them: the
+    same leaves, in the training layout (no ``packed_p``;
+    :func:`repro_torch.core.layers.add_partition_major` makes the serving
+    copies).  Runs on ``cuda`` unless ``device`` says otherwise."""
+    return _tensors(params, resolve_device(device))

@@ -811,6 +811,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                     "kernels' plain versions)")
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="run the config's reduced() smoke config (the "
+                    "default, as in the reference's CLI; --full overrides)")
     ap.add_argument("--full", action="store_true",
                     help="run the shipped config at full width (default: "
                     "its reduced() smoke config)")

@@ -191,3 +191,44 @@ def test_train_cli_without_a_card_exits_nonzero(tmp_path):
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert not list(tmp_path.iterdir())
+
+
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def test_the_four_examples_are_ported():
+    assert [f.name for f in EXAMPLES] == [
+        "quickstart_torch.py", "serve_lm_torch.py",
+        "sparse_sparse_lm_torch.py", "train_gsc_torch.py"]
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda f: f.stem)
+def test_examples_load_neither_jax_nor_the_reference(example):
+    """Each example, imported in a fresh interpreter (its ``__main__``
+    block not run), loads no JAX module and no module of the reference."""
+    assert not IMPORT_RE.search(example.read_text())
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"{str(example)!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad, 'repro_torch' in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[] True"
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda f: f.stem)
+def test_examples_without_a_card_exit_nonzero(example):
+    """With no CUDA device and no ``--device cpu``, each example exits
+    non-zero, naming the missing device, before it prints a result."""
+    res = subprocess.run(
+        [sys.executable, str(example)], capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                              CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert res.stdout == ""

@@ -21,7 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import SparsityConfig
 from repro_torch.kernels.topk_gather import topk_gather
 from repro_torch.launch.serve import Engine, _bucket
-from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve import build_parser, main as serve_main
 from repro_torch.runtime.scheduler import (Request, SamplingParams, Scheduler,
                                            sample_token)
 
@@ -211,6 +211,23 @@ def test_engine_validates_requests():
 def test_cli_runs_reduced_on_cpu(capsys):
     serve_main(["--arch", "smollm-360m", "--device", "cpu", "--requests",
                 "2", "--gen", "3", "--prompt-len", "5"])
+    line = capsys.readouterr().out
+    assert "served 2 requests on cpu" in line and "2 prefill calls" in line
+
+
+def test_cli_takes_the_reference_command_line(capsys):
+    """The reference's command line (its ``--reduced`` included) parses
+    as it does there, and serves."""
+    argv = ["--arch", "smollm-360m", "--slots", "4", "--requests", "8",
+            "--prompt-len", "16", "--gen", "24", "--reduced", "--device",
+            "cpu"]
+    args = build_parser().parse_args(argv)
+    assert (args.arch, args.slots, args.requests, args.prompt_len,
+            args.gen, args.reduced, args.full) == (
+                "smollm-360m", 4, 8, 16, 24, True, False)
+    assert build_parser().parse_args(argv[:-3] + argv[-2:]).reduced
+    argv[5] = "2"                               # --requests 2
+    serve_main(argv)
     line = capsys.readouterr().out
     assert "served 2 requests on cpu" in line and "2 prefill calls" in line
 
