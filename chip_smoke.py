@@ -330,6 +330,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    --gen 6``, the others ``--steps 5``), all four together, each exiting
    0, and meanwhile sparse_sparse_lm's ``main`` here at its 60 steps (both
    losses finite, the census's FLOP ratio; it prints no time).
+19. mesh-cuts — the meshes whose blocks cut what the reference's
+   divisibility fallback cuts, on four gloo ranks sharing the card (after
+   single-device references on the card): (a) smollm-360m at its shipped
+   widths, ``MESH_CUTS_LAYERS`` (2) layers, with ``route_share`` 128 (640
+   groups, 5 route tables, 160 groups a rank on 1x4: ranks 1 and 2 start
+   inside a table and read their ``block_route``): f32 prefills and 3
+   forced decode steps holding the single device's k-WTA selections
+   (1e-3), one loss and backward on the blocks against the single
+   device's (loss 1e-5 relative, gradients 1e-4·(1+max|g|)), bf16 tokens
+   of phase 4's workload against the single device's but at ties (phase
+   14's top-two rule), one ``topk_gather`` launch a layer a decode step on
+   every rank and none in the prefills; (b) deepseek-v2-lite-16b at its
+   shipped widths, 2 of 27 layers, f32, on 2x2 under the ``decode_long``
+   rules: a row stepped through a prompt with the k-WTA selections and
+   router choices held, every step's logits within 1e-3 of the single
+   device's, the latent rows split over ``data`` and ``model`` (each
+   rank's block reckoned and printed), one ``topk_gather`` launch a layer
+   a step; (c) deepseek ``reduced(n_heads=2)`` (MLA heads cut) and
+   qwen3-moe ``reduced(n_experts=2, experts_per_token=1)`` (each expert's
+   groups cut) on 1x4 in f32: serving logits (prefills and forced steps,
+   selections and router choices held) and one loss and backward against
+   the single device's.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` gives them; the last line is ``{"ok": true, "device": ...}``.
@@ -4123,18 +4145,20 @@ def mesh_ssm_grads_cfg():
                                n_layers=len(cfg.block_pattern))
 
 
-def block_grads_check(cfg, device, remat_pair=False):
-    """(d) and (e) on mesh 2x2 (data x model): 4 sequences of
-    MESH_REMAT_SEQ tokens, first on the single device (whole params, the
-    whole batch; its k-WTA sets and MoE router choices recorded), then the
-    rank's rows on its param blocks under the training rules and shards
-    (``steps.sharded_value_and_grad``, the step's own) holding them,
-    backward on autograd's device thread.  Every rank's gradient blocks,
-    their mean over the DP group as the step takes it, against the single
-    device's cut to the block; with ``remat_pair``, the same without remat
-    against with it.  Returns the leaves, the largest error over (1 +
-    max|g|) of its leaf and where, the losses, the collectives handed a
-    param block, and the remat comparison."""
+def block_grads_check(cfg, device, remat_pair=False, dims=(2, 2)):
+    """(d) and (e) on mesh ``dims`` (data x model; 2x2 in phase 13, 1x4 in
+    phase 19): 4 sequences of MESH_REMAT_SEQ tokens, first on the single
+    device (whole params, the whole batch; its k-WTA sets and MoE router
+    choices recorded), then the rank's rows on its param blocks (with the
+    ``block_route`` that ``steps.shard_train_state`` gives them) under the
+    training rules and shards (``steps.sharded_value_and_grad``, the
+    step's own) holding them, backward on autograd's device thread.
+    Every rank's gradient blocks, their mean over the DP group as the
+    step takes it, against the single device's cut to the block; with
+    ``remat_pair``, the same without remat against with it.  Returns the
+    leaves, the largest error over (1 + max|g|) of its leaf and where,
+    the losses, the collectives handed a param block, and the remat
+    comparison."""
     from repro_torch.data import canonical, lm_batch
     from repro_torch.launch import steps as St
     from repro_torch.launch.mesh import make_mesh
@@ -4142,7 +4166,7 @@ def block_grads_check(cfg, device, remat_pair=False):
     from repro_torch.sharding import make_rules, param_sharding, use_rules
     from repro_torch.sharding.collectives import dp_group, group_size, summed
     from repro_torch.tree import flatten, leaves, map_tree
-    mesh = make_mesh((2, 2), ("data", "model"), device)
+    mesh = make_mesh(dims, ("data", "model"), device)
     rules = make_rules(mesh, "train")
     batch = {k: torch.from_numpy(canonical(v)).to(device) for k, v in
              lm_batch(SEED, 0, 4, MESH_REMAT_SEQ, cfg.vocab_size).items()}
@@ -4156,16 +4180,17 @@ def block_grads_check(cfg, device, remat_pair=False):
     single_ms = (time.perf_counter() - t) * 1e3
     shs = param_sharding(T.layer_specs(T.param_specs(cfg), cfg), params,
                          rules)
-    blocks = map_tree(lambda sh, p: sh.take(p), shs, params)
-    want = [None if g is None else g[sh.block(p.shape)].clone()
-            for g, sh, p in zip(g1, leaves(shs), leaves(params))]
-    keys = [k for k, _ in flatten(params)]
+    blocks = T.add_block_routes(map_tree(lambda sh, p: sh.take(p), shs,
+                                         params), params, shs)
+    want = {k: g[sh.block(p.shape)].clone() for (k, p), g, sh in
+            zip(flatten(params), g1, leaves(shs)) if g is not None}
+    keys = [k for k, _ in flatten(blocks)]
     del params, g1
     torch.cuda.empty_cache()
-    experts = None
-    if cfg.is_moe:
-        lo = mesh.coords["model"] * (cfg.n_experts // 2)
-        experts = (lo, lo + cfg.n_experts // 2)
+    experts, m = None, dims[1]
+    if cfg.is_moe and cfg.n_experts % m == 0:
+        lo = mesh.coords["model"] * (cfg.n_experts // m)
+        experts = (lo, lo + cfg.n_experts // m)
     got, out = {}, {"loss_single": float(loss1), "single_ms": single_ms}
     with use_rules(rules):
         group = dp_group()
@@ -4187,15 +4212,14 @@ def block_grads_check(cfg, device, remat_pair=False):
                   lambda j, buf: buf.copy_(grads[floats[j]]), group, device)
     worst, where = 0.0, None
     for i, g in zip(floats, mean):
-        w = want[i]
+        w = want[keys[i]]
         err = float((g / group_size(group) - w).abs().max()) / (
             1 + float(w.abs().max()))
         if err >= worst:
             worst, where = err, keys[i]
     out.update(loss=float(loss), leaves=len(floats), worst=worst,
-               worst_leaf=where, ms=[ms], missing=sum(
-                   want[i] is not None for i in range(len(grads))
-                   if grads[i] is None))
+               worst_leaf=where, ms=[ms], missing=len(
+                   set(want) - {keys[i] for i in floats}))
     if remat_pair:
         l0, g0, ms0 = got[False]
         pairs = [(a, b) for a, b in zip(g0, grads, strict=True)
@@ -6211,6 +6235,333 @@ def phase_examples():
             "examples_max_abs_err": max(e for _, e in served)}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the meshes that cut a table, a head or an expert
+# ---------------------------------------------------------------------------
+
+MESH_CUTS_DIR = ROOT / "build" / "mesh_cuts"
+#: (a): smollm-360m's layers, and the groups a route table serves (640
+#: groups of d_ff 2560 at N=4: 5 tables, 160 groups a rank on 1x4)
+MESH_CUTS_LAYERS, MESH_CUTS_SHARE = 2, 128
+#: (b): deepseek-v2-lite-16b's layers, the cache rows (a multiple of the
+#: 2x2 mesh's four ranks) and the prompt stepped through
+MESH_CUTS_MLA_LAYERS, MESH_CUTS_SEQ, MESH_CUTS_PROMPT = 2, 32, 6
+#: (c): the reduced configs whose blocks cut a head and an expert
+MESH_CUTS_REDUCED = (("deepseek-v2-lite-16b", dict(n_heads=2)),
+                     ("qwen3-moe-235b-a22b",
+                      dict(n_experts=2, experts_per_token=1)))
+MESH_CUTS_FORCED = 3
+
+
+def mesh_cuts_cfgs():
+    """(a)'s smollm (bf16 as shipped, and f32), (b)'s f32 deepseek, (c)'s
+    f32 reduced configs."""
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-360m")
+    cfg = dataclasses.replace(
+        cfg, n_layers=MESH_CUTS_LAYERS, ffn_sparsity=dataclasses.replace(
+            cfg.ffn_sparsity, route_share=MESH_CUTS_SHARE))
+    f32 = dict(compute_dtype="float32")
+    return (cfg, dataclasses.replace(cfg, **f32),
+            dataclasses.replace(get_config(MOE_ARCH),
+                                n_layers=MESH_CUTS_MLA_LAYERS, **f32),
+            [get_config(a).reduced(**kw, **f32)
+             for a, kw in MESH_CUTS_REDUCED])
+
+
+def long_logits(params, cfg, toks, shards=None):
+    """One row stepped through ``toks`` with ``serve_step`` from a fresh
+    contiguous cache (on the rank's blocks under ``shards``): every step's
+    logits (host) and the cache."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.serving import use_serving
+    device = next(iter(params["embed"].values())).device
+    toks = torch.from_numpy(toks).to(device)
+    rules = None if shards is None else shards.rules
+    cache = T.init_cache(cfg, 1, MESH_CUTS_SEQ, device, rules)
+    rows = []
+    with torch.no_grad(), use_serving(shards):
+        for pos in range(toks.shape[1]):
+            logits, cache = T.serve_step(params, cache,
+                                         {"tokens": toks[:, pos:pos + 1]},
+                                         pos, cfg)
+            rows.append(logits.float().cpu().numpy())
+    return rows, cache
+
+
+def mesh_cuts_single():
+    """The single-device references of phase 19 on the card, pickled for
+    the ranks: (a) the f32 forced logits with their k-WTA selections, the
+    bf16 forced logits and phase 4's workload's tokens; (b) the f32 row's
+    stepped logits with its selections and router choices; (c) each
+    reduced config's f32 forced logits with both."""
+    import pickle
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    cfg, cfg32, mla32, reduced = mesh_cuts_cfgs()
+    reqs = phase4_requests(cfg.vocab_size)
+    prompts = [r.prompt for r in reqs[:4]]
+    rng = np.random.default_rng(SEED + 19)
+    forced = rng.integers(0, cfg.vocab_size, (MESH_CUTS_FORCED, 4))
+    single = {"forced": forced, "reduced": []}
+    eng = Engine(cfg32, MESH_SERVE_SEQ, 4, device="cuda")
+    with kwta_selections() as masks:
+        single["f32_rows"] = forced_logits(eng, prompts, forced)
+    single["masks"] = [m.cpu() for m in masks]
+    del eng
+    params = T.init_model(cfg, seed=SEED, device="cuda")
+    eng = Engine(cfg, MESH_SERVE_SEQ, 4, params=params, device="cuda")
+    single["bf16_rows"] = forced_logits(eng, prompts, forced)
+    eng.serve([dataclasses.replace(reqs[0], max_new_tokens=2)])
+    single["tokens"] = eng.serve(reqs)[0]
+    del eng
+    torch.cuda.empty_cache()
+    toks = rng.integers(0, mla32.vocab_size, (1, MESH_CUTS_PROMPT))
+    with kwta_selections() as masks, router_choices() as choices:
+        single["long_rows"] = long_logits(
+            T.init_model(mla32, seed=SEED, device="cuda"), mla32, toks)[0]
+    single.update(long_toks=toks, long_masks=[m.cpu() for m in masks],
+                  long_choices=[c.cpu() for c in choices])
+    torch.cuda.empty_cache()
+    for c in reduced:
+        small = rng.integers(0, c.vocab_size, (MESH_CUTS_FORCED, 4))
+        small_prompts = [[t % c.vocab_size for t in p] for p in prompts]
+        eng = Engine(c, MESH_SERVE_SEQ, 4, device="cuda")
+        with kwta_selections() as masks, router_choices() as choices:
+            rows = forced_logits(eng, small_prompts, small)
+        single["reduced"].append({
+            "prompts": small_prompts, "forced": small, "rows": rows,
+            "masks": [m.cpu() for m in masks],
+            "choices": [x.cpu() for x in choices]})
+    (MESH_CUTS_DIR / "single.pkl").write_bytes(pickle.dumps(single))
+    return cfg, params, reqs, single
+
+
+def held_forced(eng, prompts, forced, masks, choices=()):
+    """``forced_logits`` on ``eng``'s mesh holding the single device's
+    k-WTA selections (and router choices): the logits, and whether every
+    held one was read."""
+    device = eng.device
+    held = iter([m.to(device) for m in masks])
+    chosen = iter([c.to(device) for c in choices])
+    experts = None
+    if eng.cfg.is_moe and eng.cfg.n_experts % eng.shards.size("model") == 0:
+        experts = eng.shards.block("model", eng.cfg.n_experts)
+    rows = eng.shards.batch_rows(4)
+    with kwta_selections(held, rows=rows, experts=experts), \
+            router_choices(chosen, rows=rows):
+        got = forced_logits(eng, prompts, forced)
+    return got, next(held, None) is None and next(chosen, None) is None
+
+
+def mesh_cuts_rank(rank):
+    """Phase 19 on one of four gloo ranks sharing the card: (a) and (c) on
+    mesh 1x4, (b) on 2x2 under the ``decode_long`` rules; each engine
+    draws the rank's blocks of seed 0's weights."""
+    import pickle
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    from repro_torch.sharding.collectives import observe_collectives
+    from repro_torch.sharding.serving import Shards
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    single = pickle.loads((MESH_CUTS_DIR / "single.pkl").read_bytes())
+    cfg, cfg32, mla32, reduced = mesh_cuts_cfgs()
+    reqs = phase4_requests(cfg.vocab_size)
+    prompts = [r.prompt for r in reqs[:4]]
+    mesh = make_mesh((1, 4), ("data", "model"), device)
+    out = {"rank": rank, "coords": mesh.coords}
+    # (a) the shared route
+    eng = Engine(cfg32, MESH_SERVE_SEQ, 4, device=device, mesh=mesh)
+    up = eng.params["layers"][0]["ffn"]["up"]
+    out["route"] = {"tables": tuple(up["route"].shape),
+                    "block_route": tuple(up["block_route"].shape)
+                    if "block_route" in up else None,
+                    "groups": eng.shards.block(
+                        "model", cfg.d_ff // cfg.ffn_sparsity.n)}
+    rows, ok = held_forced(eng, prompts, single["forced"], single["masks"])
+    out["f32_err"], out["held_all"] = rows_err(rows, single["f32_rows"]), ok
+    del eng
+    out["grads"] = block_grads_check(cfg32, device, dims=(1, 4))
+    eng = Engine(cfg, MESH_SERVE_SEQ, 4, device=device, mesh=mesh)
+    out["bf16_move"] = rows_err(forced_logits(eng, prompts,
+                                              single["forced"]),
+                                single["bf16_rows"])
+    eng.serve([dataclasses.replace(reqs[0], max_new_tokens=2)])
+    log, pre = CollectiveLog(eng), prefill_launches(eng)
+    reset_counts()
+    with observe_collectives(log):
+        toks, stats = eng.serve(reqs)
+    out["serve"] = {"tokens": toks, "steps": stats["decode_steps"],
+                    "launches": read_counts()["topk_gather"],
+                    "prefill_launches": pre[0],
+                    "handed": log.summary(stats["decode_steps"])[
+                        "weights_handed"]}
+    del eng, log
+    torch.cuda.empty_cache()
+    # (b) MLA's latent rows under decode_long
+    mesh22 = make_mesh((2, 2), ("data", "model"), device)
+    shards = Shards(make_rules(mesh22, "decode_long"), MESH_CUTS_SEQ)
+    params = T.init_model(mla32, seed=SEED, device=device,
+                          rules=shards.rules)
+    held = iter([m.to(device) for m in single["long_masks"]])
+    chosen = iter([c.to(device) for c in single["long_choices"]])
+    reset_counts()
+    with kwta_selections(held, experts=shards.block(
+            "model", mla32.n_experts)), router_choices(chosen):
+        rows, cache = long_logits(params, mla32, single["long_toks"], shards)
+    axes = shards.rows_axes(False, 1)
+    out["long"] = {"err": rows_err(rows, single["long_rows"]),
+                   "held_all": next(held, None) is None
+                   and next(chosen, None) is None,
+                   "launches": read_counts()["topk_gather"],
+                   "steps": len(rows), "axes": axes,
+                   "block": shards.block(axes, MESH_CUTS_SEQ),
+                   "ckv": tuple(cache[0]["ckv"].shape),
+                   "coords": mesh22.coords}
+    del params, cache
+    torch.cuda.empty_cache()
+    # (c) a head and an expert cut
+    out["reduced"] = []
+    for c, ref in zip(reduced, single["reduced"]):
+        eng = Engine(c, MESH_SERVE_SEQ, 4, device=device, mesh=mesh)
+        rows, ok = held_forced(eng, ref["prompts"], ref["forced"],
+                               ref["masks"], ref["choices"])
+        out["reduced"].append({
+            "err": rows_err(rows, ref["rows"]), "held_all": ok,
+            "grads": block_grads_check(c, device, dims=(1, 4))})
+        del eng
+    return out
+
+
+def phase_mesh_cuts():
+    """Phase 19: the single-device references on the card, then four gloo
+    ranks sharing the card."""
+    import shutil
+    from repro_torch.launch.ranks import run_ranks
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_CUTS_DIR, ignore_errors=True)
+    MESH_CUTS_DIR.mkdir(parents=True)
+    cfg, params, reqs, single = mesh_cuts_single()
+    t_single = time.perf_counter() - t0
+    t = time.perf_counter()
+    ranks = run_ranks(mesh_cuts_rank, 4, MESH_CUTS_DIR / "ranks",
+                      backend="gloo", timeout_s=600, threads=2)
+    t_gloo = time.perf_counter() - t
+    _, _, mla32, reduced = mesh_cuts_cfgs()
+    failed = []
+    g = cfg.d_ff // cfg.ffn_sparsity.n
+    routes = [(r["route"]["groups"], r["route"]["tables"],
+               r["route"]["block_route"]) for r in ranks]
+    print(f"[mesh-cuts] four gloo ranks sharing the card: {device_line()}")
+    print(f"[mesh-cuts] (a) smollm-360m at full width, {cfg.n_layers} of 32 "
+          f"layers, route_share {MESH_CUTS_SHARE}: {g} groups of up and "
+          f"gate, {g // MESH_CUTS_SHARE} route tables, {g // 4} groups a "
+          f"rank on 1x4; each rank's groups, route and block_route: "
+          f"{routes}")
+    if any(r["route"]["block_route"] != (g // 4, *r["route"]["tables"][1:])
+           for r in ranks):
+        failed.append("(a) a rank's block of groups has no route of its own")
+    err = max(r["f32_err"] for r in ranks)
+    print(f"[mesh-cuts] (a) f32 prefills and {MESH_CUTS_FORCED} forced decode "
+          f"steps holding the single-device k-WTA selections: largest "
+          f"|logits - single| {err:.3e} (tol {MESH_SERVE_TOL:.0e})")
+    if not (err <= MESH_SERVE_TOL and all(r["held_all"] for r in ranks)):
+        failed.append("(a) f32 logits part from the single device")
+    numbers = {"a": {"f32_err": err}}
+
+    def grads_line(label, gs):
+        loss = max(abs(x["loss"] - x["loss_single"]) / abs(x["loss_single"])
+                   for x in gs)
+        worst = max(gs, key=lambda x: x["worst"])
+        print(f"[mesh-cuts] {label} one loss and backward on the blocks "
+              f"against the single device (selections and router choices "
+              f"held): loss {gs[0]['loss']:.6f} (single "
+              f"{gs[0]['loss_single']:.6f}, relative difference {loss:.3e}, "
+              f"tol {MESH_TOL['loss_rel']:.0e}), {worst['leaves']} gradient "
+              f"leaves, largest error {worst['worst']:.3e}·(1+max|g|) at "
+              f"{worst['worst_leaf']} (tol {MESH_GRAD_TOL:.0e}); leaves "
+              f"missing {max(x['missing'] for x in gs)}; param blocks handed "
+              f"to a collective {sum(len(x['handed']) for x in gs)}")
+        if not (loss <= MESH_TOL["loss_rel"] and worst["worst"] <=
+                MESH_GRAD_TOL) or any(x["missing"] or x["handed"]
+                                      for x in gs):
+            failed.append(f"{label} gradients part from the single device")
+        return {"loss_rel": loss, "grad_err": worst["worst"]}
+
+    numbers["a"]["grads"] = grads_line("(a)", [r["grads"] for r in ranks])
+    move = max(r["bf16_move"] for r in ranks)
+    margin = max(TIE_MARGIN, 2 * move)
+    got = [r["serve"] for r in ranks]
+    if any(x["tokens"] != got[0]["tokens"] for x in got):
+        failed.append("(a) ranks took other tokens")
+    parted = same_tokens(cfg, params, reqs, single["tokens"],
+                         got[0]["tokens"], "(a) 1x4 bf16",
+                         phase="mesh-cuts", margin=margin)
+    per_step = [x["launches"] / x["steps"] for x in got]
+    print(f"[mesh-cuts] (a) bf16 tokens of phase 4's workload against the "
+          f"single device: {len(reqs) - parted} requests identical, "
+          f"{parted} parted at a tie of the top two (bound {margin:.3e}); "
+          f"topk_gather launches a decode step on each rank {per_step} "
+          f"(want {cfg.n_layers}), in the prefills "
+          f"{[x['prefill_launches'] for x in got]}; collectives handed a "
+          f"param or cache block {[x['handed'] for x in got]}")
+    if any(p != cfg.n_layers for p in per_step) or any(
+            x["prefill_launches"] or x["handed"] for x in got):
+        failed.append("(a) topk_gather launches or a block handed over")
+    numbers["a"].update(parted=parted, bf16_move=move,
+                        launches_per_step=per_step[0])
+    long = [r["long"] for r in ranks]
+    err = max(x["err"] for x in long)
+    per_step = [x["launches"] / x["steps"] for x in long]
+    print(f"[mesh-cuts] (b) {MOE_ARCH} at full width, {mla32.n_layers} of 27 "
+          f"layers, f32, 2x2 under decode_long: one row stepped through "
+          f"{MESH_CUTS_PROMPT} tokens holding the single-device selections "
+          f"and router choices, largest |logits - single| {err:.3e} (tol "
+          f"{MESH_SERVE_TOL:.0e}); the latent rows ({MESH_CUTS_SEQ}) over "
+          f"{long[0]['axes']}, each rank's block (reckoned "
+          f"{MESH_CUTS_SEQ // 4} rows): "
+          f"{[(x['coords'], x['block'], x['ckv']) for x in long]}; "
+          f"topk_gather launches a step on each rank {per_step} (want "
+          f"{mla32.n_layers})")
+    blocks = sorted(x["block"] for x in long)
+    if not (err <= MESH_SERVE_TOL and all(x["held_all"] for x in long)):
+        failed.append("(b) f32 logits part from the single device")
+    if tuple(long[0]["axes"]) != ("data", "model") or blocks != [
+            (i * MESH_CUTS_SEQ // 4, (i + 1) * MESH_CUTS_SEQ // 4)
+            for i in range(4)] or any(
+            x["ckv"][1] != MESH_CUTS_SEQ // 4 for x in long):
+        failed.append("(b) the latent rows are not split over both axes")
+    if any(p != mla32.n_layers for p in per_step):
+        failed.append("(b) topk_gather launches")
+    numbers["b"] = {"err": err, "launches_per_step": per_step[0]}
+    for i, ((arch, kw), c) in enumerate(zip(MESH_CUTS_REDUCED, reduced)):
+        rs = [r["reduced"][i] for r in ranks]
+        err = max(x["err"] for x in rs)
+        label = f"(c) {arch} reduced({kw})"
+        print(f"[mesh-cuts] {label}, f32, 1x4: prefills and "
+              f"{MESH_CUTS_FORCED} forced decode steps holding the "
+              f"single-device selections and router choices, largest "
+              f"|logits - single| {err:.3e} (tol {MESH_SERVE_TOL:.0e})")
+        if not (err <= MESH_SERVE_TOL and all(x["held_all"] for x in rs)):
+            failed.append(f"{label} logits part from the single device")
+        numbers[arch] = {"err": err, "grads": grads_line(
+            label, [x["grads"] for x in rs])}
+    numbers.update(single_s=t_single, gloo_s=t_gloo,
+                   phase_s=time.perf_counter() - t0)
+    print(f"[mesh-cuts] numbers {json.dumps(numbers)}")
+    shutil.rmtree(MESH_CUTS_DIR, ignore_errors=True)
+    if failed:
+        fail("mesh-cuts: " + "; ".join(failed))
+    return {"launches_mesh_cuts_per_decode_step": numbers["a"][
+        "launches_per_step"],
+        "launches_mesh_cuts_long_per_step": numbers["b"][
+            "launches_per_step"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -6306,6 +6657,10 @@ def main():
     t = time.perf_counter()
     row.update(phase_examples())
     print(f"[examples] done in {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row.update(phase_mesh_cuts())
+    print(f"[mesh-cuts] done in {time.perf_counter() - t:.1f} s")
 
     print(json.dumps({"kernels": [row] + rows}))
     print(smi)

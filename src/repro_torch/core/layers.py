@@ -12,6 +12,11 @@ Packed layers hold:
   route     (G/R, P, N) int8   — static complementary routing
   b         (D_out,)    float  — optional
 
+A mesh rank's block of groups [g0, g1) of a layer whose route of several
+tables stays whole also holds ``block_route`` (:func:`block_route`, made
+once when the block is cut): the table of each of its groups, which
+every path reads in place of ``route``.
+
 ``packed_p`` is made once, at init or load (:func:`partition_major`):
 eager PyTorch would otherwise copy the transpose of ``packed`` at every
 call of the sparse-sparse path, where the reference leaves it to XLA to
@@ -54,6 +59,24 @@ def _route_share(cfg: SparsityConfig, g: int) -> int:
     while g % r:
         r -= 1
     return r
+
+
+def block_route(route: torch.Tensor, g: int, g0: int, g1: int
+                ) -> torch.Tensor:
+    """The route of groups [g0, g1) of a packed layer of ``g`` groups
+    whose whole ``route`` holds g/R tables (group i reads table i // R):
+    one table a group.  A route stays whole beside a block of groups only
+    where its tables do not divide over the axis that cuts the groups,
+    so no such block is a run of whole tables."""
+    r = g // route.shape[0]
+    return route[torch.arange(g0, g1, device=route.device) // r]
+
+
+def layer_route(params) -> torch.Tensor:
+    """The route a packed layer's (or stack of routed experts') groups
+    read: the block's own where a mesh cut the groups beside a whole
+    route of several tables, else ``route``."""
+    return params.get("block_route", params["route"])
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +235,7 @@ def packed_linear_apply(params, x: torch.Tensor, cfg: SparsityConfig,
     it replaces the re-derivation of the support (one Select per layer,
     paper Fig. 8a); other paths ignore it."""
     packed = params["packed"].to(x.dtype)
-    route = params["route"]
+    route = layer_route(params)
     d_in = packed.shape[1] * packed.shape[2]
     if x.shape[-1] < d_in:
         x = tF.pad(x, (0, d_in - x.shape[-1]))

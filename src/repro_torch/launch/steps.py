@@ -152,11 +152,34 @@ def shard_train_state(full_params, cfg: ModelConfig, tcfg: TrainConfig,
                       rules: Rules):
     """This rank's blocks of the training state, from the full params in
     the port's training layout: ``(params, opt_state, shardings,
-    shapes)``, the last two :func:`train_shardings`'.  A moment block a
-    rank does not hold is an empty tensor."""
+    shapes)``, the last two :func:`train_shardings`', extended by every
+    ``block_route`` the blocks hold (a derived leaf, as serving's blocks
+    make it: :func:`repro_torch.models.transformer.add_block_routes`;
+    whole on the rank, never moved, dropped by :func:`gather_state`).
+    Raises where serving on the mesh would
+    (:func:`repro_torch.models.transformer.check_blocks`).  A moment
+    block a rank does not hold is an empty tensor."""
     shardings, p_shapes = train_shardings(full_params, cfg, tcfg, rules)
     params = map_tree(lambda t, sh: sh.take(t), full_params,
                       shardings["params"])
+    T.check_blocks(params, full_params)
+    params = T.add_block_routes(params, full_params, shardings["params"])
+    # each block_route's place: whole on the rank, its own shape
+    known = {p: i for i, (p, _) in enumerate(flatten(full_params))}
+    at = [known.get(p) for p, _ in flatten(params)]
+    whole = NamedSharding(rules.mesh, ())
+
+    def extend(tree):
+        flat = leaves(tree)
+        return unflatten(params, [whole if i is None else flat[i]
+                                  for i in at])
+
+    shardings = {"params": extend(shardings["params"]),
+                 "opt": {"mu": extend(shardings["opt"]["mu"]),
+                         "nu": extend(shardings["opt"]["nu"]),
+                         "step": shardings["opt"]["step"]}}
+    p_shapes = [tuple(t.shape) if i is None else p_shapes[i]
+                for i, t in zip(at, leaves(params))]
     moment_dtype = dtype_of(tcfg.moment_dtype)
     device = leaves(full_params)[0].device
 
@@ -166,8 +189,8 @@ def shard_train_state(full_params, cfg: ModelConfig, tcfg: TrainConfig,
         return torch.zeros(sh.local_shape(shape), dtype=moment_dtype,
                            device=device)
 
-    mu = unflatten(full_params, [zeros(t, s, sh) for t, s, sh in zip(
-        leaves(full_params), p_shapes, leaves(shardings["opt"]["mu"]))])
+    mu = unflatten(params, [zeros(t, s, sh) for t, s, sh in zip(
+        leaves(params), p_shapes, leaves(shardings["opt"]["mu"]))])
     opt = {"mu": mu, "nu": map_tree(torch.zeros_like, mu),
            "step": torch.zeros((), dtype=torch.int32, device=device)}
     return params, opt, shardings, p_shapes
@@ -176,9 +199,11 @@ def shard_train_state(full_params, cfg: ModelConfig, tcfg: TrainConfig,
 def gather_state(state, shardings, shapes):
     """The full ``{"params", "opt"}`` tree of a sharded state
     (:func:`shard_train_state`'s ``shardings`` and param ``shapes``):
-    every rank takes part and gets the whole."""
+    every rank takes part and gets the whole, in the training layout (no
+    ``block_route``)."""
     def full(tree, sh, shp):
-        return unflatten(tree, gather_leaves(leaves(tree), leaves(sh), shp))
+        return T.drop_block_routes(unflatten(
+            tree, gather_leaves(leaves(tree), leaves(sh), shp)))
 
     params, opt = state["params"], state["opt"]
     m_shapes = [s if t.is_floating_point() else ()

@@ -148,10 +148,13 @@ class Trainer:
         """Restore the latest checkpoint, whatever mesh wrote it: each
         rank takes its blocks of the full leaves."""
         self.wait_for_save()
+        state = self.state_tree()
         step, tree, extra = ckpt.restore_latest(
-            self.tcfg.ckpt_dir, self.state_tree(), self.shardings)
+            self.tcfg.ckpt_dir, T.drop_block_routes(state),
+            T.drop_block_routes(self.shardings))
         if step is None:
             return False
+        tree = T.keep_block_routes(tree, state)
         self.params, self.opt = tree["params"], tree["opt"]
         self.step = extra.get("step", step)
         return True

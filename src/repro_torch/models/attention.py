@@ -27,14 +27,22 @@ training step on a mesh ``x`` enters the column blocks alone (its
 gradient summed over ``model`` in the backward; a whole k or v beside a
 block of q takes its whole gradient on every rank).
 
-MLA on a serving mesh holds the rank's heads (``q``, ``uk``, ``uv``: a
-block of columns; ``o``: the rows of those heads) and the whole ``dkv``
-and ``kpe``: its heads attend, and their products through ``o`` are
-summed over ``model`` (row parallel).  A contiguous latent cache that
-holds a block of rows is attended through the absorbed queries and the
-sharded softmax (:func:`_mla_rows_attn`); the page pools hold every row.
-In a training step the whole ``x``, latent and rope key enter the rank's
-heads (:func:`_enter_heads`).
+MLA on a serving mesh holds a block of columns of ``q``, ``uk`` and
+``uv`` and those rows of ``o``, and the whole ``dkv`` and ``kpe``
+(:func:`_mla_split`).  Where the block is whole heads, its heads attend
+and their products through ``o`` are summed over ``model`` (row
+parallel); where it cuts a head (``n_heads`` does not divide over
+``model``), as the GQA block does, the products of q's and of uk's and
+uv's columns are gathered over ``model`` before the heads split, every
+rank attends every head, and takes its columns of the head outputs
+through its rows of ``o``, summed over ``model``.  A contiguous latent
+cache that holds a block of rows (over ``model``, or over the DP axes
+and ``model`` under ``decode_long``) is attended through the absorbed
+queries and the sharded softmax over those axes
+(:func:`_mla_rows_attn`); the page pools hold every row.  In a training
+step ``x`` enters q's block and the latent uk's and uv's (on a block of
+whole heads the rope key too), and the head outputs enter the rows of
+``o`` where every rank computed every head.
 """
 
 from __future__ import annotations
@@ -611,16 +619,34 @@ def mla_init(gen: torch.Generator, cfg):
             "o": normal_init(gen, (h * dh, d), 0.02)}
 
 
+def _mla_split(params, cfg):
+    """How the rank holds MLA's heads: None (all of them), ``"heads"``
+    (a mesh's block of whole heads: q's, uk's and uv's columns and o's
+    rows of heads [h0, h1)) or ``"cols"`` (blocks of those columns and
+    rows that cut a head, where ``n_heads`` does not divide over
+    ``model``)."""
+    h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    width = params["uk"].shape[1]
+    if width == h * dh and params["q"].shape[1] == h * (dh + dr):
+        return None
+    return "heads" if width < h * dh and width % dh == 0 else "cols"
+
+
 def _mla_qkv(params, x, cfg, positions):
     """Queries (nope and roped parts) of the heads ``params`` hold, the
     latent ``c_kv`` (B, S, r) and the roped shared key ``k_pe`` (B, S,
     dr).  Each weight is cast to the compute dtype at its use, as the
     reference casts it (a no-op on serving params, which
     :func:`repro_torch.models.transformer.prepare_params` cast once; the
-    training layout's masters are float32)."""
+    training layout's masters are float32).  Where the rank's block of
+    q's columns cuts a head, ``x`` enters it and its product is gathered
+    over ``model``: every head's query on every rank."""
     dh, dr = cfg.head_dim, cfg.rope_head_dim
-    xq = _enter_heads(params, x, cfg)
-    q = (xq @ params["q"].to(x.dtype)).reshape(*x.shape[:-1], -1, dh + dr)
+    blk = params["q"].shape[1] < cfg.n_heads * (dh + dr)
+    q = (enter_blocks(x) if blk else x) @ params["q"].to(x.dtype)
+    if blk and _mla_split(params, cfg) == "cols":
+        q = serving().gather(q, {-1: "model"})
+    q = q.reshape(*x.shape[:-1], -1, dh + dr)
     q_nope, q_pe = q[..., :dh], q[..., dh:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     c_kv = x @ params["dkv"].to(x.dtype)
@@ -629,30 +655,32 @@ def _mla_qkv(params, x, cfg, positions):
     return q_nope, q_pe, c_kv, k_pe
 
 
-def _enter_heads(params, x, cfg):
-    """``x`` where it feeds the rank's heads (``uk`` holds a block of
-    columns: a mesh): it enters them (:func:`enter_blocks`), so the whole
-    weights beside them (``dkv``, ``kpe``) keep all of their gradient."""
-    if params["uk"].shape[1] < cfg.n_heads * cfg.head_dim:
-        return enter_blocks(x)
-    return x
-
-
 def _mla_expand(params, c_kv, cfg):
     """Per-head keys (nope part) and values from the latent rows, for the
-    heads ``params`` hold."""
+    heads ``params`` hold; every head's where the rank's columns of uk and
+    uv cut a head (their products gathered over ``model``, which the
+    latent enters)."""
     dh = cfg.head_dim
     ct = c_kv.dtype
-    k_nope = (c_kv @ params["uk"].to(ct)).reshape(*c_kv.shape[:-1], -1, dh)
-    v = (c_kv @ params["uv"].to(ct)).reshape(*c_kv.shape[:-1], -1, dh)
-    return k_nope, v
+    cut = params["uk"].shape[1] < cfg.n_heads * dh and \
+        _mla_split(params, cfg) == "cols"
+    if cut:
+        c_kv = enter_blocks(c_kv)
+    k_nope = c_kv @ params["uk"].to(ct)
+    v = c_kv @ params["uv"].to(ct)
+    if cut:
+        k_nope, v = serving().gather_last(k_nope, v)
+    return (k_nope.reshape(*c_kv.shape[:-1], -1, dh),
+            v.reshape(*c_kv.shape[:-1], -1, dh))
 
 
 def _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg):
     """(q, k, v): the queries and the expanded keys with the shared rope
-    key broadcast over the heads; v from the latent.  On a mesh the whole
-    latent and rope key enter the rank's heads."""
-    c_kv, k_pe = (_enter_heads(params, t, cfg) for t in (c_kv, k_pe))
+    key broadcast over the heads; v from the latent.  On a mesh's block
+    of whole heads the whole latent and rope key enter the rank's
+    heads."""
+    if _mla_split(params, cfg) == "heads":
+        c_kv, k_pe = enter_blocks(c_kv), enter_blocks(k_pe)
     k_nope, v = _mla_expand(params, c_kv, cfg)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k_pe = k_pe[..., None, :].expand(*k_pe.shape[:-1], q.shape[-2],
@@ -661,12 +689,23 @@ def _mla_qk(params, q_nope, q_pe, c_kv, k_pe, cfg):
 
 
 def _mla_o(params, out, cfg):
-    """The o projection of the head outputs (..., H', dh).  On a serving
-    mesh ``o`` holds the rows of the rank's heads (``("heads", None)``):
-    each rank's product is a partial sum of the whole, summed over
-    ``model`` in float32 (row parallel)."""
-    y = out.reshape(*out.shape[:-2], -1) @ params["o"].to(out.dtype)
-    if params["o"].shape[0] < cfg.n_heads * cfg.head_dim:
+    """The o projection of the head outputs (..., H', dh)."""
+    return _mla_o_rows(params, out.reshape(*out.shape[:-2], -1), cfg)
+
+
+def _mla_o_rows(params, flat, cfg):
+    """The o projection of head outputs flattened to (..., W).  On a mesh
+    ``o`` holds a block of its rows (``("heads", None)``): each rank's
+    product of its rows is a partial sum of the whole, summed over
+    ``model`` in float32 (row parallel).  Where ``flat`` holds every
+    head's output (blocks that cut a head) the rank takes the columns of
+    its rows, which ``flat`` enters."""
+    rows, whole = params["o"].shape[0], cfg.n_heads * cfg.head_dim
+    if flat.shape[-1] > rows:
+        r0 = serving().block("model", whole)[0]
+        flat = enter_blocks(flat)[..., r0:r0 + rows]
+    y = flat @ params["o"].to(flat.dtype)
+    if rows < whole:
         y = serving().reduce_model(y.float()).to(y.dtype)
     return y
 
@@ -732,27 +771,41 @@ def _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg):
 
 
 def _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg,
-                   sh):
+                   sh, axes):
     """:func:`_mla_cache_attn` where the latent views are this rank's
-    block of rows and ``params`` the rank's heads.  The rank's rows meet
-    every head's query, but the rank holds ``uk``/``uv`` of its own heads
-    only, and no weight moves: so each rank absorbs ``uk`` into its heads'
-    queries (``q_nope · uk_h`` lives in the latent space), the absorbed
-    and roped queries are gathered over ``model``, the scores of the
-    rank's rows run through a sharded softmax (each rank's maximum, sum
-    of exponentials and latent rows weighted under it, float32, gathered
-    over ``model`` in one collective and rescaled to the largest
-    maximum), and each rank takes its heads' latent outputs through
-    ``uv`` and its rows of ``o``, summed over ``model``."""
+    block of rows (split over the mesh ``axes``) and ``params`` the
+    rank's heads.  The rank's rows meet every head's query, but the rank
+    holds ``uk``/``uv`` of its own heads only, and no weight moves: so
+    each rank absorbs ``uk`` into its heads' queries (``q_nope · uk_h``
+    lives in the latent space) and the absorbed and roped queries are
+    gathered over ``model`` (where the rank's columns of ``uk`` cut a
+    head, every head's query is whole and each rank's columns give a
+    part of every absorbed query, summed over ``model``); the scores of
+    the rank's rows run through a sharded softmax (each rank's maximum,
+    sum of exponentials and latent rows weighted under it, float32,
+    gathered over ``axes`` in one collective and rescaled to the largest
+    maximum), and each rank takes its heads' (or columns') latent outputs
+    through ``uv`` and its rows of ``o``, summed over ``model``."""
     h, dh, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     ct = x.dtype
-    held = q_nope.shape[-2]
     r = params["uk"].shape[0]
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
-                         params["uk"].to(ct).reshape(r, held, dh))
-    q = torch.cat([q_lat, q_pe], dim=-1)                  # (B, S_q, H', r+dr)
-    if held < h:
-        q = sh.gather_last(q.flatten(-2))[0].unflatten(-1, (h, r + dr))
+    cols = _mla_split(params, cfg) == "cols" and \
+        params["uk"].shape[1] < h * dh
+    if cols:
+        c0, c1 = sh.block("model", h * dh)
+        # which head each of the rank's columns belongs to, one-hot (H, W)
+        head = torch.arange(c0, c1, device=x.device) // dh
+        onehot = (head == torch.arange(h, device=x.device)[:, None]).to(ct)
+        q_lat = (q_nope.flatten(-2)[..., None, c0:c1] * onehot) \
+            @ params["uk"].to(ct).t()                     # (B, S_q, H, r)
+        q = torch.cat([sh.reduce_model(q_lat.float()).to(ct), q_pe], -1)
+    else:
+        held = q_nope.shape[-2]
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                             params["uk"].to(ct).reshape(r, held, dh))
+        q = torch.cat([q_lat, q_pe], dim=-1)              # (B, S_q, H', r+dr)
+        if held < h:
+            q = sh.gather_last(q.flatten(-2))[0].unflatten(-1, (h, r + dr))
     k = torch.cat([ckv_view, kpe_view], dim=-1)           # (B, V, r+dr)
     scale = 1.0 / np.sqrt(dh + dr)
     scores = torch.einsum("bqhc,bkc->bhqk", q, k).float() * scale
@@ -763,10 +816,15 @@ def _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg,
     p = torch.exp(scores - m[..., None])
     acc = torch.einsum("bhqk,bkr->bhqr", p, ckv_view.float())
     part = torch.cat([m[..., None], p.sum(dim=-1)[..., None], acc], dim=-1)
-    part = sh.gather_last(part)[0].unflatten(-1, (-1, part.shape[-1]))
-    w = torch.exp(part[..., 0] - part[..., 0].amax(dim=-1, keepdim=True))
-    out = softmax_finish((part[..., 1] * w).sum(dim=-1),
-                         (part[..., 2:] * w[..., None]).sum(dim=-2))
+    part = sh.gather(part[None], {0: axes})               # (n, B, H, S_q, .)
+    w = torch.exp(part[..., 0] - part[..., 0].amax(dim=0, keepdim=True))
+    out = softmax_finish((part[..., 1] * w).sum(dim=0),
+                         (part[..., 2:] * w[..., None]).sum(dim=0))
+    if cols:
+        # every head's latent output through the rank's columns of uv,
+        # each column keeping its own head's
+        vals = out.to(ct) @ params["uv"].to(ct)           # (B, S_q, H, W)
+        return _mla_o_rows(params, (vals * onehot).sum(dim=-2), cfg)
     if held < h:
         h0 = sh.block("model", h)[0]
         out = out[..., h0:h0 + held, :]
@@ -776,14 +834,17 @@ def _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view, valid, cfg,
 
 
 def _mla_rows(paged: bool):
-    """(serving shards, the first row of the rank's block) where the
-    contiguous latent cache holds a block of rows, else (shards, None).
-    The latent leaves' ``("batch", "kvseq", None)`` resolve as a cache of
-    one kv head does."""
+    """(serving shards, the mesh axes the contiguous latent cache's rows
+    split over, and the first row of the rank's block) where it holds a
+    block of rows, else (shards, None, None).  The latent leaves'
+    ``("batch", "kvseq", None)`` resolve as a cache of one kv head does:
+    over ``model`` under the decode rules, over the DP axes and ``model``
+    under ``decode_long``."""
     sh = serving()
     if sh is None or sh.kv_split(paged, 1) != "rows":
-        return sh, None
-    return sh, sh.block("model", sh.max_seq)[0]
+        return sh, None, None
+    axes = sh.rows_axes(paged, 1)
+    return sh, axes, sh.block(axes, sh.max_seq)[0]
 
 
 def mla_decode(params, x, cfg, cache, pos, pages=None):
@@ -800,7 +861,7 @@ def mla_decode(params, x, cfg, cache, pos, pages=None):
         pos_b = torch.full((b,), int(pos), dtype=torch.int64,
                            device=x.device)
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(params, x, cfg, pos_b[:, None])
-    sh, lo = _mla_rows(pages is not None)
+    sh, axes, lo = _mla_rows(pages is not None)
     if pages is None:
         at = pos - lo if lo else pos
         _cache_write(cache["ckv"], c_kv, at)
@@ -817,7 +878,7 @@ def mla_decode(params, x, cfg, cache, pos, pages=None):
     valid = cols[None, None, :] <= pos_b[:, None, None]
     if lo is not None:
         y = _mla_rows_attn(params, x, q_nope, q_pe, ckv_view, kpe_view,
-                           valid, cfg, sh)
+                           valid, cfg, sh, axes)
     else:
         y = _mla_cache_attn(params, x, q_nope, q_pe, ckv_view, kpe_view,
                             valid, cfg)

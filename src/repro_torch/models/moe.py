@@ -33,14 +33,27 @@ combines its experts' terms only, and the partial outputs are summed
 over ``model`` in float32.  The shared experts then run as the FFN does on a mesh:
 k-WTA over the whole hidden row, down whole on every rank.
 
+Where ``n_experts`` does not divide over ``model`` the experts are
+whole on every rank and each expert's groups split (the reference's
+divisibility fallback leaves ``experts`` unsharded and ``mlp`` cuts the
+groups): the router is whole, every rank makes the same dispatch and
+computes every expert on its block of that expert's up and gate
+groups, gathers each expert's hidden over ``model`` before its k-WTA,
+and runs the down projection whole (dense experts) or on its block of
+output groups (packed experts, whose combined outputs are gathered over
+``model``).
+
 A training step on a mesh runs the same forward through autograd: ``x``
 enters the router's columns and the rank's experts (the dispatch buffer
 is a linear function of ``x``, computed whole on every rank and cut to
 the rank's experts), and ``top_p`` enters the combine of the rank's
 experts, so each one's gradient is summed over ``model`` in the
 backward; the gathered logits hand each rank its columns' gradient, and
-the partial outputs' sum passes the whole gradient to every rank.  The
-aux loss's loads are summed over the DP group only.
+the partial outputs' sum passes the whole gradient to every rank.  Where
+the experts' groups are cut, ``x`` enters the up and gate blocks alone
+(the router is whole), and the gathered hidden and ``top_p`` enter a
+packed down's block of outputs.  The aux loss's loads are summed over
+the DP group only.
 """
 
 from __future__ import annotations
@@ -53,7 +66,8 @@ import torch.nn.functional as tF
 
 from repro_torch.core import functional as F
 from repro_torch.core.api import SparsityConfig
-from repro_torch.core.layers import _uniform, apply_kwta
+from repro_torch.core.layers import (_route_share, _uniform, apply_kwta,
+                                     layer_route)
 from repro_torch.core.masks import CSLayout, make_routes
 from repro_torch.sharding.collectives import batch_sum, dp_group, group_size
 from repro_torch.sharding.serving import enter_blocks, serving
@@ -98,9 +112,7 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
                 and d_out % cfg_sp.n == 0:
             lay = CSLayout(d_in, d_out, cfg_sp.n, cfg_sp.perm_kind)
             g = lay.groups
-            r = g if cfg_sp.route_share == 0 else min(cfg_sp.route_share, g)
-            while g % r:
-                r -= 1
+            r = _route_share(cfg_sp, g)
             route = make_routes(CSLayout(d_in, cfg_sp.n * (g // r), cfg_sp.n,
                                          cfg_sp.perm_kind), seed)
             w = _uniform(gen, (n_experts, g, lay.partitions, cfg_sp.n),
@@ -127,7 +139,7 @@ def _expert_matmul(p, x):
     one expression over the expert axis."""
     if "packed" in p:
         pk = p["packed"].to(x.dtype)                     # (E, G, P, N)
-        route = p["route"]                               # (G/R, P, N)
+        route = layer_route(p)                           # (G/R, P, N)
         e, g, parts, n = pk.shape
         gr = route.shape[0]
         xg = x[..., F.route_to_gather_idx(route, n)]     # (.., Gr, P, N)
@@ -195,6 +207,15 @@ def _combine(out, top_e, top_p, rank, keep, lo=None):
     return (gathered * w[..., None]).sum(dim=2)
 
 
+def _expert_cols(p, side: str) -> int:
+    """The columns of a stack of routed experts' weights that the rank
+    holds on the ``"in"`` or ``"out"`` side of its product."""
+    if "packed" in p:                                    # (E, G, P, N)
+        n = p["packed"].shape[3]
+        return n * p["packed"].shape[2 if side == "in" else 1]
+    return p["w"].shape[1 if side == "in" else 2]        # (E, d_in, d_out)
+
+
 def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (y, aux_loss).
@@ -202,18 +223,27 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
     Dispatch runs per token group, one group per batch row, so a padded
     prompt bucket and a prefill chunk compete for expert capacity as the
     reference's do.  The router matmul runs in the compute dtype and is
-    then cast to f32; the Switch aux loss is global.  On a serving mesh
-    the rank computes its block of experts (see the module docstring)."""
+    then cast to f32; the Switch aux loss is global.  On a mesh the rank
+    computes its block of experts, or every expert on its block of each
+    one's groups (see the module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
     groups = b
     held = next(iter(params["up"].values())).shape[0]     # experts held
+    # experts whole but cut into blocks of their groups (``n_experts``
+    # does not divide over ``model``): the hidden, and a packed down's
+    # outputs, are blocks of columns
+    cut_h = _expert_cols(params["up"], "out") < \
+        _expert_cols(params["down"], "in")
+    cut_y = _expert_cols(params["down"], "out") < d
     sh = serving()
-    # a block of experts (and of the router's columns, which divide as
-    # they do): x enters them, through the dispatch and the router
     tg = t // groups
-    xg = (enter_blocks(x) if held < e else x).reshape(groups, tg, d)
+    # x enters the rank's block of experts (through the dispatch), and the
+    # router's columns where they are a block too (they divide as the
+    # experts do)
+    xe = enter_blocks(x) if held < e or cut_h else x
+    xg = (xe if held < e else x).reshape(groups, tg, d)
     logits = xg @ params["router"].to(x.dtype)            # (G, Tg, E)
     hidden = None
     if "shared" in params:
@@ -241,11 +271,13 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
     aux = e * torch.sum(me * ce)
 
     cap = int(np.ceil(tg * k / e * cfg.capacity_factor))
-    buf, rank, keep = _dispatch(xg, top_e, e, k, cap)     # (G, E, C, d)
+    buf, rank, keep = _dispatch(xe.reshape(groups, tg, d), top_e, e, k,
+                                cap)                      # (G, E, C, d)
     lo = None
     if held < e:                # a mesh's block of experts
         lo = sh.block("model", e)[0]
         buf = buf[:, lo:lo + held]
+    if held < e or cut_y:       # the combine of the rank's terms alone
         top_p = enter_blocks(top_p)
 
     up = _expert_matmul(params["up"], buf)
@@ -253,12 +285,19 @@ def moe_apply(params, x, cfg, cfg_sp: SparsityConfig
         h = tF.silu(_expert_matmul(params["gate"], buf)) * up
     else:
         h = tF.gelu(up, approximate="tanh")
+    if cut_h:                   # each expert's k-WTA picks from its whole row
+        h = sh.gather(h, {-1: "model"})
     if cfg_sp.activation_sparse:
         h = apply_kwta(h, cfg_sp)
-    out = _expert_matmul(params["down"], h)               # (G, E', C, d)
-    y = _combine(out, top_e, top_p, rank, keep, lo).reshape(b, s, d)
+    if cut_y:                   # the whole hidden feeds the rank's outputs
+        h = enter_blocks(h)
+    out = _expert_matmul(params["down"], h)               # (G, E', C, d')
+    y = _combine(out, top_e, top_p, rank, keep, lo)
     if lo is not None:          # the block's terms, summed in float32
         y = sh.reduce_model(y.float()).to(x.dtype)
+    if cut_y:
+        y = sh.gather(y, {-1: "model"})
+    y = y.reshape(b, s, d)
 
     if hidden is not None:
         y = y + ffn_down(params["shared"], hidden, cfg_sp)

@@ -38,7 +38,8 @@ Entry points:
 
 On a serving mesh (:mod:`repro_torch.sharding.serving`, installed by the
 engine) the serving entry points run on the rank's blocks:
-:func:`param_blocks` cuts whole params to them, ``init_cache`` and
+:func:`param_blocks` cuts whole params to them (:func:`check_blocks`
+refuses what they cannot compute; :func:`add_block_routes`), ``init_cache`` and
 ``init_paged_cache`` with ``rules`` make the rank's cache blocks; the
 lookup is vocab-parallel, a decode step on the contiguous cache computes
 the rank's slots (where they shard over the DP axes), and the logits come
@@ -59,7 +60,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.api import pause_dispatch
 from repro_torch.core.instrument import named_scope, pause_selects
-from repro_torch.core.layers import add_partition_major, drop_partition_major
+from repro_torch.core.layers import (add_partition_major, block_route,
+                                     drop_partition_major)
 from repro_torch.sharding.context import (UnitSpec, get_rules, map_specs,
                                           param_sharding, use_rules)
 from repro_torch.sharding.serving import enter_blocks, serving, use_serving
@@ -218,67 +220,88 @@ def layer_cache_specs(cfg, paged: bool = False) -> List:
                       units[f"b{j % n}"]) for j in range(cfg.n_layers)]
 
 
-def _check_blocks(blocks, whole):
-    """A packed layer cut to a block of groups runs as a layer of its own
-    only where its route is one table (shared by every group) or is cut
-    with the groups, and a bias is cut at the same columns; routed experts
-    run on a block of whole experts only."""
+def check_blocks(blocks, whole):
+    """Raise where a rank's blocks of whole params cannot compute as the
+    reference's partitioning does: a packed layer whose bias is cut at
+    other columns than its groups (a padded layer, whose groups hold more
+    columns than the bias).  No shipped model reaches it: only the GSC
+    CNN's packed layers carry a bias, and no mesh runs that model
+    (ROADMAP, Queue 3)."""
     if isinstance(blocks, list):
         for b, w in zip(blocks, whole):
-            _check_blocks(b, w)
+            check_blocks(b, w)
         return
     if not isinstance(blocks, dict):
         return
     if "packed" in blocks and blocks["packed"].ndim == 3 and \
             blocks["packed"].shape[0] < whole["packed"].shape[0]:
-        g, gr = whole["packed"].shape[0], whole["route"].shape[0]
-        if gr > 1 and blocks["route"].shape[0] == gr:
-            raise NotImplementedError(
-                f"a route of {gr} tables kept whole beside a block of "
-                f"{blocks['packed'].shape[0]} of {g} packed groups")
-        n = whole["packed"].shape[2]
+        g, n = whole["packed"].shape[0], whole["packed"].shape[2]
         if "b" in whole and whole["b"].shape[0] != g * n:
             raise NotImplementedError("a padded packed layer's bias cut "
                                       "beside its groups")
-    if "router" in blocks:
-        for name in ("up", "gate", "down"):
-            for leaf, t in blocks.get(name, {}).items():
-                if t.shape[1:] != whole[name][leaf].shape[1:]:
-                    raise NotImplementedError(
-                        f"routed experts' {name}.{leaf} cut inside an "
-                        f"expert ({tuple(t.shape)} of "
-                        f"{tuple(whole[name][leaf].shape)})")
     for k, v in blocks.items():
         if isinstance(v, (dict, list)):
-            _check_blocks(v, whole[k])
+            check_blocks(v, whole[k])
 
 
-def _check_mesh(cfg, rules) -> None:
-    """Raise where the model's blocks on ``rules``' mesh are not whole
-    heads of MLA (its heads attend rank by rank), or where MLA's latent
-    rows would shard over the DP axes (``decode_long``: its sharded
-    softmax combines over ``model``)."""
-    m = rules.mesh.shape.get("model", 1)
-    if cfg.use_mla and m > 1 and cfg.n_heads % m:
-        raise NotImplementedError(
-            f"MLA's {cfg.n_heads} heads on a model axis of {m}: a rank's "
-            "block of q, uk, uv and o would cut a head")
-    rows = rules.mesh.ordered(rules.table.get("kvseq"))
-    if cfg.use_mla and any(a != "model" and rules.mesh.shape[a] > 1
-                           for a in rows):
-        raise NotImplementedError(
-            "MLA's latent cache rows over the DP axes (decode_long)")
+def add_block_routes(blocks, whole, shardings):
+    """``blocks`` (a rank's blocks of the ``whole`` params, cut by
+    ``shardings``) where every packed layer or stack of routed experts
+    cut to a block of its groups beside a route of several tables kept
+    whole also holds ``block_route``, the route of its own groups
+    (:func:`repro_torch.core.layers.block_route`), made here once."""
+    if isinstance(blocks, list):
+        return [add_block_routes(b, w, s)
+                for b, w, s in zip(blocks, whole, shardings)]
+    if not isinstance(blocks, dict):
+        return blocks
+    out = {k: add_block_routes(v, whole[k], shardings[k])
+           for k, v in blocks.items()}
+    if "packed" in blocks:
+        dim = blocks["packed"].ndim - 3       # the groups: (E,) G, P, N
+        g, route = whole["packed"].shape[dim], blocks["route"]
+        if blocks["packed"].shape[dim] < g and \
+                1 < route.shape[0] == whole["route"].shape[0]:
+            span = shardings["packed"].block(whole["packed"].shape)[dim]
+            out["block_route"] = block_route(route, g, span.start,
+                                             span.stop)
+    return out
+
+
+def drop_block_routes(tree):
+    """The tree without its ``block_route`` leaves: the reference's
+    layout of a rank's blocks."""
+    if isinstance(tree, dict):
+        return {k: drop_block_routes(v) for k, v in tree.items()
+                if k != "block_route"}
+    if isinstance(tree, list):
+        return [drop_block_routes(v) for v in tree]
+    return tree
+
+
+def keep_block_routes(tree, src):
+    """``tree`` (the reference's layout) with the ``block_route`` leaves
+    of ``src``, a tree of the same layout that holds them."""
+    if isinstance(tree, dict):
+        out = {k: keep_block_routes(v, src[k]) for k, v in tree.items()}
+        if "block_route" in src:
+            out["block_route"] = src["block_route"]
+        return out
+    if isinstance(tree, list):
+        return [keep_block_routes(v, w) for v, w in zip(tree, src)]
+    return tree
 
 
 def _blocks_of(piece, specs, rules):
     """This rank's blocks of a whole serving-params piece (a dict, a list
     of layers, or the whole tree) under its specs, each packed layer's
-    ``packed_p`` made anew from its block."""
+    ``packed_p`` made anew from its block and its ``block_route`` where
+    it needs one."""
     whole = drop_partition_major(piece)
     shardings = param_sharding(specs, whole, rules)
     blocks = map_tree(lambda sh, t: sh.take(t), shardings, whole)
-    _check_blocks(blocks, whole)
-    return add_partition_major(blocks)
+    check_blocks(blocks, whole)
+    return add_partition_major(add_block_routes(blocks, whole, shardings))
 
 
 @torch.no_grad()
@@ -286,7 +309,6 @@ def param_blocks(params: Dict, cfg, rules) -> Dict:
     """This rank's blocks of whole serving params under ``rules``: every
     leaf of the reference's layout cut by its spec (:func:`param_specs`),
     each packed layer's ``packed_p`` made anew from its block."""
-    _check_mesh(cfg, rules)
     return _blocks_of(params, layer_specs(param_specs(cfg), cfg), rules)
 
 
@@ -435,7 +457,6 @@ def init_model(cfg, seed: int = 0, device=None, rules=None) -> Dict:
     the whole tree is never held at once."""
     if rules is None:
         return prepare_params(_init_params(cfg, seed, device), cfg)
-    _check_mesh(cfg, rules)
     ct = dtype_of(cfg.compute_dtype)
     specs, kinds = layer_specs(param_specs(cfg), cfg), layer_kinds(cfg)
 
@@ -475,10 +496,12 @@ def serving_params(params: Dict, cfg) -> Dict:
 
 def param_count(params) -> int:
     """Parameters of the reference's layout (the partition-major copies
-    of the packed weights are not counted)."""
+    of the packed weights and a block's ``block_route`` are not
+    counted)."""
     def count(tree):
         if isinstance(tree, dict):
-            return sum(count(v) for k, v in tree.items() if k != "packed_p")
+            return sum(count(v) for k, v in tree.items()
+                       if k not in ("packed_p", "block_route"))
         if isinstance(tree, list):
             return sum(count(v) for v in tree)
         return tree.numel()

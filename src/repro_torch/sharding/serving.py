@@ -7,13 +7,22 @@ Under those rules each rank holds (the reference's specs, leaf for leaf):
 * the embedding and head tables: a block of vocabulary rows (``model``);
 * q, k and v: a block of output columns (``model``); o and the FFN's down
   projection: whole; the FFN's up and gate: a block of output groups
-  (``model``), their route with them where it divides, else whole;
-* MLA's q, uk and uv: the columns of the rank's heads, its o: their rows
-  (a row-parallel product, summed over ``model``), dkv and kpe whole;
+  (``model``), their route with them where its tables divide, else whole
+  (a route of several tables kept whole beside a block of groups gives
+  the block a ``block_route`` of its own groups' tables, made once when
+  the block is cut);
+* MLA's q, uk and uv: a block of columns, its o: those rows (a
+  row-parallel product, summed over ``model``), dkv and kpe whole; the
+  columns are the rank's heads where ``n_heads`` divides over ``model``,
+  else they cut a head and the products are gathered before the heads
+  split;
 * MoE: the router's columns and the routed experts' weights of the
   rank's block of experts, ``block("model", n_experts)``, each expert
   whole (its groups cannot shard over ``model`` too: a mesh axis appears
-  once in a spec); the shared experts as the FFN;
+  once in a spec); where ``n_experts`` does not divide, the router and
+  every expert, each expert's up and gate cut into blocks of groups (and
+  a packed down into blocks of output groups); the shared experts as the
+  FFN;
 * the contiguous cache: a block of slots (the DP axes: ``data``, and
   ``pod`` on a multi-pod mesh) and a block of rows
   (``kvseq`` -> ``model``), or of kv heads where the rows do not divide;
@@ -28,15 +37,16 @@ Under those rules each rank holds (the reference's specs, leaf for leaf):
   divide over ``model`` its leaf is whole (:meth:`Rules.resolve`).
 
 Under ``make_rules(mesh, "decode_long")`` (a batch of one) the slots are
-whole and the contiguous cache's rows shard over the DP axes and
-``model`` together (:meth:`Shards.rows_axes`).
+whole and the contiguous cache's rows (MLA's latent rows too) shard over
+the DP axes and ``model`` together (:meth:`Shards.rows_axes`).
 
 A step then moves activations and never a weight: the vocab-parallel
 lookup sums one non-zero term over ``model``; the q/k/v columns, the FFN
-hidden (before its k-WTA, which picks from the whole row) and head outputs
-are gathered over ``model``; a sequence-sharded cache's softmax combines
-each rank's maximum, sum of exponentials and weighted values over
-``model``; row-parallel partial outputs (MLA's o, the MoE's experts) are
+hidden (before its k-WTA, which picks from the whole row; a cut
+expert's too) and head outputs are gathered over ``model``; a
+sequence-sharded cache's softmax combines each rank's maximum, sum of
+exponentials and weighted values over the axes its rows split over;
+row-parallel partial outputs (MLA's o, the MoE's experts) are
 summed with :meth:`Shards.reduce_model`; the logits are gathered over
 the DP axes and ``model``.  The SSM mixers gather their projections'
 column blocks, take the sum of squares of a norm over the whole width

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 
 import _torch_serve_ranks as ranks
+from _torch_serve_ranks import config_of
 from repro.configs import get_config as jget_config
 from repro.launch.mesh import make_mesh as jmake_mesh
 from repro.launch.serve import Engine as JEngine
@@ -81,14 +82,16 @@ def ref_cache(jcache, key, n):
     return jcache[f"b{int(j) % n}"][name], int(j) // n
 
 
-def _serve_both(jobs, dims, workdir):
+def _serve_both(jobs, dims, workdir, spawn=None):
     """The port's ranks (started first, in a thread, every job in one
     spawn) and the JAX engine on mesh ``dims``, for each job ``(name,
     arch, cfg_kw, layouts)`` and each of its layouts.  Returns {name:
-    (jmesh, the JAX results by layout, the ranks' results)}."""
+    (jmesh, the JAX results by layout, the ranks' results)}.  ``spawn``
+    (the jobs' ``mesh_serve_family`` arguments -> the ranks' results)
+    runs the ranks another way."""
     made = []
     for name, arch, kw, layouts in jobs:
-        jcfg = jget_config(arch).reduced(**kw)
+        jcfg = config_of(jget_config, arch, kw)
         jparams, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
         made.append((name, arch, jax.tree.map(np.asarray, jparams), kw,
                      spec_of(jcfg.vocab_size), layouts))
@@ -96,9 +99,9 @@ def _serve_both(jobs, dims, workdir):
 
     def ranks_run():
         try:
-            port["out"] = run_ranks(ranks.mesh_serve_family,
-                                    math.prod(dims), workdir,
-                                    args=(dims, made), threads=1)
+            port["out"] = spawn(made) if spawn else run_ranks(
+                ranks.mesh_serve_family, math.prod(dims), workdir,
+                args=(dims, made), threads=1)
         except BaseException as e:      # raised again below
             port["error"] = e
 
@@ -107,7 +110,7 @@ def _serve_both(jobs, dims, workdir):
     jmesh = jmake_mesh(dims, ("data", "model"))
     ref = {}
     for name, arch, _, kw, spec, layouts in made:
-        jcfg = jget_config(arch).reduced(**kw)
+        jcfg = config_of(jget_config, arch, kw)
         ref[name] = {}
         for layout, lkw in layouts.items():
             jeng = JEngine(jcfg, jmesh, max_seq=32, n_slots=4, **lkw)
@@ -173,7 +176,7 @@ def check_cache(jmesh_ref_port, arch, layout, dims):
 
 
 def check_collectives(jmesh_ref_port, arch, layout, dims, kw=CFG_KW):
-    cfg = jget_config(arch).reduced(**kw)
+    cfg = config_of(jget_config, arch, kw)
     largest = 4 * cfg.padded_vocab          # the (B, vocab) logits' gather
     if cfg.use_mla and layout == "contiguous" and dims[1] > 1:
         # MLA's sharded softmax over the rows: every rank's maximum, sum

@@ -21,10 +21,11 @@ mLSTM blocks and one sLSTM block, two units) in float32, served through
 * no collective is handed a param or cache block (by storage);
 * ``Engine.serve`` raises the reference's "no fused prefill" on the mesh.
 
-With ``long_too`` (the module's fixture) one more job: zamba2 reduced
-stepped through a prompt of one row under the ``decode_long`` rules,
-whose shared attention's cache rows shard over ``data`` and ``model``
-together: the logits within 1e-5 of the single device's.
+With ``long_too`` (the module's fixture) two more jobs: zamba2 reduced
+and deepseek-v2-lite reduced (MLA's latent cache) stepped through a
+prompt of one row under the ``decode_long`` rules, whose attention cache
+rows shard over ``data`` and ``model`` together: the logits within 1e-5
+of the single device's.
 """
 
 import math
@@ -51,6 +52,8 @@ needs_devices = pytest.mark.skipif(jax.device_count() < 8,
 
 CFG_KW = dict(compute_dtype="float32", head_pad=0)
 ARCHS = ("zamba2-1.2b", "xlstm-350m")
+#: the MLA model of the ``decode_long`` jobs
+LONG_MLA = "deepseek-v2-lite-16b"
 GEN = 5
 
 
@@ -124,9 +127,13 @@ def runs(dims, long_too, models, tmp_path_factory):
     spawn) and the JAX engine on the module's mesh."""
     jobs = [(arch, models[arch][2], CFG_KW) for arch in ARCHS]
     toks = models[ARCHS[0]][3]
-    long = None
+    long = []
     if long_too:
-        long = ("zamba2-1.2b", models["zamba2-1.2b"][2], CFG_KW, toks[:1])
+        jcfg = jget_config(LONG_MLA).reduced(**CFG_KW)
+        mla = jax.tree.map(np.asarray,
+                           JT.init_model(jax.random.PRNGKey(0), jcfg)[0])
+        long = [("zamba2-1.2b", models["zamba2-1.2b"][2], CFG_KW, toks[:1]),
+                (LONG_MLA, mla, CFG_KW, toks[:1])]
     port = {}
 
     def ranks_run():
@@ -150,10 +157,12 @@ def runs(dims, long_too, models, tmp_path_factory):
         ref[arch] = {"static": jeng.generate_static(toks, GEN),
                      "params": jeng.params, "cache": jeng.new_cache(4),
                      "written": written, "step_logits": logits}
-    if long_too:
-        jone = JEngine(models["zamba2-1.2b"][0], jmake_mesh((1, 1),
-                       ("data", "model")), max_seq=32, n_slots=1)
-        ref["long"] = _jax_stepped(jone, toks[:1])[1]
+    ref["long"] = {}
+    for arch, *_ in long:
+        jone = JEngine(jget_config(arch).reduced(**CFG_KW),
+                       jmake_mesh((1, 1), ("data", "model")), max_seq=32,
+                       n_slots=1)
+        ref["long"][arch] = _jax_stepped(jone, toks[:1])[1]
     thread.join()
     if "error" in port:
         raise port["error"]
@@ -233,15 +242,18 @@ def test_ssm_serve_raises_as_the_reference_on_the_mesh(runs, arch):
             r[arch]["serve_error"]
 
 
-def check_decode_long(runs):
-    """zamba2 under ``decode_long``: the shared attention's cache rows
-    over both axes (a block of max_seq / ranks rows), the logits within
-    1e-5 of the single device's."""
+def check_decode_long(runs, arch="zamba2-1.2b"):
+    """zamba2 (or deepseek-v2-lite) under ``decode_long``: the shared
+    attention's cache rows (MLA's latent rows) over both axes (a block of
+    max_seq / ranks rows), the logits within 1e-5 of the single
+    device's."""
     dims, _, ref, port = runs
-    cfg = get_config("zamba2-1.2b").reduced(**CFG_KW)
-    shared = cfg.block_pattern.index("shared_attn")
+    cfg = get_config(arch).reduced(**CFG_KW)
+    leaf = "ckv" if cfg.use_mla else "k"
+    layer = 0 if cfg.use_mla else cfg.block_pattern.index("shared_attn")
     for r in port:
-        shape = r["long"]["cache"][f"{shared}/k"]
+        long = r["long"][arch]
+        shape = long["cache"][f"{layer}/{leaf}"]
         assert shape[:2] == (1, 32 // math.prod(dims)), (dims, shape)
-        np.testing.assert_allclose(r["long"]["logits"], ref["long"],
+        np.testing.assert_allclose(long["logits"], ref["long"][arch],
                                    atol=1e-5)

@@ -24,6 +24,7 @@ from repro_torch.sharding import NamedSharding, make_rules, use_rules
 from repro_torch.sharding.collectives import dp_group, gather_leaves, \
     group_size, summed
 from repro_torch.tree import flatten, leaves, unflatten
+from _torch_serve_ranks import config_of, mesh_serve_family
 
 TRAIN_SHAPE = ShapeConfig("t", 32, 4, "train")
 
@@ -255,7 +256,7 @@ def tp_train(rank, dims, cases, remat_check):
     tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=20, zero1=True)
     out = []
     for arch, kw, np_params, batch in cases:
-        cfg = get_config(arch).reduced(**kw)
+        cfg = config_of(get_config, arch, kw)
         cfg = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
             cfg.ffn_sparsity, kwta_impl="topk"))
         full = train_params_from_jax(np_params, cfg, device="cpu")
@@ -322,6 +323,53 @@ def tp_train(rank, dims, cases, remat_check):
                    step=int(opt["step"]))
         out.append(rec)
     return out
+
+
+def trainer_round_trip(dims, cfg_kw, ckpt_dir):
+    """A Trainer of smollm reduced (``config_of``'s kwargs) on mesh
+    ``dims``: one step, a checkpoint, a second Trainer resuming it and
+    taking one more step.  Returns whether the resumed state equals the
+    saved one, the block routes the resumed rank holds, the checkpoint's
+    leaf paths, and the loss of the step after the resume."""
+    cfg = config_of(get_config, "smollm-360m", cfg_kw)
+    tcfg = TrainConfig(ckpt_dir=ckpt_dir)
+
+    def batches(step):
+        from repro_torch.data import batch_for
+        return batch_for(cfg, TRAIN_SHAPE, step, seed=0)
+
+    first = Trainer(cfg, tcfg, dims, TRAIN_SHAPE, device="cpu")
+    first.run(1, batches, log=lambda *a: None)
+    first.save(async_=False)
+    saved = first.full_state()
+    again = Trainer(cfg, tcfg, dims, TRAIN_SHAPE, device="cpu")
+    resumed = again.try_resume()
+    state = again.full_state()
+    out = {"resumed": resumed,
+           "equal": [k for k, _ in flatten(saved)] ==
+           [k for k, _ in flatten(state)] and all(
+               torch.equal(a, b) for a, b in zip(leaves(saved),
+                                                 leaves(state))),
+           "routes": [k for k, _ in flatten(again.params)
+                      if k.endswith("block_route")],
+           "saved": [k for k, _ in flatten(saved["params"])]}
+    # (the full state's whole leaves are the live params, which the step
+    # updates in place)
+    out["loss"] = float(again.train_step({
+        k: torch.from_numpy(canonical(v))
+        for k, v in batches(again.step).items()})["loss"])
+    return out
+
+
+def mesh_cuts(rank, dims, train_cases, serve_jobs, resume):
+    """The training step (:func:`tp_train`'s records, under "train"), the
+    engine (:func:`mesh_serve_family`'s, under "serve") and
+    :func:`trainer_round_trip` of ``resume`` (its config kwargs and
+    checkpoint directory, under "resume") on mesh ``dims``, in one
+    spawn."""
+    return {"train": tp_train(rank, dims, train_cases, False),
+            "serve": mesh_serve_family(rank, dims, serve_jobs),
+            "resume": trainer_round_trip(dims, *resume)}
 
 
 def vocab_parallel_ce(rank, dims, logits, labels, mask):

@@ -3,6 +3,8 @@
 ``repro_torch.launch.ranks.run_ranks`` spawned and joined to a gloo
 process group on the CPU.  No JAX: the tests hand it numpy arrays."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -11,6 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.layers import drop_partition_major, partition_major
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import Engine
+from repro_torch.models.transformer import drop_block_routes
 from repro_torch.runtime.scheduler import Request, SamplingParams
 from repro_torch.sharding.collectives import observe_collectives
 from repro_torch.tree import flatten, leaves
@@ -20,6 +23,19 @@ SAMPLED = dict(temperature=0.8, top_k=5)
 
 def _np(tree):
     return {k: v.numpy().copy() for k, v in flatten(tree)}
+
+
+def config_of(get, arch, kw):
+    """``get(arch).reduced(**kw)`` (``get`` either package's
+    ``get_config``), a ``route_share`` in ``kw`` set on its FFN's
+    sparsity."""
+    kw = dict(kw)
+    share = kw.pop("route_share", None)
+    cfg = get(arch).reduced(**kw)
+    if share is not None:
+        cfg = dataclasses.replace(cfg, ffn_sparsity=dataclasses.replace(
+            cfg.ffn_sparsity, route_share=share))
+    return cfg
 
 
 def requests(spec, sampled):
@@ -137,12 +153,12 @@ def mesh_serve_family(rank, dims, jobs):
     """One mesh, models of any attention family (MLA, MoE, the int8
     cache): for each job ``(name, arch, np_params, cfg_kw, spec,
     layouts)`` and each of its layouts, the greedy tokens of ``spec``
-    (every collective recorded), the rank's param blocks and its fresh
-    cache blocks, under ``name``."""
+    (every collective recorded), the rank's param blocks (without their
+    ``block_route``) and its fresh cache blocks, under ``name``."""
     mesh = make_mesh(dims, ("data", "model"), "cpu")
     out = {"coords": mesh.coords}
     for name, arch, np_params, cfg_kw, spec, layouts in jobs:
-        cfg = get_config(arch).reduced(**cfg_kw)
+        cfg = config_of(get_config, arch, cfg_kw)
         params = params_from_jax(np_params, cfg, device="cpu")
         out[name] = {}
         for layout, kw in layouts.items():
@@ -154,7 +170,8 @@ def mesh_serve_family(rank, dims, jobs):
             out[name][layout] = {
                 "greedy": {u: list(v) for u, v in toks.items()},
                 "collectives": rec.summary(stats["decode_steps"]),
-                "params": _np(drop_partition_major(eng.params)),
+                "params": _np(drop_block_routes(
+                    drop_partition_major(eng.params))),
                 "packed_p": _shared_packed_p(eng.params),
                 "cache": _np(eng.new_paged_cache() if layout == "paged"
                              else eng.new_cache(4))}
@@ -221,9 +238,10 @@ def mesh_serve_ssm(rank, dims, jobs, static, long=None):
     ``static`` (prompts, new tokens; every collective recorded), the
     rank's param blocks and fresh cache blocks, its cache blocks and the
     logits after stepping through the prompts, and what ``Engine.serve``
-    raises.  With ``long`` ``(arch, np_params, cfg_kw, prompt)``, under
-    "long", the logits of stepping through ``prompt`` (one row) under
-    the ``decode_long`` rules and the rank's cache shapes."""
+    raises.  With ``long``, a list of ``(arch, np_params, cfg_kw,
+    prompt)``, under "long" and each arch, the logits of stepping through
+    ``prompt`` (one row) under the ``decode_long`` rules and the rank's
+    cache shapes."""
     from repro_torch.models import transformer as T
     from repro_torch.sharding import make_rules
     from repro_torch.sharding.serving import Shards
@@ -250,8 +268,8 @@ def mesh_serve_ssm(rank, dims, jobs, static, long=None):
         except NotImplementedError as e:
             res["serve_error"] = str(e)
         out[arch] = res
-    if long is not None:
-        arch, np_params, cfg_kw, prompt = long
+    out["long"] = {}
+    for arch, np_params, cfg_kw, prompt in long or ():
         cfg = get_config(arch).reduced(**cfg_kw)
         shards = Shards(make_rules(mesh, "decode_long"), 32)
         params = T.param_blocks(params_from_jax(np_params, cfg,
@@ -259,7 +277,7 @@ def mesh_serve_ssm(rank, dims, jobs, static, long=None):
                                 cfg, shards.rules)
         cache = T.init_cache(cfg, 1, 32, "cpu", shards.rules)
         cache, logits = _stepped(params, cache, prompt, cfg, shards)
-        out["long"] = {"logits": logits, "cache": {
+        out["long"][arch] = {"logits": logits, "cache": {
             k: v.shape for k, v in cache.items()}}
     return out
 

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import _torch_dist_ranks as ranks
+from _torch_serve_ranks import config_of
 from repro.configs import get_config as jget_config
 from repro.data import batch_for as j_batch_for
 from repro.models import transformer as JT
@@ -61,24 +62,26 @@ def cfg_kw(arch):
     return dict(KW.get(arch, {}), **F32)
 
 
-def reference(arch):
+def reference(arch, kw=None):
     """The reference's loss, gradients (the port's layout, path -> numpy)
     and global gradient norm, with the numpy weights and batch the ranks
-    take."""
-    jcfg = _topk(jget_config(arch).reduced(**cfg_kw(arch)))
+    take; the config ``reduced(**kw)`` (:func:`_torch_serve_ranks.
+    config_of`), by default the arch's :func:`cfg_kw`."""
+    kw = cfg_kw(arch) if kw is None else kw
+    jcfg = _topk(config_of(jget_config, arch, kw))
     jparams, _ = JT.init_model(jax.random.PRNGKey(0), jcfg)
     batch = j_batch_for(jcfg, _Shape, step=0)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss, _), jgrads = jax.jit(jax.value_and_grad(
         lambda p: JT.loss_fn(p, jb, jcfg), has_aux=True,
         allow_int=True))(jparams)
-    cfg = _topk(get_config(arch).reduced(**cfg_kw(arch)))
+    cfg = _topk(config_of(get_config, arch, kw))
     grads = {k: t.numpy() for k, t in flatten(train_params_from_jax(
         _np(jgrads), cfg, device="cpu")) if t.is_floating_point()}
     norm = float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
                              for g in grads.values())))
     return {"loss": float(loss), "grads": grads, "norm": norm,
-            "case": (arch, cfg_kw(arch), _np(jparams), batch)}
+            "case": (arch, kw, _np(jparams), batch)}
 
 
 def run(archs, dims, workdir, remat_check=False):

@@ -8,9 +8,11 @@ And, with no ranks: the sharded softmax's combine and the vocab-parallel
 lookup against their unsharded functions over a list of per-rank
 partials; a packed layer on a block of output groups against the whole
 layer's columns (a route of one table kept whole, a route of G tables cut
-with the groups, a bias cut with them); a one-rank mesh's engine bit for
-bit the engine without one; a mesh of more than one rank with no process
-group refused."""
+with the groups, a route of 2 tables kept whole beside the block's own
+``block_route``, a bias cut with them); deepseek-v2-lite's blocks under
+``decode_long`` on (2, 2) against the reference's shards; a one-rank
+mesh's engine bit for bit the engine without one; a mesh of more than one
+rank with no process group refused."""
 
 import numpy as np
 import pytest
@@ -18,7 +20,8 @@ import torch
 
 import _torch_serve_ranks as ranks
 from _mesh_serve_cases import (  # noqa: F401  (fixtures and tests)
-    model, runs, test_cache_blocks_equal_the_reference_shards,
+    model, needs_devices, runs,
+    test_cache_blocks_equal_the_reference_shards,
     test_decode_collectives_move_no_weight,
     test_generate_static_matches_the_jax_engine_on_the_mesh,
     test_param_blocks_equal_the_reference_shards,
@@ -27,7 +30,10 @@ from _mesh_serve_cases import CFG_KW, MODES, _spec
 from repro_torch.configs import get_config
 from repro_torch.core import SparsityConfig
 from repro_torch.core import functional as F
-from repro_torch.core.layers import packed_linear_apply, packed_linear_init
+from repro_torch.bridge import params_from_jax
+from repro_torch.core.layers import (apply_kwta, block_route,
+                                     drop_partition_major,
+                                     packed_linear_apply, packed_linear_init)
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.launch.serve import Engine
 from repro_torch.models import attention as A
@@ -73,19 +79,26 @@ def test_vocab_parallel_lookup_equals_the_lookup():
         assert torch.equal(sum(parts), want)
 
 
-@pytest.mark.parametrize("route_share", [0, 1])
+@pytest.mark.parametrize("route_share", [0, 1, 8])
 def test_packed_layer_on_a_block_of_groups(route_share):
     """A block of groups [g0, g1) computes columns [g0·N, g1·N) of the
-    whole layer (``decompress`` puts group g, slot s at column g·N + s);
-    a route of one table stays whole, a route of G tables is cut with the
-    groups, the bias with them."""
-    sp = SparsityConfig(n=4, route_share=route_share)
+    whole layer (``decompress`` puts group g, slot s at column g·N + s),
+    on the Hadamard path and on the sparse-sparse path of a k-sparse
+    input: a route of one table stays whole, a route whose tables divide
+    over the blocks is cut with the groups, and a route of several tables
+    that does not divide (R = 8 of 16 groups over 4 blocks: 2 tables) is
+    kept whole beside the block's ``block_route``, as the reference's
+    rules place them; the bias is cut with the groups."""
+    sp = SparsityConfig(n=4, route_share=route_share, kwta_impl="topk")
     gen = torch.Generator().manual_seed(2)
     p = packed_linear_init(gen, 32, 64, sp, bias=True, seed=3)
     p["b"] = torch.randn(64, generator=gen)
     x = torch.randn((5, 32), generator=gen)
+    xs = apply_kwta(x, sp)
     g, n = p["packed"].shape[0], p["packed"].shape[2]
+    gr = p["route"].shape[0]
     whole = packed_linear_apply(p, x, sp)
+    whole_s = packed_linear_apply(p, xs, sp, x_is_sparse=True)
     dense = x @ F.decompress(p["packed"], p["route"]) + p["b"]
     torch.testing.assert_close(whole, dense)
     for m in (2, 4):
@@ -94,12 +107,70 @@ def test_packed_layer_on_a_block_of_groups(route_share):
             sl = slice(i * w, (i + 1) * w)
             blk = {"packed": p["packed"][sl], "b": p["b"][sl.start * n:
                                                           sl.stop * n],
-                   "route": p["route"] if p["route"].shape[0] == 1
-                   else p["route"][sl]}
+                   "route": p["route"][i * gr // m:(i + 1) * gr // m]
+                   if gr % m == 0 else p["route"]}
+            if gr > 1 and gr % m:
+                blk["block_route"] = block_route(p["route"], g, sl.start,
+                                                 sl.stop)
             blk["packed_p"] = blk["packed"].transpose(0, 1).contiguous()
-            got = packed_linear_apply(blk, x, sp)
-            torch.testing.assert_close(got, whole[:, sl.start * n:
-                                                  sl.stop * n])
+            cols = slice(sl.start * n, sl.stop * n)
+            torch.testing.assert_close(packed_linear_apply(blk, x, sp),
+                                       whole[:, cols])
+            torch.testing.assert_close(
+                packed_linear_apply(blk, xs, sp, x_is_sparse=True),
+                whole_s[:, cols])
+
+
+@needs_devices
+def test_mla_blocks_under_decode_long_are_the_reference_shards(monkeypatch):
+    """Under ``decode_long`` on (2, 2) deepseek-v2-lite reduced's param
+    blocks and its contiguous latent cache blocks (``T.param_blocks`` and
+    ``T.init_cache`` with the rules) are the reference's shards, bit for
+    bit: the latent rows split over ``data`` and ``model`` together, a
+    block of max_seq / 4 rows a rank."""
+    import jax
+    from jax.sharding import NamedSharding as JNamedSharding
+    from _mesh_serve_moe_cases import _shard, ref_cache, ref_param
+    from repro.configs import get_config as jget_config
+    from repro.launch.mesh import make_mesh as jmake_mesh
+    from repro.models import transformer as JT
+    from repro.sharding import make_rules as jmake_rules
+    from repro.sharding.context import is_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_rules
+    from repro_torch.tree import flatten
+    kw = dict(compute_dtype="float32", param_dtype="float32")
+    jcfg = jget_config("deepseek-v2-lite-16b").reduced(**kw)
+    cfg = get_config("deepseek-v2-lite-16b").reduced(**kw)
+    jmesh = jmake_mesh((2, 2), ("data", "model"))
+    jrules = jmake_rules(jmesh, "decode_long")
+
+    def placed(tree, specs):
+        return jax.tree.map(lambda sp, a: jax.device_put(a, JNamedSharding(
+            jmesh, jrules.spec_for(sp, a.shape))), specs, tree,
+            is_leaf=is_spec)
+
+    jparams = placed(*JT.init_model(jax.random.PRNGKey(0), jcfg))
+    jcache = placed(*JT.init_cache(jcfg, 1, 32))
+    whole = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                            device="cpu")
+    n = len(cfg.block_pattern)
+    for rank in range(4):
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: rank)
+        mesh = Mesh((2, 2), ("data", "model"), torch.device("cpu"),
+                    groups={("model",): None})
+        rules = make_rules(mesh, "decode_long")
+        dev = jmesh.devices[mesh.coords["data"], mesh.coords["model"]]
+        blocks = T.param_blocks(whole, cfg, rules)
+        for key, block in flatten(drop_partition_major(blocks)):
+            arr, unit = ref_param(jparams, key, n)
+            assert np.array_equal(block.numpy(), _shard(arr, dev, unit)), \
+                (rank, key)
+        cache = T.init_cache(cfg, 1, 32, "cpu", rules)
+        for key, block in flatten(cache):
+            assert block.shape[1] == 32 // 4, (rank, key, block.shape)
+            arr, unit = ref_cache(jcache, key, n)
+            assert np.array_equal(block.numpy(), _shard(arr, dev, unit))
 
 
 def test_one_rank_mesh_is_the_engine_bit_for_bit():
@@ -156,17 +227,3 @@ def test_other_families_raise_on_a_mesh(arch, monkeypatch):
     if any(k != "attn" for k in cfg.block_pattern):
         with pytest.raises(NotImplementedError, match="no fused prefill"):
             eng.serve([Request(uid=0, prompt=[1, 2], max_new_tokens=2)])
-
-
-def test_mla_refuses_its_latent_rows_over_the_dp_axes():
-    """Under ``decode_long`` the contiguous cache's rows shard over the DP
-    axes and ``model``; MLA's sharded softmax combines over ``model``
-    alone, so its blocks are refused there (and drawn under ``decode``)."""
-    from repro_torch.models import transformer as T
-    from repro_torch.sharding import make_rules
-    cfg = get_config("deepseek-v2-lite-16b").reduced()
-    mesh = Mesh((2, 2), ("data", "model"), torch.device("cpu"))
-    T._check_mesh(cfg, make_rules(mesh, "decode"))
-    with pytest.raises(NotImplementedError, match="decode_long"):
-        T.init_model(cfg, device="cpu",
-                     rules=make_rules(mesh, "decode_long"))

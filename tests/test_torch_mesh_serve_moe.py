@@ -73,15 +73,18 @@ class _ThreadShards:
         self.board, self.barrier = board, barrier
 
     def size(self, axis):
-        return self.m if axis == "model" else 1
+        return self.m if axis in ("model", ("model",)) else 1
 
     def block(self, axis, n):
         k = n // self.size(axis)
-        lo = (self.i if axis == "model" else 0) * k
+        lo = (self.i if self.size(axis) > 1 else 0) * k
         return lo, lo + k
 
     def kv_split(self, paged, n_kv_heads):
         return None if paged else "rows"
+
+    def rows_axes(self, paged, n_kv_heads):
+        return ("model",)
 
     def _exchange(self, x):
         self.board[self.i] = x
@@ -94,6 +97,10 @@ class _ThreadShards:
         parts = torch.stack(self._exchange(x.clone()))
         x.copy_(parts.sum(0) if op == "sum" else parts.amax(0))
         return x
+
+    def gather(self, x, dims):
+        (d,) = dims
+        return torch.cat(self._exchange(x), dim=d)
 
     def gather_last(self, *xs):
         parts = self._exchange(xs)

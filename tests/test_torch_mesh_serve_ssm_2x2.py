@@ -1,8 +1,8 @@
 """The port's ``Engine`` on the SSM/hybrid patterns (zamba2, xLSTM) on
 mesh (2, 2) over gloo on the CPU against the JAX ``Engine`` on the same
 mesh: the checks of tests/_mesh_serve_ssm_cases.py. With the
-decode_long job: zamba2's shared attention cache rows over data and
-model together."""
+decode_long jobs: zamba2's shared attention cache rows and
+deepseek-v2-lite's latent cache rows over data and model together."""
 
 import pytest
 
@@ -28,3 +28,8 @@ def long_too():
 @needs_devices
 def test_zamba2_decode_long_splits_the_shared_rows_over_both_axes(runs):
     check_decode_long(runs)
+
+
+@needs_devices
+def test_mla_decode_long_splits_the_latent_rows_over_both_axes(runs):
+    check_decode_long(runs, "deepseek-v2-lite-16b")
